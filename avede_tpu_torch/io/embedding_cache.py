@@ -1,0 +1,262 @@
+"""Persistent frame-embedding cache — ``data/embeddings/<video_id>.npz``
+(counterpart of ``avede_tpu/io/embedding_cache.py``, same on-disk
+format, so both packages read each other's files; the model tag keeps
+their tables apart).
+
+``<video_id>.npz`` (numpy zip) containing:
+- ``embeddings``  float32 [N, D] — unit-norm frame embeddings, OR
+  (``settings.EMBEDDING_CACHE_INT8``, the default) ``embeddings_int8``
+  int8 [N, D] + ``scales`` f32 [N] — symmetric per-row quantization
+  (``quantize_rows_np``), 4× smaller storage at ≲1e-3 cosine error
+- ``timestamps``  float64 [N]    — seconds per sampled frame
+- ``valid``       bool [N]       — OPTIONAL row mask: present only for
+  sparse entries (the sparse cold scan embeds window-middle rows only;
+  unfilled rows are zero vectors until the lazy backfill completes
+  them — ``complete_rows``)
+- ``meta``        JSON bytes     — {version, model_tag, frame_hw,
+                                    sample_rate, dtype, complete,
+                                    dedup_gated, created}
+
+A cache entry is valid only if model tag + sampling parameters match.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import OrderedDict
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..utils.config import settings
+from ..utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+FORMAT_VERSION = 1
+
+
+def table_tag(model_tag: str) -> str:
+    """Model tag for per-frame embedding TABLES.
+
+    Dedup gating changes table values (dup frames carry their run
+    representative's embedding), so the eps is part of the key. Every
+    producer/consumer of ``<video_id>.npz`` tables (Phase1Scan,
+    ImageMatcher, library search) must use THIS function — divergent
+    tags on the same file would make the paths perpetually invalidate
+    and overwrite each other's entries.
+
+    Not every producer under a dedup tag actually gates: the sparse
+    cold scan embeds its middle rows exactly, lazy backfill embeds
+    exactly, and ImageMatcher embeds every frame exactly — only the
+    dense scan with eps>0 writes gated (approximate) values. Exact
+    tables are at least as accurate as gated ones, so an exact table
+    superseding a gated one under the same tag is by design; which
+    producer wrote an entry is recorded in ``meta["dedup_gated"]``."""
+    eps = settings.SCAN_DEDUP_EPS
+    return f"{model_tag}|dedup{eps:g}" if eps > 0 else model_tag
+
+
+def quantize_rows_np(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """[N, D] float → (int8 [N, D], f32 scales [N]) — per-ROW symmetric
+    int8 (amax/127 scale, 1e-12 floor, round half to even): the port's
+    own copy of ``avede_tpu/ops/quant.py:44-54``, whose module imports
+    JAX."""
+    amax = np.max(np.abs(rows), axis=1)
+    scales = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
+    q = np.clip(np.round(rows / scales[:, None]), -127, 127
+                ).astype(np.int8)
+    return q, scales
+
+
+class EmbeddingCache:
+    def __init__(self, cache_dir: Optional[str] = None) -> None:
+        self.dir = Path(cache_dir or settings.EMBEDDING_DIR)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        # in-memory tier: without it each warm query re-reads and
+        # re-dequantizes the .npz from disk. Bounded by bytes, LRU.
+        # Values are (emb, ts, valid) — ``valid`` is None for complete
+        # tables, else a bool row mask (sparse cold-scan entries).
+        self._mem: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._mem_bytes = 0
+        self._mem_lock = threading.Lock()
+
+    def _path(self, video_id: str) -> Path:
+        return self.dir / f"{video_id}.npz"
+
+    def _mem_put(self, key: tuple, emb: np.ndarray, ts: List[float],
+                 valid: Optional[np.ndarray] = None) -> None:
+        cap = settings.EMBEDDING_MEM_CACHE_MB * (1 << 20)
+        if cap <= 0 or emb.nbytes > cap:
+            return
+        with self._mem_lock:
+            if key in self._mem:
+                self._mem_bytes -= self._mem[key][0].nbytes
+                del self._mem[key]
+            self._mem[key] = (emb, ts, valid)
+            self._mem_bytes += emb.nbytes
+            while self._mem_bytes > cap and self._mem:
+                _, (old, _ts, _v) = self._mem.popitem(last=False)
+                self._mem_bytes -= old.nbytes
+
+    def _mem_drop(self, video_id: str) -> None:
+        with self._mem_lock:
+            for key in [k for k in self._mem if k[0] == video_id]:
+                self._mem_bytes -= self._mem[key][0].nbytes
+                del self._mem[key]
+
+    def put(self, video_id: str, embeddings: np.ndarray,
+            timestamps: List[float], model_tag: str,
+            frame_hw: Tuple[int, int], sample_rate: int,
+            valid: Optional[np.ndarray] = None,
+            gated: bool = False) -> np.ndarray:
+        """Store the table; returns the CANONICAL stored values (the
+        int8 round trip when quantization is on), so callers that keep
+        using the table in memory agree exactly with later cache
+        reads — near-tie result ordering stays deterministic across
+        cold and warm queries.
+
+        ``valid`` (bool [N]) marks a SPARSE entry: only masked rows
+        hold real embeddings (the sparse cold scan embeds window
+        middles only — ``Phase1Scan``); an all-true or None mask stores
+        a complete table. ``get`` serves complete entries only;
+        ``get_entry`` also serves sparse ones.
+
+        ``gated=True`` records (meta provenance only — no read path
+        keys on it) that rows may carry dedup-run-representative
+        values rather than exact embeddings: the dense scan with
+        eps>0. Exact producers writing under the same dedup tag
+        supersede gated tables by design — see ``table_tag``."""
+        emb = np.ascontiguousarray(np.asarray(embeddings, dtype=np.float32))
+        if valid is not None:
+            valid = np.asarray(valid, dtype=bool)
+            if bool(valid.all()):
+                valid = None
+        int8 = settings.EMBEDDING_CACHE_INT8
+        meta = {
+            "version": FORMAT_VERSION,
+            "model_tag": model_tag,
+            "frame_hw": list(frame_hw),
+            "sample_rate": int(sample_rate),
+            "dtype": "int8" if int8 else "float32",
+            "complete": valid is None,
+            "dedup_gated": bool(gated),
+            "created": time.time(),
+        }
+        path = self._path(video_id)
+        arrays = {
+            "timestamps": np.asarray(timestamps, dtype=np.float64),
+            "meta": np.frombuffer(json.dumps(meta).encode(),
+                                  dtype=np.uint8),
+        }
+        if valid is not None:
+            arrays["valid"] = valid
+        if int8 and len(emb):
+            q, scales = quantize_rows_np(emb)         # per-ROW scales
+            arrays["embeddings_int8"] = q
+            arrays["scales"] = scales
+            emb = q.astype(np.float32) * scales[:, None]
+        else:
+            arrays["embeddings"] = emb
+        np.savez_compressed(path, **arrays)
+        ts_list = [float(t) for t in timestamps]
+        # one file per video: entries under any other tag/rate are now
+        # stale in the memory tier too
+        self._mem_drop(video_id)
+        self._mem_put((video_id, model_tag, int(sample_rate)), emb,
+                      ts_list, valid)
+        logger.info("Cached %d embeddings for %s (%s%s)", len(emb),
+                    video_id, model_tag,
+                    "" if valid is None
+                    else f", sparse {int(valid.sum())}/{len(valid)} rows")
+        return emb
+
+    def get(self, video_id: str, model_tag: str, sample_rate: int
+            ) -> Optional[Tuple[np.ndarray, List[float]]]:
+        """Complete tables only — sparse cold-scan entries (see ``put``)
+        are invisible here, so every pre-existing consumer keeps its
+        all-rows-are-real contract. ``get_entry`` serves both."""
+        ent = self.get_entry(video_id, model_tag, sample_rate)
+        if ent is None or ent[2] is not None:
+            return None
+        return ent[0], ent[1]
+
+    def get_entry(self, video_id: str, model_tag: str, sample_rate: int
+                  ) -> Optional[Tuple[np.ndarray, List[float],
+                                      Optional[np.ndarray]]]:
+        """→ (emb, ts, valid) — ``valid`` is None for complete tables,
+        else the bool row mask of a sparse entry (unfilled rows are
+        zero vectors)."""
+        key = (video_id, model_tag, int(sample_rate))
+        with self._mem_lock:
+            if key in self._mem:
+                self._mem.move_to_end(key)
+                emb, ts, valid = self._mem[key]
+                return emb, list(ts), valid
+        path = self._path(video_id)
+        if not path.exists():
+            return None
+        try:
+            with np.load(path) as z:
+                meta = json.loads(bytes(z["meta"].tobytes()).decode())
+                if (meta.get("version") != FORMAT_VERSION
+                        or meta.get("model_tag") != model_tag
+                        or meta.get("sample_rate") != sample_rate):
+                    logger.info("Embedding cache stale for %s "
+                                "(tag/rate/version mismatch)", video_id)
+                    return None
+                if "embeddings_int8" in z:
+                    emb = (z["embeddings_int8"].astype(np.float32)
+                           * z["scales"][:, None])
+                else:
+                    emb = np.asarray(z["embeddings"], np.float32)
+                ts = [float(t) for t in z["timestamps"]]
+                valid = (np.asarray(z["valid"], bool)
+                         if not meta.get("complete", True) else None)
+                self._mem_put(key, emb, ts, valid)
+                return emb, ts, valid
+        except (OSError, ValueError, KeyError, json.JSONDecodeError) as exc:
+            logger.warning("Corrupt embedding cache for %s: %s", video_id, exc)
+            return None
+
+    def complete_rows(self, video_id: str, model_tag: str,
+                      sample_rate: int, rows: np.ndarray,
+                      row_idx: np.ndarray,
+                      frame_hw: Optional[Tuple[int, int]] = None
+                      ) -> Optional[np.ndarray]:
+        """Fill rows of a sparse entry (lazy backfill of a sparse cold
+        scan — ``Phase1Scan.frame_embeddings(rows="full")``). Returns
+        the canonical merged table (complete if every row is now
+        valid), or None when no entry exists under this key.
+
+        Merging re-quantizes the whole table; the per-row amax/127
+        scheme is exactly idempotent on already-round-tripped rows, so
+        previously-stored rows keep their byte-identical values.
+
+        Completed tables are exact (sparse entries and backfill rows
+        are both embedded without dedup gating), so the merged entry
+        is stored with ``dedup_gated=False`` provenance."""
+        ent = self.get_entry(video_id, model_tag, sample_rate)
+        if ent is None:
+            return None
+        emb, ts, valid = ent
+        if valid is None:
+            return emb                      # already complete
+        if frame_hw is None:
+            frame_hw = (0, 0)
+            try:
+                with np.load(self._path(video_id)) as z:
+                    meta = json.loads(bytes(z["meta"].tobytes()).decode())
+                    frame_hw = tuple(meta.get("frame_hw", (0, 0)))
+            except (OSError, ValueError, KeyError, json.JSONDecodeError):
+                pass
+        merged = np.array(emb, dtype=np.float32, copy=True)
+        row_idx = np.asarray(row_idx, dtype=np.int64)
+        merged[row_idx] = np.asarray(rows, dtype=np.float32)
+        new_valid = valid.copy()
+        new_valid[row_idx] = True
+        return self.put(video_id, merged, ts, model_tag, frame_hw,
+                        sample_rate, valid=new_valid)

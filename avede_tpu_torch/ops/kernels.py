@@ -1,0 +1,201 @@
+"""Hand-written CUDA kernels of the hot ops, with their plain versions
+(counterpart of ``avede_tpu/ops/pallas_kernels.py``).
+
+- ``fused_patch_embed`` — ``csrc/patch_embed.cu``, replacing
+  ``fused_patch_embed`` / ``_patch_matmul_kernel``
+  (``avede_tpu/ops/pallas_kernels.py:61-106``): uint8 or 0..255 float
+  frames → patchify → ``@ W' + b'``, with ``/255`` and the CLIP
+  normalisation folded into ``W'`` and ``b'`` (``fold_for_uint8``). The
+  kernel gathers each patch row from the frame tensor while it loads
+  its GEMM tile, so the patchified matrix never exists in device
+  memory. Bound by operations on the H100 (f32 SIMT GEMM).
+- ``cosine_scores`` — ``csrc/cosine_scores.cu``, replacing
+  ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``): the
+  ``[N, D] · [D]`` (or ``[Q, D]``) scoring product of every warm query,
+  with padded rows written as -inf. Bound by bytes.
+
+Each wrapper takes its plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .preprocess import CLIP_MEAN, CLIP_STD
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_fns: dict = {}       # (library, symbol) → ctypes function with argtypes set
+
+
+def _entry(lib_name: str, fn_name: str, argtypes) -> Callable[..., int]:
+    key = (lib_name, fn_name)
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(_build.load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# fused patch embed
+# ---------------------------------------------------------------------------
+
+def fold_for_uint8(kernel: torch.Tensor, mean: np.ndarray = CLIP_MEAN,
+                   std: np.ndarray = CLIP_STD
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold /255 + normalize into flattened patch weights.
+
+    kernel: [P, P, 3, D] (HWIO) → (W2 [P·P·3, D], bias_delta [D]) such
+    that ``patchify(u8) @ W2 + bias_delta == conv(normalize(u8/255),
+    kernel)``."""
+    p, _, c, d = kernel.shape
+    kernel = kernel.float()
+    mean = torch.as_tensor(mean, dtype=torch.float32,
+                           device=kernel.device).reshape(1, 1, 3, 1)
+    std = torch.as_tensor(std, dtype=torch.float32,
+                          device=kernel.device).reshape(1, 1, 3, 1)
+    k2 = kernel / (255.0 * std)
+    bias_delta = -torch.sum(kernel * mean / std, dim=(0, 1, 2))
+    return k2.reshape(p * p * c, d), bias_delta
+
+
+def _patchify(frames: torch.Tensor, patch: int) -> torch.Tensor:
+    """[N, S, S, C] → [N, G·G, P·P·C], patch rows in (py, px, c) order."""
+    n, s, _, c = frames.shape
+    g = s // patch
+    x = frames.reshape(n, g, patch, g, patch, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, g * g, patch * patch * c)
+
+
+def fused_patch_embed_plain(frames: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor, patch: int) -> torch.Tensor:
+    """Plain version of the kernel: patchify + ``@ W2 + b2`` in f32."""
+    return _patchify(frames.float(), patch) @ w2.float() + b2.float()
+
+
+def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor, patch: int) -> torch.Tensor:
+    """[N, S, S, 3] frames (uint8 or 0..255 f32) + folded weights
+    (``fold_for_uint8``; ``b2`` = model bias + fold delta) → f32
+    [N, G·G, D] patch embeddings of the normalized frames."""
+    n, s, s2, c = frames.shape
+    k, d = w2.shape
+    if s != s2 or c != 3 or s % patch or k != patch * patch * 3 \
+            or b2.shape != (d,):
+        raise ValueError(f"bad shapes: frames {tuple(frames.shape)}, "
+                         f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}, "
+                         f"patch {patch}")
+    if frames.device.type == "cpu":
+        return fused_patch_embed_plain(frames, w2, b2, patch)
+    _require_cuda(frames, w2, b2)
+    if w2.dtype != torch.float32 or b2.dtype != torch.float32:
+        raise ValueError("folded weights must be float32")
+    if frames.dtype == torch.float32:
+        name = "avede_patch_embed_f32"
+    elif frames.dtype == torch.uint8:
+        name = "avede_patch_embed_u8"
+    else:
+        raise ValueError(f"frames must be float32 or uint8, not "
+                         f"{frames.dtype}")
+    g = s // patch
+    out = torch.empty((n, g * g, d), dtype=torch.float32,
+                      device=frames.device)
+    if n == 0:
+        return out
+    fn = _entry("patch_embed", name, [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+    _build.check(fn(frames.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                    out.data_ptr(), n, s, patch, d, _stream(frames)),
+                 name)
+    fused_patch_embed.launches += 1
+    return out
+
+
+fused_patch_embed.launches = 0
+
+
+def patch_embed_reference(frames_u8: torch.Tensor, kernel: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """Explicit normalize + patch projection with the unfolded HWIO
+    kernel (the conv of the reference) — for parity tests."""
+    mean = torch.as_tensor(CLIP_MEAN, device=frames_u8.device)
+    std = torch.as_tensor(CLIP_STD, device=frames_u8.device)
+    x = (frames_u8.float() / 255.0 - mean) / std
+    p, _, c, d = kernel.shape
+    return _patchify(x, p) @ kernel.float().reshape(p * p * c, d) + bias
+
+
+# ---------------------------------------------------------------------------
+# cosine scores
+# ---------------------------------------------------------------------------
+
+def cosine_scores_plain(emb: torch.Tensor, queries: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain version of the kernel: ``[N, D] × [Q, D] → [N, Q]`` f32,
+    -inf where ``valid`` is false."""
+    s = emb.float() @ queries.float().T
+    if valid is not None:
+        s = torch.where(valid[:, None], s,
+                        torch.full_like(s, float("-inf")))
+    return s
+
+
+def cosine_scores(emb: torch.Tensor, queries: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 ``[N, D] × [D] → [N]`` (or ``× [Q, D] → [N, Q]``) dot
+    products; rows where ``valid`` (bool [N]) is false score -inf."""
+    squeeze = queries.dim() == 1
+    q = queries[None, :] if squeeze else queries
+    n, d = emb.shape
+    if q.shape[1] != d or (valid is not None and valid.shape != (n,)):
+        raise ValueError(f"bad shapes: emb {tuple(emb.shape)}, queries "
+                         f"{tuple(queries.shape)}")
+    if emb.device.type == "cpu":
+        out = cosine_scores_plain(emb, q, valid)
+        return out[:, 0] if squeeze else out
+    q = q.contiguous()
+    args = [emb, q] + ([valid] if valid is not None else [])
+    _require_cuda(*args)
+    if emb.dtype != torch.float32 or q.dtype != torch.float32:
+        raise ValueError("cosine_scores takes float32 tables and queries")
+    if valid is not None and valid.dtype != torch.bool:
+        raise ValueError("valid must be a bool mask")
+    out = torch.empty((n, q.shape[0]), dtype=torch.float32,
+                      device=emb.device)
+    if n and q.shape[0]:
+        fn = _entry("cosine_scores", "avede_cosine_scores_f32",
+                    [_P, _P, _P, _P, _I, _I, _I, _P])
+        _build.check(fn(emb.data_ptr(), q.data_ptr(),
+                        valid.data_ptr() if valid is not None else None,
+                        out.data_ptr(), n, d, q.shape[0], _stream(emb)),
+                     "avede_cosine_scores_f32")
+        cosine_scores.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+cosine_scores.launches = 0

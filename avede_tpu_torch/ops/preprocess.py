@@ -1,0 +1,191 @@
+"""Image preprocessing (counterpart of ``avede_tpu/ops/preprocess.py``).
+
+Device side (torch, NHWC like the JAX package): central square crop,
+antialiased bicubic resize and CLIP normalisation (``clip_preprocess``),
+and the I420 unpack of the compact transfer codec
+(``clip_preprocess_i420``).
+
+Host side (numpy, no cv2): ``pack_frames_rgb`` and ``pack_frames_i420``
+shrink decoded frames to the model geometry before the host→device
+copy. They reproduce cv2's ``INTER_AREA`` resize (coverage weights, a
+separable matrix per axis; exact ``(sum + 2) >> 2`` on 2× downscales;
+``INTER_AREA``'s bilinear rule on upscales), the full-range BT.601
+matrix rounded half to even and saturated, and the 2×2 chroma mean
+rounded as cv2's integer-factor area path does — within one level of
+cv2's bytes. ``area_resize`` also serves the dedup signatures.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# OpenAI CLIP normalization constants.
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def central_square_crop(frames: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] → [N, S, S, C] with S = min(H, W), centered."""
+    _, h, w, _ = frames.shape
+    s = min(h, w)
+    top, left = (h - s) // 2, (w - s) // 2
+    return frames[:, top:top + s, left:left + s, :]
+
+
+def resize_frames(frames: torch.Tensor, size: int) -> torch.Tensor:
+    """Float [N, H, W, C] → [N, size, size, C], bicubic with antialias —
+    matches ``jax.image.resize(..., "bicubic")`` (without ``antialias``
+    torch's downscale differs by up to 0.4)."""
+    if frames.shape[1:3] == (size, size):
+        return frames
+    x = frames.permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(size, size), mode="bicubic",
+                      antialias=True, align_corners=False)
+    return x.permute(0, 2, 3, 1)
+
+
+def _normalize(x: torch.Tensor) -> torch.Tensor:
+    mean = torch.as_tensor(CLIP_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(CLIP_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
+
+
+def clip_preprocess(frames: torch.Tensor, size: int = 224,
+                    normalize: bool = True,
+                    dtype: str = "float32") -> torch.Tensor:
+    """uint8 [N, H, W, 3] → ``dtype`` [N, size, size, 3], CLIP-normalized
+    (``normalize=False`` keeps [0, 1])."""
+    d = _dtype(dtype)
+    x = central_square_crop(frames).to(d) / 255.0
+    x = resize_frames(x, size)
+    return _normalize(x) if normalize else x
+
+
+def clip_preprocess_i420(packed: torch.Tensor, normalize: bool = True,
+                         dtype: str = "float32") -> torch.Tensor:
+    """Packed I420 uint8 [N, S*3/2, S] → ``dtype`` [N, S, S, 3]: chroma
+    upsampled 2× nearest, full-range BT.601 → RGB, clipped to [0, 255],
+    scaled to [0, 1] and (by default) CLIP-normalized."""
+    d = _dtype(dtype)
+    n, hp, s = packed.shape
+    if hp != s * 3 // 2:
+        raise ValueError(f"not a packed I420 batch: {tuple(packed.shape)}")
+    h2 = s // 2
+    y = packed[:, :s, :].to(d)
+    u = packed[:, s:s + s // 4, :].reshape(n, h2, h2).to(d) - 128.0
+    v = packed[:, s + s // 4:, :].reshape(n, h2, h2).to(d) - 128.0
+    u = u.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    v = v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    b = y + 1.772 * u
+    x = torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0) / 255.0
+    return _normalize(x) if normalize else x
+
+
+# ---------------------------------------------------------------------------
+# host pack (numpy)
+# ---------------------------------------------------------------------------
+
+_YUV_W = np.array([[0.299, 0.587, 0.114],
+                   [-0.168736, -0.331264, 0.5],
+                   [0.5, -0.418688, -0.081312]], np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(src: int, dst: int, area: bool) -> np.ndarray:
+    """[dst, src] f32 interpolation matrix of cv2's INTER_AREA along one
+    axis: coverage weights when shrinking (``computeResizeAreaTab``),
+    INTER_AREA's bilinear rule when ``area`` is False (an upscale on
+    either axis switches cv2 to it for both)."""
+    w = np.zeros((dst, src), np.float64)
+    scale = src / dst
+    if area:
+        for d in range(dst):
+            f1 = d * scale
+            f2 = f1 + scale
+            cell = min(scale, src - f1)
+            s2 = min(math.floor(f2), src - 1)
+            s1 = min(math.ceil(f1), s2)
+            if s1 - f1 > 1e-3:
+                w[d, s1 - 1] = np.float32((s1 - f1) / cell)
+            w[d, s1:s2] = np.float32(1.0 / cell)
+            if f2 - s2 > 1e-3:
+                w[d, s2] = np.float32(min(f2 - s2, 1.0, cell) / cell)
+    else:
+        inv = dst / src
+        for d in range(dst):
+            sx = math.floor(d * scale)
+            fx = float(np.float32((d + 1) - (sx + 1) * inv))
+            fx = 0.0 if fx <= 0 else fx - math.floor(fx)
+            if sx >= src - 1:
+                sx, fx = src - 1, 0.0
+            w[d, sx] += 1.0 - fx
+            w[d, min(sx + 1, src - 1)] += fx
+    w = w.astype(np.float32)
+    w.setflags(write=False)
+    return w
+
+
+def area_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(..., INTER_AREA) for a batch: [N, H, W(, C)] uint8 or
+    float32 → [N, out_h, out_w(, C)] of the same dtype. Integer results
+    round half to even and saturate; exact 2× shrinks of uint8 use
+    cv2's ``(a + b + c + d + 2) >> 2``."""
+    n, h, w = img.shape[:3]
+    if (h, w) == (out_h, out_w):
+        return img.copy()
+    if img.dtype == np.uint8 and (h, w) == (2 * out_h, 2 * out_w):
+        x = img.reshape(n, out_h, 2, out_w, 2, *img.shape[3:])
+        s = x.astype(np.uint16).sum(axis=(2, 4), dtype=np.uint16)
+        return ((s + 2) >> 2).astype(np.uint8)
+    area = h >= out_h and w >= out_w
+    wy = _resize_weights(h, out_h, area)
+    wx = _resize_weights(w, out_w, area)
+    x = img.astype(np.float32)
+    x = np.einsum("yh,nhw...->nyw...", wy, x, optimize=True)
+    x = np.einsum("xw,nyw...->nyx...", wx, x, optimize=True)
+    if img.dtype == np.uint8:
+        return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+    return x.astype(img.dtype)
+
+
+def pack_frames_rgb(frames: np.ndarray, size: int) -> np.ndarray:
+    """uint8 [N, H, W, 3] → [N, size, size, 3]: central square crop +
+    INTER_AREA resize (the ``rgb`` compact-transfer mode)."""
+    n, h, w = frames.shape[:3]
+    if (h, w) == (size, size):
+        return frames
+    s = min(h, w)
+    top, left = (h - s) // 2, (w - s) // 2
+    return area_resize(frames[:, top:top + s, left:left + s], size, size)
+
+
+def pack_frames_i420(frames: np.ndarray, size: int,
+                     src: str = "rgb") -> np.ndarray:
+    """uint8 RGB (or ``src="bgr"``) [N, H, W, 3] → packed I420 uint8
+    [N, size*3//2, size]: crop + INTER_AREA resize, full-range BT.601
+    (the BGR channel order folds into the matrix columns), 2×2 mean
+    chroma."""
+    n = frames.shape[0]
+    small = pack_frames_rgb(frames, size)
+    w = _YUV_W if src == "rgb" else _YUV_W[:, ::-1]
+    yuv = small.astype(np.float32) @ w.T + np.array([0.0, 128.0, 128.0],
+                                                    np.float32)
+    yuv = np.clip(np.rint(yuv), 0, 255).astype(np.uint8)
+    h2, q = size // 2, size // 4
+    chroma = area_resize(yuv[..., 1:], h2, h2)          # [N, h2, h2, 2]
+    out = np.empty((n, size * 3 // 2, size), np.uint8)
+    out[:, :size] = yuv[..., 0]
+    out[:, size:size + q] = chroma[..., 0].reshape(n, q, size)
+    out[:, size + q:] = chroma[..., 1].reshape(n, q, size)
+    return out

@@ -1,0 +1,337 @@
+"""The frame-embedding engine on one device (counterpart of
+``avede_tpu/parallel/embed.py``'s ``ClipEngine``).
+
+Frames go through the fused image path only: host pack
+(``SCAN_TRANSFER``) → bucket padding (``pick_bucket``) → device unpack
+(``clip_preprocess_i420(normalize=False) * 255``, or uint8 frames for
+``rgb``) → ``fused_patch_embed`` (hand-written kernel; the patch
+weights are folded once, at load time) → ``encode_image_from_patches``
+(flash attention in every vision layer) → unit-norm f32 embeddings.
+Warm queries run ``query_window_topk``: text tower → ``cosine_scores``
+kernel → window gather → top-k.
+
+``embed_stream`` overlaps decode with embed: a staging thread packs,
+pads and copies each chunk into pinned host memory and issues its
+host→device copy on a side CUDA stream while the device embeds the
+previous chunk (the role of ``avede_tpu/parallel/prefetch.py``).
+
+Image query (``embed_images``, ``embed_pixels`` and the batching
+executor) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import math
+import queue
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
+    Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..models.clip import CLIPConfig, init_clip, vit_b32
+from ..models.convert import load_params
+from ..models.tokenizer import Tokenizer
+from ..ops.kernels import fold_for_uint8, fused_patch_embed
+from ..ops.preprocess import (central_square_crop, clip_preprocess_i420,
+                              pack_frames_i420, pack_frames_rgb,
+                              resize_frames)
+from ..ops.similarity import make_query_window_topk, pad_table
+from ..utils.config import settings
+from ..utils.logging import get_logger
+from ..utils.platform import resolve_device, with_compute_dtype
+
+logger = get_logger(__name__)
+
+BACKEND = "torch"      # model-tag marker: JAX-made tables never serve here
+
+
+def pick_bucket(n: int, buckets: Optional[Sequence[int]] = None) -> int:
+    """Smallest configured bucket ≥ n; beyond the largest, its next
+    multiple (counterpart of ``avede_tpu/parallel/mesh.py:134``)."""
+    buckets = list(buckets if buckets is not None
+                   else settings.FRAME_BUCKETS)
+    for b in buckets:
+        if n <= b:
+            return b
+    top = buckets[-1]
+    return int(math.ceil(n / top) * top)
+
+
+_END = object()
+
+
+def _staged(iterator: Iterable, transform: Callable,
+            buffer_size: int = 2) -> Iterator:
+    """Yield ``transform(item)`` for each item, computed ahead on a
+    worker thread (at most ``buffer_size`` staged items in flight).
+    Worker errors re-raise on the consumer. Abandoning the generator
+    stops the worker at its next put."""
+    q: "queue.Queue" = queue.Queue(maxsize=buffer_size)
+    stop = threading.Event()
+    err: list = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker() -> None:
+        try:
+            for item in iterator:
+                if not put(transform(item)):
+                    return
+        except Exception as exc:  # noqa: BLE001 — re-raised on consumer
+            err.append(exc)
+        finally:
+            put(_END)
+
+    t = threading.Thread(target=worker, daemon=True, name="avede-stage")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=5.0)
+
+
+class ClipEngine:
+    """Batched CLIP inference on one device with host↔device plumbing.
+
+    ``device`` defaults to ``cuda`` and raises without a card; pass
+    ``device="cpu"`` to run the plain versions of the kernels on the
+    CPU. Weights: ``state_dict`` (e.g. ``models.convert.params_from_jax``),
+    else ``weights_path`` / ``settings.CLIP_WEIGHTS`` (the JAX package's
+    flat ``.npz``), else random from ``seed``.
+    """
+
+    def __init__(self, cfg: Optional[CLIPConfig] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 weights_path: Optional[str] = None,
+                 device: Union[str, torch.device, None] = None,
+                 seed: int = 0) -> None:
+        self.device = resolve_device(device)
+        if cfg is None:
+            cfg = with_compute_dtype(vit_b32(), self.device)
+        # the port's serving configuration: flash attention in every
+        # vision layer (the JAX package's opt-in use_flash)
+        self.cfg = dataclasses.replace(cfg, use_flash=True)
+        weights_path = weights_path or settings.CLIP_WEIGHTS
+        model = init_clip(self.cfg, seed=seed)
+        if state_dict is None and weights_path:
+            state_dict = load_params(weights_path)
+            self._tag = f"clip:{weights_path}"
+            logger.info("CLIP weights loaded from %s", weights_path)
+        elif state_dict is not None:
+            # fingerprint external weights: two engines with different
+            # weights must not share embedding-cache entries
+            first = state_dict[sorted(state_dict)[0]]
+            leaf = first.detach().float().reshape(-1)[:64].cpu().numpy()
+            self._tag = ("external:"
+                         + hashlib.md5(leaf.tobytes()).hexdigest()[:8])
+        else:
+            self._tag = f"clip:random-init-{seed}"
+            logger.info("CLIP randomly initialised from seed %d (no "
+                        "checkpoint configured)", seed)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        # fold /255 + CLIP normalisation into the patch weights once
+        w2, bias_delta = fold_for_uint8(
+            model.vision.patch_embedding.kernel().detach())
+        self._w2 = w2.contiguous().to(self.device)
+        self._b2 = bias_delta.contiguous().to(self.device)
+        self.model = model.to(self.device, self.cfg.torch_dtype).eval()
+        self.tokenizer = Tokenizer(vocab_size=self.cfg.vocab_size,
+                                   context_len=self.cfg.max_text_len)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._lock = threading.Lock()
+        self._text_cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
+        self._table_lru: "OrderedDict[int, tuple]" = OrderedDict()
+        self._table_seq = 0
+        self._query_topk_fn = make_query_window_topk(self.model)
+
+    @property
+    def model_tag(self) -> str:
+        # the transfer codec changes embedding values, and the backend
+        # marker keeps JAX-made tables out of the port's cache hits
+        mode = settings.SCAN_TRANSFER
+        suffix = "" if mode == "full" else f"|{mode}"
+        return f"{self._tag}|{BACKEND}|{self.cfg.image_size}px{suffix}"
+
+    # ------------------------------------------------------------------
+    def _pack_transfer(self, part: np.ndarray) -> np.ndarray:
+        """Host half of the compact transfer codec (``SCAN_TRANSFER``);
+        no-op for ``full`` or already-packed input."""
+        mode = settings.SCAN_TRANSFER
+        if part.ndim != 4 or part.shape[-1] != 3:
+            return part          # already packed
+        if mode == "i420" and self.cfg.image_size % 4 == 0:
+            return pack_frames_i420(part, self.cfg.image_size)
+        if mode == "rgb":
+            return pack_frames_rgb(part, self.cfg.image_size)
+        return part
+
+    def _pad(self, part: np.ndarray) -> torch.Tensor:
+        """Bucket-padded uint8 host tensor (pinned when the device is a
+        card, so its copy can run asynchronously)."""
+        bucket = pick_bucket(len(part), settings.FRAME_BUCKETS)
+        host = torch.zeros((bucket,) + part.shape[1:], dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        host[: len(part)] = torch.from_numpy(np.ascontiguousarray(part))
+        return host
+
+    @torch.inference_mode()
+    def _embed_device(self, x: torch.Tensor) -> torch.Tensor:
+        """Device uint8 batch → unit-norm f32 [B, D] via the fused path:
+        packed I420 [B, S*3/2, S], model-geometry RGB [B, S, S, 3], or
+        full frames [B, H, W, 3] (crop + antialiased bicubic resize)."""
+        size = self.cfg.image_size
+        if x.dim() == 3:
+            px = clip_preprocess_i420(x, normalize=False) * 255.0
+        elif tuple(x.shape[1:3]) == (size, size):
+            px = x
+        else:
+            px = resize_frames(central_square_crop(x).float(), size)
+        tokens = fused_patch_embed(px.contiguous(), self._w2, self._b2,
+                                   self.cfg.patch_size)
+        return self.model.encode_image_from_patches(tokens)
+
+    def _empty(self) -> np.ndarray:
+        return np.zeros((0, self.cfg.projection_dim), np.float32)
+
+    def embed_frames(self, frames: np.ndarray) -> np.ndarray:
+        """uint8 [N, H, W, 3] (or packed) → unit-norm float32 [N, D], in
+        bucket-padded chunks of at most ``EMBED_BATCH_PER_DEVICE``."""
+        n = len(frames)
+        if n == 0:
+            return self._empty()
+        cap = settings.EMBED_BATCH_PER_DEVICE
+        return self.embed_stream(frames[lo: lo + cap]
+                                 for lo in range(0, n, cap))
+
+    def embed_stream(self, chunks: Iterable[np.ndarray]) -> np.ndarray:
+        """Overlapped decode→embed over an iterator of uint8 chunks: a
+        staging thread packs, pads and starts each chunk's host→device
+        copy on a side stream while the device embeds the previous one.
+        Only the final device→host copy waits for the device."""
+        lens: List[int] = []
+
+        def stage(part: np.ndarray):
+            part = self._pack_transfer(part)
+            host = self._pad(part)
+            lens.append(len(part))
+            if self._copy_stream is None:
+                return host, None
+            with torch.cuda.stream(self._copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+            return dev, ready
+
+        outs: List[torch.Tensor] = []
+        for dev, ready in _staged(chunks, stage):
+            if ready is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(ready)
+                dev.record_stream(cur)
+            outs.append(self._embed_device(dev))
+        if not outs:
+            return self._empty()
+        return torch.cat([e[:n] for e, n in zip(outs, lens)]
+                         ).float().cpu().numpy()
+
+    def embed_frames_device(self, frames: np.ndarray
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Like ``embed_frames`` (one bucket) but keeps the padded result
+        on the device → (embeddings [B, D], valid mask [B])."""
+        part = self._pack_transfer(frames)
+        host = self._pad(part)
+        emb = self._embed_device(host.to(self.device, non_blocking=True))
+        valid = torch.arange(len(host), device=self.device) < len(part)
+        return emb, valid
+
+    # ------------------------------------------------------------------
+    def _remember_text(self, text: str, emb: np.ndarray) -> None:
+        cap = settings.TEXT_EMBED_CACHE
+        if cap <= 0:
+            return
+        with self._lock:
+            self._text_cache[text] = emb
+            self._text_cache.move_to_end(text)
+            while len(self._text_cache) > cap:
+                self._text_cache.popitem(last=False)
+
+    def embed_texts(self, texts: Union[Sequence[str], str]) -> np.ndarray:
+        """→ unit-norm float32 [Q, D]; per-text LRU cache."""
+        if isinstance(texts, str):
+            texts = [texts]
+        texts = list(texts)
+        if not texts:
+            return self._empty()
+        hits: Dict[str, np.ndarray] = {}
+        with self._lock:
+            for t in texts:
+                if t in self._text_cache:
+                    hits[t] = self._text_cache[t]
+                    self._text_cache.move_to_end(t)
+        misses = list(dict.fromkeys(t for t in texts if t not in hits))
+        if misses:
+            ids = torch.from_numpy(self.tokenizer(misses)).to(self.device)
+            with torch.inference_mode():
+                fresh = self.model.encode_text(ids).float().cpu().numpy()
+            for t, e in zip(misses, fresh):
+                hits[t] = e
+                self._remember_text(t, e)
+        return np.stack([hits[t] for t in texts])
+
+    def resident_table(self, emb: np.ndarray, middle_idx: np.ndarray
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Bucket-padded device copies of a score table + window indices
+        (f32 [Nb, D], bool [Nb], int32 [Wb]), cached by host-array
+        identity (LRU of 8): the embedding cache returns the same array
+        object for repeat lookups and tables are never mutated in
+        place, so repeat queries upload nothing."""
+        mids = np.asarray(middle_idx, np.int32)
+        with self._lock:
+            for key, (href, hmids, cached) in self._table_lru.items():
+                if href is emb and np.array_equal(hmids, mids):
+                    self._table_lru.move_to_end(key)
+                    return cached
+        pemb, valid, pmids = pad_table(np.asarray(emb, np.float32), mids,
+                                       settings.FRAME_BUCKETS)
+        dev = (torch.from_numpy(pemb).to(self.device),
+               torch.from_numpy(valid).to(self.device),
+               torch.from_numpy(pmids).to(self.device))
+        with self._lock:
+            self._table_seq += 1
+            self._table_lru[self._table_seq] = (emb, mids, dev)
+            while len(self._table_lru) > 8:
+                self._table_lru.popitem(last=False)
+        return dev
+
+    def query_window_topk(self, query: str, emb: np.ndarray,
+                          middle_idx: np.ndarray, k: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Warm-query serving path: token ids → text tower → score the
+        resident table (kernel) → window gather → top-k. The text
+        embedding lands in the LRU for other consumers."""
+        dev = self.resident_table(emb, middle_idx)
+        ids = torch.from_numpy(self.tokenizer([query])).to(self.device)
+        vals, idx, q = self._query_topk_fn(ids, dev[0], dev[1], dev[2], k)
+        self._remember_text(query, q.cpu().numpy())
+        return vals.cpu().numpy(), idx.cpu().numpy()

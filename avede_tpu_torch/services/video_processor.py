@@ -1,0 +1,112 @@
+"""Central orchestration facade, ``mvp`` mode (counterpart of
+``avede_tpu/services/video_processor.py``).
+
+The single object the API talks to: query preprocessing, video
+validation, mode dispatch, threshold filtering, per-result clip
+extraction and typed error envelopes. ``reranked`` and ``advanced``
+answer with an error envelope until the rerank and grounding slices
+are ported.
+"""
+
+from __future__ import annotations
+
+import time
+import uuid
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+from ..io.clip_writer import ClipWriter
+from ..io.video_reader import validate_video
+from ..parallel.embed import ClipEngine
+from ..pipelines.phase1 import Phase1Scan
+from ..utils.config import settings
+from ..utils.errors import AvedeError, error_envelope, error_log
+from ..utils.logging import get_logger
+from .query_rewrite import preprocess_query
+
+logger = get_logger(__name__)
+
+QUERY_MODES = ("mvp", "reranked", "advanced")
+PORTED_MODES = ("mvp",)
+
+
+class VideoProcessor:
+    def __init__(self, engine: Optional[ClipEngine] = None,
+                 device: Optional[str] = None) -> None:
+        """``engine`` defaults to a ``ClipEngine`` on ``device``
+        (``cuda`` unless ``"cpu"`` is passed)."""
+        self.engine = engine or ClipEngine(device=device)
+        self.phase1 = Phase1Scan(self.engine)
+        self.clip_writer = ClipWriter()
+
+    def resolve_video(self, video_id: str) -> str:
+        """``data/videos/<id>.<ext>`` lookup over the supported
+        extensions."""
+        base = Path(settings.VIDEO_DIR)
+        for ext in settings.SUPPORTED_FORMATS:
+            p = base / f"{video_id}.{ext}"
+            if p.exists():
+                return str(p)
+        raise AvedeError(f"video not found: {video_id}")
+
+    def validate_video(self, video_path: str) -> Dict[str, Any]:
+        meta = validate_video(video_path)
+        return {"valid": True, "fps": meta.fps, "duration": meta.duration,
+                "total_frames": meta.total_frames,
+                "resolution": [meta.width, meta.height]}
+
+    def process_query(self, video_path: str, query: str, mode: str = "mvp",
+                      top_k: Optional[int] = None,
+                      threshold: Optional[float] = None,
+                      extract_clips: bool = True,
+                      video_id: Optional[str] = None) -> Dict[str, Any]:
+        task_id = uuid.uuid4().hex
+        t0 = time.time()
+        try:
+            if mode not in QUERY_MODES:
+                raise AvedeError(
+                    f"unknown mode '{mode}' (expected one of {QUERY_MODES})")
+            validate_video(video_path)
+            if mode not in PORTED_MODES:
+                raise AvedeError(f"mode '{mode}' is not ported yet "
+                                 f"(ported: {PORTED_MODES})")
+            clean = preprocess_query(query)
+            results = self.phase1.process_video(
+                video_path, clean, top_k=top_k, threshold=threshold,
+                video_id=video_id)
+            if extract_clips:
+                results = self._attach_clips(video_path, results)
+            return {
+                "task_id": task_id,
+                "status": "completed",
+                "results": results,
+                "total_found": len(results),
+                "metadata": {
+                    "mode": mode,
+                    "query": query,
+                    "preprocessed_query": clean,
+                    "processing_time": time.time() - t0,
+                },
+            }
+        except Exception as exc:  # noqa: BLE001 — typed error envelope
+            error_log.record(exc, component="process_query")
+            return error_envelope(task_id, exc)
+        finally:
+            # request-scope retention: the scan's frames serve only this
+            # request's backfill
+            self.phase1.retention.release()
+
+    def _attach_clips(self, video_path: str,
+                      results: List[Dict]) -> List[Dict]:
+        for r in results:
+            try:
+                clip = self.clip_writer.extract_clip_with_padding(
+                    video_path, r["timestamp"])
+                r["clip_path"] = clip["clip_path"]
+                r["clip_filename"] = clip["clip_filename"]
+                r["clip_start"] = clip["start_time"]
+                r["clip_end"] = clip["end_time"]
+            except Exception as exc:  # noqa: BLE001 — results still serve
+                error_log.record(exc, severity="warning",
+                                 component="clip_extraction")
+        return results

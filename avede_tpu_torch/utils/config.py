@@ -1,0 +1,109 @@
+"""Framework configuration (counterpart of ``avede_tpu/utils/config.py``).
+
+A plain dataclass with the same names and defaults as the JAX
+package's settings that this port reads, and the same environment
+overrides: every field can be set by an environment variable of its
+name; numbers, booleans, lists and dicts parse as JSON. Only the
+settings the ported ``mvp`` path reads are here.
+"""
+
+import dataclasses
+import json
+import os
+from pathlib import Path
+from typing import Dict, List, Mapping, Optional
+
+
+def _bundled_asset(name: str) -> Optional[str]:
+    """Absolute path of a packaged asset, or None if not shipped."""
+    p = Path(__file__).resolve().parent.parent / "assets" / name
+    return str(p) if p.exists() else None
+
+
+@dataclasses.dataclass
+class Settings:
+    # --- Paths ---
+    DATA_DIR: str = "data"
+    VIDEO_DIR: str = "data/videos"
+    CLIP_DIR: str = "data/clips"
+    FRAME_DIR: str = "data/frames"
+    EMBEDDING_DIR: str = "data/embeddings"
+    IMAGE_DIR: str = "data/images"
+    LOG_DIR: str = "logs"
+
+    # --- Video limits ---
+    MAX_VIDEO_SIZE_GB: float = 2.0
+    SUPPORTED_FORMATS: List[str] = dataclasses.field(
+        default_factory=lambda: ["mp4", "avi", "mov", "mkv", "webm"])
+    FRAME_SAMPLE_RATE: int = 1          # sample every Nth frame
+    MAX_FRAMES: int = 1000              # hard cap, evenly redistributed
+    FRAME_MAX_SIZE: int = 512           # pre-resize long side cap
+
+    # --- Sliding windows ---
+    WINDOW_SIZE: int = 16
+    WINDOW_STRIDE: int = 8
+
+    # --- Model ---
+    CLIP_WEIGHTS: Optional[str] = None  # flat slash-joined .npz
+    TOKENIZER_VOCAB: Optional[str] = dataclasses.field(
+        default_factory=lambda: _bundled_asset("clip_bpe_merges.txt.gz"))
+
+    # --- Scan ---
+    STREAM_CHUNK_FRAMES: int = 256      # decode→embed overlap chunk
+    SCAN_TRANSFER: str = "i420"         # host→device codec: i420|rgb|full
+    SCAN_FUSED_PACK: bool = True        # i420 pack on the decode threads
+    SCAN_SPARSE_COLD: bool = True       # cold scan embeds window middles only
+    SCAN_DEDUP_EPS: float = 1.5         # near-duplicate gate; 0 disables
+    DECODE_WORKERS: int = 0             # 0 = auto
+    FRAME_RETAIN_MB: int = 512          # scan frames kept for backfill
+
+    # --- Caches ---
+    TEXT_EMBED_CACHE: int = 512         # LRU entries; 0 disables
+    EMBEDDING_MEM_CACHE_MB: int = 256   # in-memory table tier; 0 disables
+    EMBEDDING_CACHE_INT8: bool = True   # per-row int8 cache entries
+    EMBEDDING_CACHE_ENABLED: bool = True
+
+    # --- Results ---
+    TOP_K_RESULTS: int = 15
+    CONFIDENCE_THRESHOLD: float = 0.25
+    CLIP_DURATION: float = 30.0         # seconds per extracted clip
+
+    # --- Device execution ---
+    COMPUTE_DTYPE: str = "bfloat16"     # on CUDA; the CPU computes in f32
+    FRAME_BUCKETS: List[int] = dataclasses.field(
+        default_factory=lambda: [32, 64, 128, 256, 512, 1024])
+    EMBED_BATCH_PER_DEVICE: int = 128
+
+    # --- API ---
+    API_HOST: str = "0.0.0.0"
+    API_PORT: int = 8000
+
+    def ensure_dirs(self) -> None:
+        for d in (self.DATA_DIR, self.VIDEO_DIR, self.CLIP_DIR,
+                  self.FRAME_DIR, self.EMBEDDING_DIR, self.IMAGE_DIR,
+                  self.LOG_DIR):
+            Path(d).mkdir(parents=True, exist_ok=True)
+
+    @classmethod
+    def from_env(cls, env: Optional[Mapping[str, str]] = None
+                 ) -> "Settings":
+        env = dict(os.environ if env is None else env)
+        base = cls()
+        overrides: Dict[str, object] = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in env:
+                continue
+            raw = env[f.name]
+            if isinstance(getattr(base, f.name), str) or \
+                    getattr(base, f.name) is None:
+                overrides[f.name] = raw
+                continue
+            try:
+                overrides[f.name] = json.loads(
+                    raw.lower() if raw in ("True", "False") else raw)
+            except ValueError:
+                overrides[f.name] = raw
+        return dataclasses.replace(base, **overrides)
+
+
+settings = Settings.from_env()

@@ -1,0 +1,104 @@
+"""The port's REST app through aiohttp's test client: a real tiny-CLIP
+processor on the CPU over a real mp4, no route mocking."""
+
+import asyncio
+
+import numpy as np
+import pytest
+from aiohttp import FormData
+from aiohttp.test_utils import TestClient, TestServer
+
+from avede_tpu_torch.utils.config import settings
+from tests.conftest import make_test_video
+
+
+@pytest.fixture()
+def client(tmp_path, monkeypatch):
+    from avede_tpu_torch.api.app import create_app
+    from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services.video_processor import VideoProcessor
+
+    for attr, sub in [("DATA_DIR", ""), ("VIDEO_DIR", "videos"),
+                      ("CLIP_DIR", "clips"), ("FRAME_DIR", "frames"),
+                      ("EMBEDDING_DIR", "embeddings"), ("IMAGE_DIR", "images"),
+                      ("LOG_DIR", "logs")]:
+        monkeypatch.setattr(settings, attr, str(tmp_path / sub))
+    engine = ClipEngine(cfg=tiny_test_config(), device="cpu")
+    app = create_app(VideoProcessor(engine=engine))
+    loop = asyncio.new_event_loop()
+    tc = TestClient(TestServer(app, loop=loop), loop=loop)
+    loop.run_until_complete(tc.start_server())
+
+    def call(method, path, **kw):
+        async def go():
+            resp = await tc.request(method, path, **kw)
+            return resp.status, await resp.json()
+        return loop.run_until_complete(go())
+
+    yield call
+    loop.run_until_complete(tc.close())
+    loop.close()
+
+
+def _upload(call, path):
+    form = FormData()
+    form.add_field("file", open(path, "rb"), filename="clip.mp4",
+                   content_type="video/mp4")
+    return call("POST", "/api/upload", data=form)
+
+
+class TestPortApi:
+    def test_health(self, client):
+        status, body = client("GET", "/api/health")
+        assert status == 200 and body["status"] == "healthy"
+
+    def test_upload_list_query(self, client, tmp_path):
+        video = make_test_video(tmp_path / "src.mp4", n_frames=60)
+        status, body = _upload(client, video)
+        assert status == 200 and body["status"] == "uploaded"
+        vid = body["video_id"]
+        status, listing = client("GET", "/api/videos")
+        assert any(v["video_id"] == vid for v in listing["videos"])
+        payload = {"video_id": vid, "query": "white square",
+                   "mode": "mvp", "top_k": 3, "threshold": -1.0}
+        status, out = client("POST", "/api/query", json=payload)
+        assert status == 200 and out["status"] == "completed"
+        assert out["total_found"] == len(out["results"]) == 3
+        confs = [r["confidence"] for r in out["results"]]
+        assert confs == sorted(confs, reverse=True)
+        assert np.all(np.isfinite(confs))
+        status, warm = client("POST", "/api/query", json=payload)
+        assert [r["window_index"] for r in warm["results"]] \
+            == [r["window_index"] for r in out["results"]]
+
+    def test_unported_mode_is_500_envelope(self, client, tmp_path):
+        video = make_test_video(tmp_path / "src.mp4", n_frames=30)
+        _, body = _upload(client, video)
+        status, out = client("POST", "/api/query", json={
+            "video_id": body["video_id"], "query": "q", "mode": "advanced"})
+        assert status == 500 and out["status"] == "error"
+
+    def test_query_unknown_video_404(self, client):
+        status, _ = client("POST", "/api/query",
+                           json={"video_id": "nope", "query": "q"})
+        assert status == 404
+
+    @pytest.mark.parametrize("body", [{"query": "q"},
+                                      {"video_id": "v", "query": 3},
+                                      {"video_id": "v", "query": "q",
+                                       "top_k": "five"}])
+    def test_query_validation_422(self, client, body):
+        status, _ = client("POST", "/api/query", json=body)
+        assert status == 422
+
+    def test_query_invalid_json_422(self, client):
+        status, _ = client("POST", "/api/query", data=b"{not json",
+                           headers={"Content-Type": "application/json"})
+        assert status == 422
+
+    def test_upload_rejects_format(self, client, tmp_path):
+        form = FormData()
+        form.add_field("file", b"abc", filename="x.txt")
+        status, _ = client("POST", "/api/upload", data=form)
+        assert status == 400

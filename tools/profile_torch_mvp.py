@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch/CUDA port's ``mvp`` main path on one NVIDIA GPU.
+
+    python3 tools/profile_torch_mvp.py [--out DIR]
+
+Same configuration as ``chip_smoke.py``'s main path (CLIP ViT-B/32,
+random weights from seed 0, bf16; its in-memory source of 600 seeded
+288×512 frames; default settings). Profiles two windows with
+``torch.profiler`` (CPU + CUDA activities):
+
+- ``cold``: one cold ``Phase1Scan.process_video``;
+- ``warm``: six warm ``process_video`` queries (three texts, twice).
+
+For each window it prints one JSON line: host wall ms, device busy ms
+(union of device kernel and copy intervals) and their count, device
+idle share (1 − busy / wall), the wall of the ``phase1.*`` spans, and
+the top device kernels by total time. It writes a Chrome trace per window
+under ``--out``. Needs a card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _device_work(events, cuda_type) -> list:
+    """Kernel and copy events on the device, without the device-side
+    ranges that ``record_function`` annotations also leave there."""
+    return [e for e in events if e.device_type == cuda_type
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("phase1.")]
+
+
+def _busy_us(work) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in work)
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi in spans:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    return busy
+
+
+def _summary(torch, prof, wall_ms: float, name: str) -> dict:
+    events = prof.events()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    work = _device_work(events, cuda_type)
+    busy_ms = _busy_us(work) / 1e3
+    spans = {}
+    for e in events:
+        if e.name.startswith("phase1.") and e.device_type != cuda_type:
+            spans[e.name] = spans.get(e.name, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3
+    kernels = {}
+    for e in work:
+        k = kernels.setdefault(e.name, [0.0, 0])
+        k[0] += (e.time_range.end - e.time_range.start) / 1e3
+        k[1] += 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "window": name,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_events": len(work),
+        "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+        "spans_ms": spans,
+        "top_device_ms": [{"name": n[:90], "ms": v[0], "count": v[1]}
+                          for n, v in top],
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_mvp: no CUDA device")
+    import chip_smoke
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.ops import _build
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.utils.config import settings
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    card = chip_smoke.card_line()
+    _build.build_all()
+    video = chip_smoke.SyntheticVideo(np, seed=0)
+    queries = chip_smoke.QUERIES
+    with tempfile.TemporaryDirectory() as tmp:
+        for attr in ("DATA_DIR", "VIDEO_DIR", "CLIP_DIR", "FRAME_DIR",
+                     "EMBEDDING_DIR", "IMAGE_DIR", "LOG_DIR"):
+            setattr(settings, attr, str(Path(tmp) / attr.lower()))
+        engine = ClipEngine(device="cuda", seed=0)
+        # warm the CUDA libraries and kernels on another video id
+        warm_scan = Phase1Scan(engine, reader=video,
+                               cache=EmbeddingCache(str(Path(tmp) / "w")))
+        warm_scan.process_video("memory://warmup", queries[0],
+                                threshold=-1.0, video_id="warmup")
+        scan = Phase1Scan(engine, reader=video,
+                          cache=EmbeddingCache(str(Path(tmp) / "e")))
+        path, vid = "memory://synthetic-street", "synthetic-street"
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        for name, calls in (("cold", [queries[0]]),
+                            ("warm", queries + queries)):
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for q in calls:
+                    scan.process_video(path, q, threshold=-1.0,
+                                       video_id=vid)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.export_chrome_trace(str(out / f"{name}.json"))
+            row = _summary(torch, prof, wall_ms, name)
+            row["card"] = card
+            row["calls"] = len(calls)
+            print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
