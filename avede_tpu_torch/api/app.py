@@ -2,14 +2,19 @@
 routes of the ported ``mvp`` slice, answering as the JAX routes do.
 
 - ``GET  /api/health``  — liveness + error count;
+- ``GET  /api/metrics`` — per-operation timings (``utils/metrics.py``);
 - ``POST /api/upload``  — multipart ``file`` → ``data/videos/<id>.<ext>``;
 - ``POST /api/query``   — ``{video_id, query, mode, top_k, threshold}``;
+- ``POST /api/search-library`` — ``{query, top_k, threshold,
+  per_video_k, video_ids}`` over every uploaded video;
 - ``GET  /api/videos``  — uploaded videos.
 
 aiohttp is imported inside ``create_app`` and the handlers, so importing
 this module needs no aiohttp. Model work runs in a thread executor so
-the event loop stays responsive; the processor is built on first use,
-on ``cuda`` unless ``device="cpu"`` is passed.
+the event loop stays responsive; the processor and the library search
+are built on first use, on ``cuda`` unless ``device="cpu"`` is passed.
+With ``settings.LIBRARY_PREWARM`` a daemon thread indexes the library
+at startup.
 """
 
 from __future__ import annotations
@@ -25,18 +30,20 @@ from typing import Any, Dict, Optional
 from ..utils.config import settings
 from ..utils.errors import error_log
 from ..utils.logging import get_logger
+from ..utils.metrics import get_monitor
 
 logger = get_logger(__name__)
 
 
 class ApiState:
-    """Lazily-built processor shared by handlers (double-checked under a
-    lock: building it takes seconds, and two first requests must not
-    build two)."""
+    """Lazily-built processor and library search shared by handlers
+    (double-checked under a lock: building them takes seconds, and the
+    prewarm thread and the first requests must not build two)."""
 
     def __init__(self, processor=None, device: Optional[str] = None
                  ) -> None:
         self._processor = processor
+        self._library = None
         self._device = device
         self._lock = threading.Lock()
 
@@ -49,6 +56,20 @@ class ApiState:
 
                     self._processor = VideoProcessor(device=self._device)
         return self._processor
+
+    @property
+    def library(self):
+        """One ``LibrarySearch`` per server: its device index is state
+        that must outlive requests (a per-request instance would rebuild
+        the whole table on every search)."""
+        if self._library is None:
+            processor = self.processor   # takes the lock itself
+            with self._lock:
+                if self._library is None:
+                    from ..services.library_search import LibrarySearch
+
+                    self._library = LibrarySearch(processor.phase1)
+        return self._library
 
 
 def _json(data: Dict[str, Any], status: int = 200):
@@ -86,6 +107,57 @@ def _parse_query(body: Any) -> Optional[Dict[str, Any]]:
 async def health(request):
     return _json({"status": "healthy", "service": "video-event-detection",
                   "errors": error_log.health()["total"]})
+
+
+async def metrics(request):
+    return _json(get_monitor().summary())
+
+
+def _parse_library(body: Any) -> Optional[Dict[str, Any]]:
+    """Validate a ``/api/search-library`` body; None when invalid."""
+    if not isinstance(body, dict):
+        return None
+    q = body.get("query")
+    if not q or not isinstance(q, str):
+        return None
+    out: Dict[str, Any] = {"query": q}
+    for name, default in (("top_k", 10), ("per_video_k", 3)):
+        v = body.get(name, default)
+        if isinstance(v, bool) or not isinstance(v, int):
+            return None
+        out[name] = v
+    thr, ids = body.get("threshold"), body.get("video_ids")
+    if thr is not None and (isinstance(thr, bool)
+                            or not isinstance(thr, (int, float))):
+        return None
+    if ids is not None and (not isinstance(ids, list) or not all(
+            isinstance(v, str) for v in ids)):
+        return None
+    out["threshold"] = None if thr is None else float(thr)
+    out["video_ids"] = ids
+    return out
+
+
+async def search_library(request):
+    """Cross-video search over every uploaded video."""
+    state: ApiState = request.app["state"]
+    try:
+        body = await request.json()
+    except ValueError:
+        return _json({"detail": "invalid JSON body"}, 422)
+    req = _parse_library(body)
+    if req is None:
+        return _json({"detail": "body needs a non-empty string query; "
+                                "optional int top_k and per_video_k, "
+                                "number threshold, list of string "
+                                "video_ids"}, 422)
+    searcher = state.library
+    with get_monitor().track("library_search"):
+        out = await _run_blocking(
+            searcher.search, req["query"], top_k=req["top_k"],
+            threshold=req["threshold"], per_video_k=req["per_video_k"],
+            video_ids=req["video_ids"])
+    return _json({"status": "completed", **out})
 
 
 async def upload_video(request):
@@ -168,10 +240,24 @@ def create_app(processor=None, device: Optional[str] = None):
     app = web.Application(client_max_size=int(
         settings.MAX_VIDEO_SIZE_GB * (1024 ** 3)))
     app["state"] = ApiState(processor, device)
+    if settings.LIBRARY_PREWARM:
+        # embed + index the existing library off the serving thread so
+        # the FIRST /api/search-library doesn't pay the whole build
+        def _prewarm(state=app["state"]):
+            try:
+                n = state.library.prewarm()
+                logger.info("Library prewarm: %d videos indexed", n)
+            except Exception as exc:  # noqa: BLE001 — best effort
+                logger.warning("Library prewarm failed: %s", exc)
+
+        threading.Thread(target=_prewarm, daemon=True,
+                         name="avede-lib-prewarm").start()
     app.add_routes([
         web.get("/api/health", health),
+        web.get("/api/metrics", metrics),
         web.post("/api/upload", upload_video),
         web.post("/api/query", query),
+        web.post("/api/search-library", search_library),
         web.get("/api/videos", list_videos),
     ])
     return app

@@ -1,0 +1,161 @@
+// Symmetric int8 quantization for Hopper (sm_90a):
+//   scale = max(amax / 127, 1e-12),  q = clip(rint(x / scale), -127, 127)
+// with amax taken over a row ([N, D] -> int8 [N, D], scales [N]) or over a
+// column ([K, N] -> int8 [K, N], scales [N]).
+//
+// Replaces avede_tpu/ops/quant.py: quantize_kernel_pallas / _quant_kernel
+// (the pl.pallas_call at :70), which quantizes a [K, N] weight per output
+// column in one block. The per-column entry keeps that contract; the
+// per-row entry is the layout of the library index's int8 tier, whose
+// add-blocks and growth quantize here (services/library_index.py).
+//
+// Bound by bytes on the H100: 4 bytes read and 1 byte written per element
+// for a few operations each.
+// - Per row: one warp per row. For D a multiple of 128 up to 1024 the row
+//   sits in registers (float4 loads, D/32 values a lane), so it is read
+//   from device memory once; amax is reduced with shuffles and the int8
+//   row is written from the registers as char4. Other widths take a loop
+//   that reads the row twice (the second time from L1/L2).
+// - Per column: a block owns 32 neighbouring columns, so each warp reads
+//   128 contiguous bytes of a row; 16 row-lanes split K, reduce amax
+//   through shared memory, then read their rows again (from L2) to write.
+//
+// Exactness against numpy and JAX, which compute in f32 and round half to
+// even: IEEE division x / scale (never x * (1 / scale); the build has no
+// --use_fast_math), rintf for the rounding, and max of |x| is the same in
+// any order. An all-zero row or column gives q = 0 and scale = 1e-12.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ROW_THREADS = 256;
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+constexpr int MAX_VEC = 8;              // float4 loads a lane keeps: D <= 1024
+constexpr int COL_X = 32;               // columns per block
+constexpr int COL_Y = 16;               // row-lanes per column
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float scale_of(float amax) {
+  return fmaxf(amax / 127.0f, 1e-12f);
+}
+
+__device__ __forceinline__ signed char quant(float x, float scale) {
+  const float r = fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f);
+  return static_cast<signed char>(static_cast<int>(r));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float abs_max4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// One warp per row, the row held in registers (d % 128 == 0, d <= 1024).
+__global__ void __launch_bounds__(ROW_THREADS)
+quantize_rows_reg(const float* __restrict__ x, signed char* __restrict__ q,
+                  float* __restrict__ scales, int n, int d) {
+  const int lane = threadIdx.x % 32;
+  const int nv = d / 128;
+  const long long warps = (long long)gridDim.x * ROW_WARPS;
+  for (long long row = (long long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+       row < n; row += warps) {
+    const float4* src = reinterpret_cast<const float4*>(x + row * d);
+    float4 v[MAX_VEC];
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAX_VEC; ++j) {
+      if (j < nv) {
+        v[j] = src[j * 32 + lane];
+        amax = fmaxf(amax, abs_max4(v[j]));
+      }
+    }
+    const float s = scale_of(warp_max(amax));
+    char4* dst = reinterpret_cast<char4*>(q + row * d);
+#pragma unroll
+    for (int j = 0; j < MAX_VEC; ++j) {
+      if (j < nv)
+        dst[j * 32 + lane] = make_char4(quant(v[j].x, s), quant(v[j].y, s),
+                                        quant(v[j].z, s), quant(v[j].w, s));
+    }
+    if (lane == 0) scales[row] = s;
+  }
+}
+
+// One warp per row, any width: amax pass, then a quantize pass.
+__global__ void __launch_bounds__(ROW_THREADS)
+quantize_rows_loop(const float* __restrict__ x, signed char* __restrict__ q,
+                   float* __restrict__ scales, int n, int d) {
+  const int lane = threadIdx.x % 32;
+  const long long warps = (long long)gridDim.x * ROW_WARPS;
+  for (long long row = (long long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+       row < n; row += warps) {
+    const float* src = x + row * d;
+    float amax = 0.f;
+    for (int c = lane; c < d; c += 32) amax = fmaxf(amax, fabsf(src[c]));
+    const float s = scale_of(warp_max(amax));
+    for (int c = lane; c < d; c += 32) q[row * d + c] = quant(src[c], s);
+    if (lane == 0) scales[row] = s;
+  }
+}
+
+// Per column of a row-major [k, n] matrix (the TPU kernel's contract).
+__global__ void __launch_bounds__(COL_X * COL_Y)
+quantize_cols(const float* __restrict__ x, signed char* __restrict__ q,
+              float* __restrict__ scales, int k, int n) {
+  __shared__ float part[COL_Y][COL_X];
+  const int col = blockIdx.x * COL_X + threadIdx.x;
+  float amax = 0.f;
+  if (col < n)
+    for (int r = threadIdx.y; r < k; r += COL_Y)
+      amax = fmaxf(amax, fabsf(x[(long long)r * n + col]));
+  part[threadIdx.y][threadIdx.x] = amax;
+  __syncthreads();
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < COL_Y; ++i) m = fmaxf(m, part[i][threadIdx.x]);
+  if (col >= n) return;
+  const float s = scale_of(m);
+  for (int r = threadIdx.y; r < k; r += COL_Y)
+    q[(long long)r * n + col] = quant(x[(long long)r * n + col], s);
+  if (threadIdx.y == 0) scales[col] = s;
+}
+
+int row_blocks(int n) {
+  const long long want = ((long long)n + ROW_WARPS - 1) / ROW_WARPS;
+  return (int)(want < 16384 ? want : 16384);
+}
+
+}  // namespace
+
+// x [n, d] f32 -> q [n, d] int8, scales [n] f32, all row-major.
+extern "C" int avede_quantize_rows(const float* x, signed char* q,
+                                   float* scales, int n, int d,
+                                   void* stream) {
+  const bool in_regs = d % 128 == 0 && d <= 128 * MAX_VEC &&
+                       (uintptr_t)x % 16 == 0 && (uintptr_t)q % 4 == 0;
+  if (in_regs)
+    quantize_rows_reg<<<row_blocks(n), ROW_THREADS, 0,
+                        (cudaStream_t)stream>>>(x, q, scales, n, d);
+  else
+    quantize_rows_loop<<<row_blocks(n), ROW_THREADS, 0,
+                         (cudaStream_t)stream>>>(x, q, scales, n, d);
+  return (int)cudaGetLastError();
+}
+
+// x [k, n] f32 -> q [k, n] int8, scales [n] f32, all row-major.
+extern "C" int avede_quantize_cols(const float* x, signed char* q,
+                                   float* scales, int k, int n,
+                                   void* stream) {
+  const dim3 block(COL_X, COL_Y);
+  quantize_cols<<<(n + COL_X - 1) / COL_X, block, 0, (cudaStream_t)stream>>>(
+      x, q, scales, k, n);
+  return (int)cudaGetLastError();
+}

@@ -31,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..ops.quant import quantize_rows_np
 from ..utils.config import settings
 from ..utils.logging import get_logger
 
@@ -58,18 +59,6 @@ def table_tag(model_tag: str) -> str:
     producer wrote an entry is recorded in ``meta["dedup_gated"]``."""
     eps = settings.SCAN_DEDUP_EPS
     return f"{model_tag}|dedup{eps:g}" if eps > 0 else model_tag
-
-
-def quantize_rows_np(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """[N, D] float → (int8 [N, D], f32 scales [N]) — per-ROW symmetric
-    int8 (amax/127 scale, 1e-12 floor, round half to even): the port's
-    own copy of ``avede_tpu/ops/quant.py:44-54``, whose module imports
-    JAX."""
-    amax = np.max(np.abs(rows), axis=1)
-    scales = np.maximum(amax / 127.0, 1e-12).astype(np.float32)
-    q = np.clip(np.round(rows / scales[:, None]), -127, 127
-                ).astype(np.int8)
-    return q, scales
 
 
 class EmbeddingCache:

@@ -13,6 +13,12 @@
   ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``): the
   ``[N, D] · [D]`` (or ``[Q, D]``) scoring product of every warm query,
   with padded rows written as -inf. Bound by bytes.
+- ``cosine_scores_bf16`` and ``cosine_scores_int8`` — the same source's
+  entries for the library index's bfloat16 and int8 tables: the query
+  rounded to bf16, the sum in f32, an int8 row's sum times its f32
+  scale (``avede_tpu/services/library_index.py:83-105``). One kernel
+  reads the narrow table once; ``torch.mv`` would return bf16 scores,
+  and an int8 table would first need a bf16 copy of itself.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
@@ -199,3 +205,97 @@ def cosine_scores(emb: torch.Tensor, queries: torch.Tensor,
 
 
 cosine_scores.launches = 0
+
+
+def _bf16_query(queries: torch.Tensor) -> torch.Tensor:
+    return queries.to(torch.bfloat16).float()
+
+
+def cosine_scores_bf16_plain(emb: torch.Tensor, queries: torch.Tensor,
+                             valid: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain version of the bf16 entry: ``[N, D] bf16 × [Q, D] → [N, Q]``
+    f32, the query rounded to bf16, -inf where ``valid`` is false."""
+    return cosine_scores_plain(emb.float(), _bf16_query(queries), valid)
+
+
+def cosine_scores_int8_plain(emb: torch.Tensor, scales: torch.Tensor,
+                             queries: torch.Tensor,
+                             valid: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain version of the int8 entry: ``(int8 rows · bf16 query) ×
+    row scale`` in f32, -inf where ``valid`` is false."""
+    s = (emb.float() @ _bf16_query(queries).T) * scales.float()[:, None]
+    if valid is not None:
+        s = torch.where(valid[:, None], s,
+                        torch.full_like(s, float("-inf")))
+    return s
+
+
+def _lowp_scores(emb, scales, queries, valid, row_dtype, plain, symbol,
+                 wrapper):
+    squeeze = queries.dim() == 1
+    q = queries[None, :] if squeeze else queries
+    n, d = emb.shape
+    if q.shape[1] != d or (valid is not None and valid.shape != (n,)) \
+            or (scales is not None and scales.shape != (n,)):
+        raise ValueError(f"bad shapes: emb {tuple(emb.shape)}, queries "
+                         f"{tuple(queries.shape)}")
+    if emb.device.type == "cpu":
+        out = plain(emb, q, valid) if scales is None \
+            else plain(emb, scales, q, valid)
+        return out[:, 0] if squeeze else out
+    q = q.contiguous()
+    args = [emb, q] + [t for t in (scales, valid) if t is not None]
+    _require_cuda(*args)
+    if emb.dtype != row_dtype or q.dtype != torch.float32 \
+            or (scales is not None and scales.dtype != torch.float32):
+        raise ValueError(f"{symbol} takes {row_dtype} rows, float32 "
+                         f"queries and float32 scales")
+    if valid is not None and valid.dtype != torch.bool:
+        raise ValueError("valid must be a bool mask")
+    out = torch.empty((n, q.shape[0]), dtype=torch.float32,
+                      device=emb.device)
+    if n and q.shape[0]:
+        vptr = valid.data_ptr() if valid is not None else None
+        if scales is None:
+            fn = _entry("cosine_scores", symbol,
+                        [_P, _P, _P, _P, _I, _I, _I, _P])
+            code = fn(emb.data_ptr(), q.data_ptr(), vptr, out.data_ptr(),
+                      n, d, q.shape[0], _stream(emb))
+        else:
+            fn = _entry("cosine_scores", symbol,
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+            code = fn(emb.data_ptr(), scales.data_ptr(), q.data_ptr(),
+                      vptr, out.data_ptr(), n, d, q.shape[0], _stream(emb))
+        _build.check(code, symbol)
+        wrapper.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+def cosine_scores_bf16(emb: torch.Tensor, queries: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """bf16 table ``[N, D]`` × f32 ``[D]`` (or ``[Q, D]``) → f32 ``[N]``
+    (or ``[N, Q]``): the query rounded to bf16, the sum in f32; rows
+    where ``valid`` is false score -inf."""
+    return _lowp_scores(emb, None, queries, valid, torch.bfloat16,
+                        cosine_scores_bf16_plain,
+                        "avede_cosine_scores_bf16", cosine_scores_bf16)
+
+
+def cosine_scores_int8(emb: torch.Tensor, scales: torch.Tensor,
+                       queries: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """int8 table ``[N, D]`` with f32 row ``scales`` ``[N]`` × f32
+    ``[D]`` (or ``[Q, D]``) → f32 ``[N]`` (or ``[N, Q]``): each row's
+    dot with the bf16-rounded query, summed in f32, times its scale;
+    rows where ``valid`` is false score -inf."""
+    return _lowp_scores(emb, scales, queries, valid, torch.int8,
+                        cosine_scores_int8_plain,
+                        "avede_cosine_scores_int8", cosine_scores_int8)
+
+
+cosine_scores_bf16.launches = 0
+cosine_scores_int8.launches = 0

@@ -4,7 +4,8 @@ A plain dataclass with the same names and defaults as the JAX
 package's settings that this port reads, and the same environment
 overrides: every field can be set by an environment variable of its
 name; numbers, booleans, lists and dicts parse as JSON. Only the
-settings the ported ``mvp`` path reads are here.
+settings the ported paths (``mvp`` query, library search) read are
+here.
 """
 
 import dataclasses
@@ -63,6 +64,12 @@ class Settings:
     EMBEDDING_CACHE_INT8: bool = True   # per-row int8 cache entries
     EMBEDDING_CACHE_ENABLED: bool = True
 
+    # --- Library search ---
+    LIBRARY_INDEX_DTYPE: str = "bfloat16"   # device table: float32|bfloat16|int8
+    LIBRARY_INDEX_DEDUP: bool = True    # collapse identical consecutive rows
+    LIBRARY_PREWARM: bool = False       # index the library at server start
+    LIBRARY_INDEX_ENABLED: bool = True  # off = host per-table scoring
+
     # --- Results ---
     TOP_K_RESULTS: int = 15
     CONFIDENCE_THRESHOLD: float = 0.25
@@ -77,6 +84,9 @@ class Settings:
     # --- API ---
     API_HOST: str = "0.0.0.0"
     API_PORT: int = 8000
+
+    # --- Observability ---
+    ALARM_PROC_SECONDS: float = 10.0    # slower operations raise an alarm
 
     def ensure_dirs(self) -> None:
         for d in (self.DATA_DIR, self.VIDEO_DIR, self.CLIP_DIR,

@@ -14,7 +14,13 @@ and the script exits non-zero without printing a result:
    ``max |kernel - plain| <= 1e-4 * max |plain| + 1e-5``; time kernel,
    plain version and one library call on the device (CUDA events around
    a CUDA-graph replay, host launch cost excluded), and the kernel's
-   eager per-call wall (``call_ms``);
+   eager per-call wall (``call_ms``). The library's entries run at the
+   index's serving size: the bf16 and int8 cosine entries over 2^20
+   rows with a valid mask, ``quantize_rows`` at an add-block (768 rows)
+   and at growth (1,024,000 rows), ``quantize_per_channel`` at the TPU
+   kernel's [3072, 768]; quantization must equal its plain version
+   exactly. Where no single PyTorch call computes a kernel's function,
+   ``library_ms`` is null and ``library`` says why;
 4. check the card's bf16 embeddings against the CPU's f32 plain path
    on the same seeded weights, on a few frames (cosine >= 0.99);
 5. drive the main path at CLIP ViT-B/32 width (random weights from a
@@ -24,7 +30,29 @@ and the script exits non-zero without printing a result:
    (three queries, each twice) and one four-query ``process_queries``;
    every kernel's launch count, zeroed just before, must be above 0;
    scores must be finite and sorted, repeated queries identical, and
-   the top windows those of a numpy reference on the cached table.
+   the top windows those of a numpy reference on the cached table;
+6. drive whole-library search (``LibrarySearch``, the service behind
+   ``POST /api/search-library``) over three synthetic videos, in the
+   bfloat16 and then the int8 tier, each with a fresh cache and search:
+   one video gets a cold ``process_video`` first, so ingest backfills
+   it, the others take the dense scan; one cold search and three warm
+   ones. The kernels of ingest and of the tier must have launched; the
+   indexed hits must rank as a numpy reference of the host path with
+   the index's run collapse (near ties within 2e-3 may swap), with
+   confidences within 2e-3 of the f32 tables, and the host path
+   (``video_ids=``) must rank as the plain reference;
+7. build a ``DeviceLibraryIndex`` at serving size, 1000 seeded videos
+   of 1000 unit rows (1,024,000 padded rows, capacity 2^20), in the
+   bfloat16 and the int8 tier: add p50, total growth time, search p50
+   over 20 queries at k = 64, device ms of the cosine entry and of the
+   top-k beside their bounds, and each search's top 10 against an f32
+   reference on the same (dequantized) table where score gaps exceed
+   1e-4.
+
+Every kernel's row reports its launches on each path
+(``launches_by_path``, counts zeroed just before each path) and, as
+``launches``, those on its own path: ``mvp`` for the first slice's
+kernels, the library search of its tier for the library's.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -50,6 +78,20 @@ F32_FLOP_PER_S = 67e12
 TOL_REL, TOL_ABS = 1e-4, 1e-5
 
 N_FRAMES, FRAME_H, FRAME_W, FPS = 600, 288, 512, 30.0
+# the library index at serving size: 1000 videos of 1000 frames, each
+# span padded to 1024 rows, in a table of 2^20 rows
+INDEX_VIDEOS, INDEX_VIDEO_ROWS = 1000, 1000
+INDEX_ROWS, INDEX_CAPACITY = INDEX_VIDEOS * 1024, 1 << 20
+# whole-library search: three synthetic videos; indexed confidences are
+# held to the f32 host tables within the bf16/int8 tiers' rounding
+LIBRARY_VIDEOS = ("lib-0", "lib-1", "lib-2")
+LIBRARY_TOL = 2e-3
+# the path whose launches a kernel's row reports (default: mvp)
+KERNEL_PATH = {"cosine_scores_bf16": "library_bfloat16",
+               "cosine_scores_int8": "library_int8",
+               "quantize_rows": "library_int8"}
+NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
+                "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
            "an empty road at dusk", "a person walking a dog"]
 
@@ -135,9 +177,11 @@ class SyntheticVideo:
         self.np = np
         rng = np.random.default_rng(seed)
         yy, xx = np.mgrid[0:FRAME_H, 0:FRAME_W]
-        base = np.stack([60 + 40 * np.sin(xx / 23.0),
-                         90 + 50 * np.cos(yy / 17.0),
-                         120 + 30 * np.sin((xx + yy) / 41.0)], -1)
+        # the seed also shifts the pattern's phase (not at seed 0), so
+        # the library's videos differ in more than their noise
+        base = np.stack([60 + 40 * np.sin(xx / 23.0 + seed),
+                         90 + 50 * np.cos(yy / 17.0 + 2 * seed),
+                         120 + 30 * np.sin((xx + yy) / 41.0 + 3 * seed)], -1)
         self.background = np.clip(base + rng.normal(0, 12, base.shape),
                                   0, 255).astype(np.uint8)
         self.seed = seed
@@ -250,6 +294,7 @@ def check_kernels(torch, np, video):
     emb = F.normalize(torch.randn(nb, dim, device=dev, generator=gen), dim=1)
     qv = F.normalize(torch.randn(dim, device=dev, generator=gen), dim=0)
     valid = torch.arange(nb, device=dev) < n_valid
+    invalid = ~valid
     got = kernels.cosine_scores(emb, qv, valid)
     ref = kernels.cosine_scores_plain(emb, qv[None], valid)[:, 0]
     err, tol = max_err(torch, got, ref)
@@ -266,11 +311,125 @@ def check_kernels(torch, np, video):
             emb, qv, valid), iters=200),
         plain_ms=time_ms(torch, lambda: kernels.cosine_scores_plain(
             emb, qv[None], valid), iters=200),
-        bound_ms=b, bound_by=f,
-        library_ms=time_ms(torch, lambda: torch.mv(emb, qv), iters=200),
-        library="torch.mv (no mask)"))
+        bound_ms=b, bound_by=f, library_ms=None,
+        library=NO_MASKED_MV,
+        yardstick_ms=time_ms(torch, lambda: torch.mv(emb, qv).masked_fill_(
+            invalid, float("-inf")), iters=200),
+        yardstick="torch.mv + masked_fill_ (two calls)"))
     if err > tol:
         fail(f"cosine_scores: max err {err} > {tol}")
+    del emb
+
+    rows += check_library_kernels(torch, F, dev, gen)
+    return rows
+
+
+def check_library_kernels(torch, F, dev, gen):
+    """Phase 3, library rows: the bf16 and int8 cosine entries at the
+    index's serving size, and the quantize kernel at the shapes of an
+    add-block, of growth and of the TPU kernel's own contract (exact)."""
+    from avede_tpu_torch.ops import kernels, quant
+
+    rows = []
+    nb, dim = INDEX_CAPACITY, 512
+    # spans of 1000 rows padded to 1024, as the index holds them
+    valid = (torch.arange(nb, device=dev) % 1024) < 1000
+    qv = F.normalize(torch.randn(dim, device=dev, generator=gen), dim=0)
+    q_bf = qv.to(torch.bfloat16)
+    invalid = ~valid
+    emb = F.normalize(torch.randn(nb, dim, device=dev, generator=gen), dim=1)
+    table_i8, scales = quant.quantize_rows(emb)
+    table_bf = emb.to(torch.bfloat16)
+    del emb
+    mask_out = nb + 4 * nb + 4 * dim            # mask + scores + query
+
+    got = kernels.cosine_scores_bf16(table_bf, qv, valid)
+    ref = kernels.cosine_scores_bf16_plain(table_bf, qv[None], valid)[:, 0]
+    err, tol = max_err(torch, got, ref)
+    b, f = bound_ms(2 * table_bf.numel() + mask_out, 2.0 * nb * dim)
+    rows.append(dict(
+        name="cosine_scores_bf16", route="cuda",
+        source="avede_tpu_torch/csrc/cosine_scores.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:139",
+        shape=f"table bf16 [{nb},{dim}] x query [{dim}], valid mask",
+        max_abs_err=err, tol=tol,
+        ms=time_ms(torch, lambda: kernels.cosine_scores_bf16(
+            table_bf, qv, valid)),
+        call_ms=call_ms(torch, lambda: kernels.cosine_scores_bf16(
+            table_bf, qv, valid)),
+        plain_ms=time_ms(torch, lambda: kernels.cosine_scores_bf16_plain(
+            table_bf, qv[None], valid), iters=3),
+        bound_ms=b, bound_by=f, library_ms=None,
+        library=NO_MASKED_MV + "; torch.mv on bf16 also returns bf16 "
+                               "scores",
+        yardstick_ms=time_ms(torch, lambda: torch.mv(
+            table_bf, q_bf).masked_fill_(invalid, float("-inf"))),
+        yardstick="torch.mv (bf16 scores) + masked_fill_ (two calls)"))
+    if err > tol:
+        fail(f"cosine_scores_bf16: max err {err} > {tol}")
+    del table_bf
+
+    got = kernels.cosine_scores_int8(table_i8, scales, qv, valid)
+    ref = kernels.cosine_scores_int8_plain(table_i8, scales, qv[None],
+                                           valid)[:, 0]
+    err, tol = max_err(torch, got, ref)
+    b, f = bound_ms(table_i8.numel() + 4 * nb + mask_out, 2.0 * nb * dim)
+    rows.append(dict(
+        name="cosine_scores_int8", route="cuda",
+        source="avede_tpu_torch/csrc/cosine_scores.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:139",
+        shape=f"table int8 [{nb},{dim}] + scales [{nb}] x query [{dim}], "
+              f"valid mask",
+        max_abs_err=err, tol=tol,
+        ms=time_ms(torch, lambda: kernels.cosine_scores_int8(
+            table_i8, scales, qv, valid)),
+        call_ms=call_ms(torch, lambda: kernels.cosine_scores_int8(
+            table_i8, scales, qv, valid)),
+        plain_ms=time_ms(torch, lambda: kernels.cosine_scores_int8_plain(
+            table_i8, scales, qv[None], valid), iters=3),
+        bound_ms=b, bound_by=f, library_ms=None,
+        library="null: no PyTorch call takes int8 rows with row scales"))
+    if err > tol:
+        fail(f"cosine_scores_int8: max err {err} > {tol}")
+    del table_i8, scales
+
+    def quant_case(fn, plain, shape, per_row, iters):
+        x = torch.randn(*shape, device=dev, generator=gen) * 0.05
+        if per_row:
+            x[1] = 0.0                            # a removal's zero row
+        else:
+            x[:, 1] = 0.0                         # an all-zero column
+        q, s = fn(x)
+        pq, ps = plain(x)
+        if not (torch.equal(q, pq) and torch.equal(s, ps)):
+            fail(f"{fn.__name__} {shape}: kernel != plain version "
+                 f"({int((q != pq).sum())} values, "
+                 f"{int((s != ps).sum())} scales differ)")
+        # read 4 B and write 1 B an element, plus the scales; |x|, max,
+        # divide, round and clip an element
+        b, f = bound_ms(5 * x.numel() + 4 * s.numel(), 5.0 * x.numel())
+        out = dict(shape=f"f32 {list(shape)}", max_abs_err=0.0, exact=True,
+                   ms=time_ms(torch, lambda: fn(x), iters=iters),
+                   call_ms=call_ms(torch, lambda: fn(x), iters=iters),
+                   plain_ms=time_ms(torch, lambda: plain(x), iters=3),
+                   bound_ms=b, bound_by=f)
+        del x
+        return out
+
+    big = quant_case(quant.quantize_rows, quant.quantize_rows_plain,
+                     (INDEX_ROWS, dim), True, 5)
+    rows.append(dict(
+        name="quantize_rows", route="cuda",
+        source="avede_tpu_torch/csrc/quantize.cu",
+        replaces="avede_tpu/ops/quant.py:70", **big,
+        library_ms=None,
+        library="null: no PyTorch call computes per-row amax/127 "
+                "symmetric int8 with its scales",
+        add_block=quant_case(quant.quantize_rows, quant.quantize_rows_plain,
+                             (768, dim), True, 200),
+        per_channel=quant_case(quant.quantize_per_channel,
+                               quant.quantize_per_channel_plain,
+                               (3072, 768), False, 50)))
     return rows
 
 
@@ -370,6 +529,262 @@ def drive_main_path(torch, np, engine, video, cache_dir):
     }
 
 
+class LibraryReader:
+    """The ``VideoReader`` interface over one ``SyntheticVideo`` per
+    library video, chosen by the path's stem."""
+
+    sample_rate = 1
+
+    def __init__(self, np) -> None:
+        self.videos = {vid: SyntheticVideo(np, seed=i + 1)
+                       for i, vid in enumerate(LIBRARY_VIDEOS)}
+
+    def expected_sample_count(self, path: str) -> int:
+        return N_FRAMES
+
+    def stream_frames(self, path: str, **kwargs):
+        return self.videos[Path(path).stem].stream_frames(path, **kwargs)
+
+
+def library_reference(np, tables, q, top_k, per_video_k, collapse):
+    """The host path's answer in numpy: each video's best
+    ``per_video_k`` rows, then the global ``top_k``, ties to the lower
+    row. With ``collapse`` only run heads compete (a row that differs
+    from the one before it), as in the index. → [(score, vid, frame)]."""
+    cands = []
+    for vid, emb in tables.items():
+        s = emb @ q
+        rows = np.arange(len(emb))
+        if collapse:
+            rows = rows[np.r_[True, np.any(emb[1:] != emb[:-1], axis=1)]]
+        best = rows[np.argsort(-s[rows], kind="stable")][:per_video_k]
+        cands += [(float(s[i]), vid, int(i)) for i in best]
+    cands.sort(key=lambda c: -c[0])
+    return cands[:top_k]
+
+
+def check_ranking(what, got, ref, tables, q, tol):
+    """``got`` against the reference ranking: the same length, each hit's
+    confidence within ``tol`` of its row's f32 score, and each position's
+    (video_id, frame_index) the reference's unless the two rows' scores
+    are within 2·tol (a near tie that the tier's rounding may swap).
+    → the number of positions that match exactly."""
+    if len(got) != len(ref):
+        fail(f"{what}: {len(got)} hits, reference {len(ref)}")
+    exact = 0
+    for hit, (score, vid, frame) in zip(got, ref):
+        own = float(tables[hit["video_id"]][hit["frame_index"]] @ q)
+        if not abs(hit["confidence"] - own) <= tol:
+            fail(f"{what}: confidence {hit['confidence']} vs f32 {own}")
+        if (hit["video_id"], hit["frame_index"]) == (vid, frame):
+            exact += 1
+        elif not abs(own - score) <= 2 * tol:
+            fail(f"{what}: hit {hit['video_id']}:{hit['frame_index']} "
+                 f"({own}) where the reference has {vid}:{frame} ({score})")
+    return exact
+
+
+def drive_library(torch, np, engine, root):
+    """Phase 6: whole-library search through ``LibrarySearch`` at
+    ViT-B/32 width, in the bfloat16 and int8 tiers of the index."""
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.services.library_search import LibrarySearch
+    from avede_tpu_torch.utils.config import settings
+
+    videos = root / "library"
+    videos.mkdir(parents=True)
+    for vid in LIBRARY_VIDEOS:           # list_videos and _resolve find these
+        (videos / f"{vid}.mp4").touch()
+    settings.VIDEO_DIR = str(videos)
+    counted = (kernels.fused_patch_embed, attention.flash_attention,
+               kernels.cosine_scores, kernels.cosine_scores_bf16,
+               kernels.cosine_scores_int8, quant.quantize_rows)
+    tier_kernels = {"bfloat16": ("cosine_scores_bf16",),
+                    "int8": ("cosine_scores_int8", "quantize_rows")}
+    top_k, per_video_k, out = 10, 3, {}
+    for dtype, needed in tier_kernels.items():
+        settings.LIBRARY_INDEX_DTYPE = dtype
+        scan = Phase1Scan(engine, reader=LibraryReader(np), cache=EmbeddingCache(
+            str(root / f"library-cache-{dtype}")))
+        # a sparse cold scan first, so that ingest backfills this video;
+        # the others take the dense scan
+        first = str(videos / f"{LIBRARY_VIDEOS[0]}.mp4")
+        scan.process_video(first, QUERIES[0], threshold=-1.0,
+                           video_id=LIBRARY_VIDEOS[0])
+        search = LibrarySearch(scan)
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        cold = search.search(QUERIES[0], top_k=top_k, threshold=-1.0,
+                             per_video_k=per_video_k)
+        cold_s = time.perf_counter() - t0
+        warm, warm_ms = [], []
+        for q in QUERIES:
+            t0 = time.perf_counter()
+            warm.append(search.search(q, top_k=top_k, threshold=-1.0,
+                                      per_video_k=per_video_k))
+            warm_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for name in ("fused_patch_embed", "flash_attention") + needed:
+            if launches[name] <= 0:
+                fail(f"library ({dtype}): {name} never launched: {launches}")
+        if warm[0]["results"] != cold["results"]:
+            fail(f"library ({dtype}): warm result differs from the cold one")
+        meta = cold["metadata"]
+        if meta["videos_searched"] != len(LIBRARY_VIDEOS) \
+                or meta["index"]["dtype"] != dtype:
+            fail(f"library ({dtype}): metadata {meta}")
+        # the host tables (the cache's, completed) and the host path
+        tables = {vid: scan.frame_embeddings(str(videos / f"{vid}.mp4"),
+                                             vid)[0]
+                  for vid in LIBRARY_VIDEOS}
+        qemb = engine.embed_texts(QUERIES)
+        exact, rows = [], sum(len(t) for t in tables.values())
+        for i, res in enumerate(warm):
+            q = qemb[i]
+            ref = library_reference(np, tables, q, top_k, per_video_k, True)
+            exact.append(check_ranking(f"indexed {dtype}",
+                                       res["results"], ref, tables, q,
+                                       LIBRARY_TOL))
+            for hit in res["results"]:   # the index reports run heads
+                emb, f = tables[hit["video_id"]], hit["frame_index"]
+                if f > 0 and np.array_equal(emb[f], emb[f - 1]):
+                    fail(f"library ({dtype}): frame {f} is not a run head")
+            host = search.search(QUERIES[i], top_k=top_k, threshold=-1.0,
+                                 per_video_k=per_video_k,
+                                 video_ids=list(LIBRARY_VIDEOS))
+            check_ranking(f"host path {dtype}", host["results"],
+                          library_reference(np, tables, q, top_k,
+                                            per_video_k, False),
+                          tables, q, 1e-5)
+        out[dtype] = {
+            "cold_s": cold_s, "warm_ms": warm_ms,
+            "warm_p50_ms": statistics.median(warm_ms),
+            "index_rows": meta["index"]["rows"], "table_rows": rows,
+            "capacity": meta["index"]["capacity"],
+            "exact_positions": exact, "launches": launches,
+        }
+    return out
+
+
+def unit_rows(np, seed: int, n: int, dim: int):
+    x = np.random.default_rng(seed).standard_normal((n, dim),
+                                                   dtype=np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def drive_index(torch, np, dtype: str):
+    """Phase 7: a ``DeviceLibraryIndex`` at serving size, 1000 seeded
+    videos of 1000 unit rows (each made when it is added), with the
+    cosine entry and the top-k timed on the device against their
+    bounds, and the top 10 of 20 searches held to an f32 reference."""
+    from avede_tpu_torch.ops import kernels, quant
+    from avede_tpu_torch.ops.similarity import topk_scores
+    from avede_tpu_torch.services.library_index import DeviceLibraryIndex
+
+    dim, k = 512, 64
+    int8 = dtype == "int8"
+    counted = ((kernels.cosine_scores_int8, quant.quantize_rows) if int8
+               else (kernels.cosine_scores_bf16,))
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    index = DeviceLibraryIndex(dim, dtype=dtype, device="cuda")
+    grow, growth_s = index._grow_locked, []
+
+    def timed_grow(extra_rows):
+        t0 = time.perf_counter()
+        grow(extra_rows)
+        torch.cuda.synchronize()
+        growth_s.append(time.perf_counter() - t0)
+
+    index._grow_locked = timed_grow
+    ts = [i / FPS for i in range(INDEX_VIDEO_ROWS)]
+    add_ms = []
+    for v in range(INDEX_VIDEOS):
+        rows = unit_rows(np, v, INDEX_VIDEO_ROWS, dim)
+        t0 = time.perf_counter()
+        index.add(f"video-{v:04d}", rows, ts)
+        torch.cuda.synchronize()
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+    del index._grow_locked
+    if (index.n_rows, index.capacity) != (INDEX_VIDEOS * INDEX_VIDEO_ROWS,
+                                          INDEX_CAPACITY):
+        fail(f"index ({dtype}): {index.n_rows} rows, capacity "
+             f"{index.capacity}")
+    queries = unit_rows(np, 1 << 20, 20, dim)
+    hits, search_ms = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        hits.append(index.search(q, k))
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if any(v <= 0 for v in launches.values()):
+        fail(f"index ({dtype}): a kernel never launched: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9   # adds, growth, search
+
+    # the device time of the cosine entry and of the top-k, each beside
+    # its bound, on the index's own table
+    table, valid, scales = index._table, index._valid, index._scales
+    n = table.shape[0]
+    qd = torch.from_numpy(queries[0]).cuda()
+    if int8:
+        def score():
+            return kernels.cosine_scores_int8(table, scales, qd, valid)
+        nbytes = n * dim + 4 * n
+    else:
+        def score():
+            return kernels.cosine_scores_bf16(table, qd, valid)
+        nbytes = 2 * n * dim
+    scores = score()
+    cos_bound, cos_by = bound_ms(nbytes + n + 4 * n + 4 * dim,
+                                 2.0 * n * dim)
+    topk_bound, topk_by = bound_ms(4 * n + 12 * k, 0.0)
+    timing = {"cosine_ms": time_ms(torch, score),
+              "cosine_bound_ms": cos_bound, "cosine_bound_by": cos_by,
+              "topk_ms": call_ms(torch, lambda: topk_scores(scores, k),
+                                 iters=20),
+              "topk_bound_ms": topk_bound, "topk_bound_by": topk_by}
+
+    # reference: the same (dequantized) table in f32 against the query
+    # as the tier sees it (rounded to bf16); only the sum order differs
+    deq = table.float()
+    if int8:
+        deq *= scales[:, None]
+    qs = torch.from_numpy(queries).cuda().to(torch.bfloat16).float()
+    ref = (deq @ qs.T).masked_fill_(~valid[:, None], float("-inf")).T
+    del deq
+    ref_vals, ref_rows = (t.cpu().numpy() for t in torch.topk(ref, 11))
+    del ref
+    swapped = 0
+    for i, got in enumerate(hits):
+        for j in range(10):
+            vid, _, frame = DeviceLibraryIndex._locate(
+                int(ref_rows[i, j]), index._starts, index._spans)
+            if not abs(got[j]["confidence"] - ref_vals[i, j]) <= 1e-4:
+                fail(f"index ({dtype}): confidence {got[j]['confidence']} "
+                     f"vs reference {ref_vals[i, j]}")
+            if (got[j]["video_id"], got[j]["frame_index"]) != (vid, frame):
+                gap = min(abs(ref_vals[i, j] - ref_vals[i, j + d])
+                          for d in (-1, 1) if 0 <= j + d <= 10)
+                if gap > 1e-4:
+                    fail(f"index ({dtype}): hit {j} of query {i} is "
+                         f"{got[j]['video_id']}:{got[j]['frame_index']}, "
+                         f"reference {vid}:{frame}")
+                swapped += 1
+    out = {"rows": index.n_rows, "capacity": index.capacity,
+           "add_p50_ms": statistics.median(add_ms),
+           "growths": len(growth_s), "growth_total_s": sum(growth_s),
+           "search_p50_ms": statistics.median(search_ms),
+           "near_tie_swaps": swapped, "launches": launches, **timing,
+           "peak_gb": peak_gb}
+    del index, table, valid, scales, scores
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not (ROOT / "avede_tpu_torch" / "__init__.py").exists():
         fail("avede_tpu_torch/ not found beside chip_smoke.py; run from "
@@ -404,12 +819,27 @@ def main() -> None:
         reference = check_against_cpu(torch, np, engine, video)
         main_path = drive_main_path(torch, np, engine, video,
                                     Path(tmp) / "embeddings")
+        library = drive_library(torch, np, engine, Path(tmp))
+    del engine
+    torch.cuda.empty_cache()
+    index = {dtype: drive_index(torch, np, dtype)
+             for dtype in ("bfloat16", "int8")}
 
+    # each kernel's launches on every path, each path's counts zeroed
+    # just before it ran; ``launches`` is the count on the row's own path
+    paths = {"mvp": main_path["launches"],
+             **{f"library_{d}": r["launches"] for d, r in library.items()},
+             **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:
-        row["launches"] = main_path["launches"][row["name"]]
+        row["path"] = KERNEL_PATH.get(row["name"], "mvp")
+        row["launches"] = paths[row["path"]][row["name"]]
+        row["launches_by_path"] = {p: c.get(row["name"], 0)
+                                   for p, c in paths.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"card": card, "reference": reference,
                       "main_path": main_path}), flush=True)
+    print(json.dumps({"card": card, "library": library}), flush=True)
+    print(json.dumps({"card": card, "index": index}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

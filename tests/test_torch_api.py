@@ -102,3 +102,73 @@ class TestPortApi:
         form.add_field("file", b"abc", filename="x.txt")
         status, _ = client("POST", "/api/upload", data=form)
         assert status == 400
+
+
+class TestLibraryRoute:
+    def test_search_library_fields_and_metrics(self, client, tmp_path):
+        video = make_test_video(tmp_path / "src.mp4", n_frames=60)
+        vids = [_upload(client, video)[1]["video_id"] for _ in range(2)]
+
+        def searches():
+            ops = client("GET", "/api/metrics")[1]["operations"]
+            return ops.get("library_search", {}).get("count_total", 0)
+
+        before = searches()
+        status, out = client("POST", "/api/search-library", json={
+            "query": "white square", "top_k": 4, "threshold": -1.0,
+            "per_video_k": 2})
+        assert status == 200 and out["status"] == "completed"
+        assert out["total_found"] == len(out["results"]) == 4
+        for r in out["results"]:
+            assert set(r) == {"video_id", "timestamp", "confidence",
+                              "frame_index"}
+            assert r["video_id"] in vids
+        confs = [r["confidence"] for r in out["results"]]
+        assert confs == sorted(confs, reverse=True)
+        meta = out["metadata"]
+        assert meta["videos_searched"] == 2
+        assert meta["index"]["device_resident"]
+        assert meta["index"]["dtype"] == settings.LIBRARY_INDEX_DTYPE
+        status, sub = client("POST", "/api/search-library", json={
+            "query": "white square", "video_ids": vids[:1],
+            "threshold": -1.0})
+        assert status == 200
+        assert {r["video_id"] for r in sub["results"]} == {vids[0]}
+        assert searches() == before + 2
+
+    @pytest.mark.parametrize("body", [{}, {"query": ""}, {"query": 3},
+                                      {"query": "q", "top_k": "five"},
+                                      {"query": "q", "video_ids": "v"},
+                                      {"query": "q", "threshold": True}])
+    def test_search_library_validation_422(self, client, body):
+        status, _ = client("POST", "/api/search-library", json=body)
+        assert status == 422
+
+    def test_search_library_invalid_json_422(self, client):
+        status, _ = client("POST", "/api/search-library", data=b"{x",
+                           headers={"Content-Type": "application/json"})
+        assert status == 422
+
+
+def test_library_prewarm_thread_indexes_videos(tmp_path, monkeypatch):
+    """With LIBRARY_PREWARM the app indexes the videos already uploaded
+    on a daemon thread, before any search."""
+    import time
+
+    from avede_tpu_torch.api.app import create_app
+    from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services.video_processor import VideoProcessor
+
+    for attr in ("DATA_DIR", "VIDEO_DIR", "EMBEDDING_DIR"):
+        monkeypatch.setattr(settings, attr, str(tmp_path / attr.lower()))
+    (tmp_path / "video_dir").mkdir()
+    make_test_video(tmp_path / "video_dir" / "v1.mp4", n_frames=30)
+    monkeypatch.setattr(settings, "LIBRARY_PREWARM", True)
+    engine = ClipEngine(cfg=tiny_test_config(), device="cpu")
+    state = create_app(VideoProcessor(engine=engine))["state"]
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and not (
+            state._library is not None and state._library._index.has("v1")):
+        time.sleep(0.05)
+    assert state._library is not None and state._library._index.has("v1")

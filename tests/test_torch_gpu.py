@@ -11,6 +11,7 @@ import torch
 
 from avede_tpu_torch.ops import attention as tattn
 from avede_tpu_torch.ops import kernels as tk
+from avede_tpu_torch.ops import quant as tq
 
 pytestmark = pytest.mark.gpu
 
@@ -67,3 +68,103 @@ def test_cosine_kernel_matches_plain(cuda, nq):
     torch.cuda.synchronize()
     ref = tk.cosine_scores_plain(emb, q, valid)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(768, 512), (257, 512), (33, 100)])
+def test_quantize_rows_kernel_equals_plain(cuda, shape):
+    """Exact: the register path (D % 128 == 0) and the loop path."""
+    g = torch.Generator(device="cuda").manual_seed(shape[0])
+    x = torch.randn(*shape, device=cuda, generator=g)
+    x[3] = 0.0                                  # a removal's zero row
+    x[5, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5], device=cuda)
+    before = tq.quantize_rows.launches
+    q, s = tq.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert tq.quantize_rows.launches == before + 1
+    pq, ps = tq.quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert s[3].item() == np.float32(1e-12) and not q[3].any()
+    out = (torch.zeros(shape[0] + 8, shape[1], dtype=torch.int8,
+                       device=cuda), torch.zeros(shape[0] + 8, device=cuda))
+    tq.quantize_rows(x, out=(out[0][8:], out[1][8:]))
+    assert torch.equal(out[0][8:], pq) and torch.equal(out[1][8:], ps)
+
+
+@pytest.mark.parametrize("shape", [(3072, 768), (33, 130)])
+def test_quantize_per_channel_kernel_equals_plain(cuda, shape):
+    g = torch.Generator(device="cuda").manual_seed(shape[1])
+    w = torch.randn(*shape, device=cuda, generator=g) * 0.02
+    w[:, 1] = 0.0
+    before = tq.quantize_per_channel.launches
+    q, s = tq.quantize_per_channel(w)
+    torch.cuda.synchronize()
+    assert tq.quantize_per_channel.launches == before + 1
+    pq, ps = tq.quantize_per_channel_plain(w)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+def _table(cuda, n, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    emb = torch.nn.functional.normalize(
+        torch.randn(n, d, device=cuda, generator=g), dim=-1)
+    valid = torch.rand(n, device=cuda, generator=g) < 0.9
+    return emb, valid, g
+
+
+@pytest.mark.parametrize("n,d,nq", [(4096, 512, 1), (1000, 768, 1),
+                                    (300, 100, 3)])
+def test_cosine_bf16_kernel_matches_plain(cuda, n, d, nq):
+    emb, valid, g = _table(cuda, n, d, n + d)
+    q = torch.nn.functional.normalize(
+        torch.randn(nq, d, device=cuda, generator=g), dim=-1)
+    table = emb.to(torch.bfloat16)
+    before = tk.cosine_scores_bf16.launches
+    got = tk.cosine_scores_bf16(table, q, valid)
+    torch.cuda.synchronize()
+    assert tk.cosine_scores_bf16.launches == before + 1
+    torch.testing.assert_close(
+        got, tk.cosine_scores_bf16_plain(table, q, valid),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,nq", [(4096, 512, 1), (1000, 1024, 1),
+                                    (300, 100, 3)])
+def test_cosine_int8_kernel_matches_plain(cuda, n, d, nq):
+    emb, valid, g = _table(cuda, n, d, n + d + 1)
+    q = torch.nn.functional.normalize(
+        torch.randn(nq, d, device=cuda, generator=g), dim=-1)
+    table, scales = tq.quantize_rows(emb)
+    before = tk.cosine_scores_int8.launches
+    got = tk.cosine_scores_int8(table, scales, q, valid)
+    torch.cuda.synchronize()
+    assert tk.cosine_scores_int8.launches == before + 1
+    torch.testing.assert_close(
+        got, tk.cosine_scores_int8_plain(table, scales, q, valid),
+        rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_library_index_on_card_matches_cpu(cuda, dtype):
+    """The same adds, removal and growth on the card and on the CPU:
+    identical tables and hits; scores to 1e-5 (sum order)."""
+    from avede_tpu_torch.services.library_index import DeviceLibraryIndex
+
+    rng = np.random.default_rng(0)
+    idx = {dev: DeviceLibraryIndex(512, dtype=dtype, device=dev)
+           for dev in ("cuda", "cpu")}
+    for i, n in enumerate((700, 300, 1200)):
+        emb = rng.normal(size=(n, 512)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        for ix in idx.values():
+            ix.add(f"v{i}", emb, np.arange(float(n)))
+        if i == 1:
+            for ix in idx.values():
+                ix.remove("v0")
+    assert torch.equal(idx["cuda"]._table.cpu(), idx["cpu"]._table)
+    q = rng.normal(size=512).astype(np.float32)
+    q /= np.linalg.norm(q)
+    a, b = idx["cuda"].search(q, 20), idx["cpu"].search(q, 20)
+    assert [(h["video_id"], h["frame_index"]) for h in a] \
+        == [(h["video_id"], h["frame_index"]) for h in b]
+    np.testing.assert_allclose([h["confidence"] for h in a],
+                               [h["confidence"] for h in b], atol=1e-5)

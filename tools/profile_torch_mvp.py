@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's ``mvp`` main path on one NVIDIA GPU.
+"""Profile the PyTorch/CUDA port's ``mvp`` main path and its library
+search on one NVIDIA GPU.
 
     python3 tools/profile_torch_mvp.py [--out DIR]
 
-Same configuration as ``chip_smoke.py``'s main path (CLIP ViT-B/32,
-random weights from seed 0, bf16; its in-memory source of 600 seeded
-288×512 frames; default settings). Profiles two windows with
-``torch.profiler`` (CPU + CUDA activities):
+Same configuration as ``chip_smoke.py``'s main path and library phase
+(CLIP ViT-B/32, random weights from seed 0, bf16; its in-memory
+sources of 600 seeded 288×512 frames; default settings, so the
+library index is in its default bfloat16 tier). Profiles four windows
+with ``torch.profiler`` (CPU + CUDA activities):
 
 - ``cold``: one cold ``Phase1Scan.process_video``;
-- ``warm``: six warm ``process_video`` queries (three texts, twice).
+- ``warm``: six warm ``process_video`` queries (three texts, twice);
+- ``library_cold``: the first ``LibrarySearch.search`` over
+  ``chip_smoke.py``'s three library videos, one of them scanned sparse
+  before (so ingest backfills it) and two taking the dense scan;
+- ``library_warm``: three further searches (three texts).
 
 For each window it prints one JSON line: host wall ms, device busy ms
 (union of device kernel and copy intervals) and their count, device
 idle share (1 − busy / wall), the wall of the ``phase1.*`` spans, and
 the top device kernels by total time. It writes a Chrome trace per window
-under ``--out``. Needs a card; imports nothing of JAX.
+under ``--out``. A last line times the host stages of one dense scan
+outside the profiler: frame synthesis, the I420 pack, the dedup
+signatures and the embedding of the 600 frames. Needs a card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -97,6 +106,7 @@ def main() -> None:
     from avede_tpu_torch.ops import _build
     from avede_tpu_torch.parallel.embed import ClipEngine
     from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.services.library_search import LibrarySearch
     from avede_tpu_torch.utils.config import settings
 
     out = Path(args.out)
@@ -129,11 +139,67 @@ def main() -> None:
                                        video_id=vid)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.export_chrome_trace(str(out / f"{name}.json"))
-            row = _summary(torch, prof, wall_ms, name)
-            row["card"] = card
-            row["calls"] = len(calls)
-            print(json.dumps(row), flush=True)
+            _report(torch, prof, wall_ms, name, card, len(calls), out)
+
+        # library search, default (bfloat16) tier
+        videos = Path(tmp) / "library"
+        videos.mkdir()
+        for v in chip_smoke.LIBRARY_VIDEOS:
+            (videos / f"{v}.mp4").touch()
+        settings.VIDEO_DIR = str(videos)
+        reader = chip_smoke.LibraryReader(np)
+        lib_scan = Phase1Scan(engine, reader=reader,
+                              cache=EmbeddingCache(str(Path(tmp) / "lib")))
+        first = chip_smoke.LIBRARY_VIDEOS[0]
+        lib_scan.process_video(str(videos / f"{first}.mp4"), queries[0],
+                               threshold=-1.0, video_id=first)
+        search = LibrarySearch(lib_scan)
+        for name, calls in (("library_cold", queries[:1]),
+                            ("library_warm", queries)):
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for q in calls:
+                    search.search(q, threshold=-1.0)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            _report(torch, prof, wall_ms, name, card, len(calls), out)
+        print(json.dumps(_dense_stages(torch, np, engine, reader, card)),
+              flush=True)
+
+
+def _report(torch, prof, wall_ms, name, card, calls, out) -> None:
+    prof.export_chrome_trace(str(out / f"{name}.json"))
+    row = _summary(torch, prof, wall_ms, name)
+    row["card"] = card
+    row["calls"] = calls
+    print(json.dumps(row), flush=True)
+
+
+def _dense_stages(torch, np, engine, reader, card) -> dict:
+    """Host seconds of each stage of one dense scan of a library video,
+    run one after another (the scan overlaps decode with embed)."""
+    from avede_tpu_torch.ops.dedup import _signatures
+    from avede_tpu_torch.ops.preprocess import pack_frames_i420
+
+    import chip_smoke
+
+    video = reader.videos[chip_smoke.LIBRARY_VIDEOS[1]]
+    size, n, chunk = engine.cfg.image_size, chip_smoke.N_FRAMES, 256
+    t0 = time.perf_counter()
+    frames = video._chunk(0, n)
+    t1 = time.perf_counter()
+    packed = pack_frames_i420(frames, size, src="bgr")
+    t2 = time.perf_counter()
+    _signatures(packed[:, :size])
+    t3 = time.perf_counter()
+    engine.embed_stream(packed[i:i + chunk] for i in range(0, n, chunk))
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    return {"window": "dense_scan_stages", "card": card,
+            "frames": n, "synthesize_s": t1 - t0,
+            "pack_i420_s": t2 - t1, "dedup_signatures_s": t3 - t2,
+            "embed_s": t4 - t3}
 
 
 if __name__ == "__main__":
