@@ -1,26 +1,42 @@
 // Flash attention for Hopper (sm_90a): non-causal, unmasked softmax
-// attention on [B*H, L, D] f32, with online softmax over K/V tiles.
+// attention with an online softmax over K/V tiles. Two entries:
+//
+// - avede_flash_attention_bf16 (the serving path): bf16 q, k, v in the
+//   projections' own layout [B, L, H, hd] (each the contiguous [B, L, D]
+//   output of its nn.Linear viewed per head, rows at a stride of H*hd),
+//   bf16 output [B, L, H*hd] that out_proj reads as it is. No transpose
+//   or f32 copy exists around it.
+// - avede_flash_attention_f32 (the TPU kernel's contract): f32
+//   [B*H, L, D], one thread per query row (kept from the first port).
 //
 // Replaces avede_tpu/ops/attention.py: flash_attention / _flash_kernel
 // (the pl.pallas_call at :85).
 //
-// One block takes 64 query rows of one (frame, head) pair, one thread
-// per row: the thread keeps its q row and its output accumulator in
-// registers and the running max and sum in f32, exactly the recurrence
-// of _flash_kernel. K and V stream through shared memory in tiles of 32
-// rows, read by all threads at once (broadcast). Any L works: K/V rows
-// past L load as zeros and their scores are -inf, and query rows past L
-// write nothing, so the caller pads nothing.
-//
-// Bound on the H100: at the CLIP ViT-B/32 vision shape (L = 50, D = 64)
-// each (frame, head) reads 50 KB and does 0.64 MFLOP, about 13 FLOP per
-// byte, below the 20 that f32 (67 TFLOP/s) over HBM (3.35 TB/s) balances
-// at, so it is bound by bytes. The score matrix never leaves registers;
-// moving the products onto tensor cores and the inputs to bf16 is later
-// work.
+// Bound on the H100: at the CLIP ViT-B/32 vision shape (L = 50, hd = 64,
+// bf16) each (frame, head) pair moves 25.6 KB for about 0.64 MFLOP,
+// some 25 FLOP per byte, far under the ~295 at which the bf16 tensor
+// cores (989 TFLOP/s) become the limit over HBM (3.35 TB/s): it is bound
+// by bytes. The bf16 design therefore spends on bytes in flight and on
+// launches, not on the widest tensor-core instruction:
+// - 4 warps per block, one warp per 16 query rows (a 64-row q tile),
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate); a 64-row wgmma tile
+//   would waste a fifth of its rows at L = 50.
+// - A persistent block walks several (pair, q tile) items. The q tile and
+//   each 64-key K/V tile go into shared memory by 16-byte cp.async
+//   (rows past L zero-filled), double-buffered: the next item's loads
+//   are in flight while this one computes. Rows are 128 B, stored with
+//   the 16-byte chunks XOR-swizzled by row so ldmatrix is conflict-free.
+// - Scores stay in the mma accumulator fragments; row max and sum use
+//   quad shuffles; keys past L score -inf.
+// - P.V splits P into two bf16 terms (hi = bf16(p), lo = bf16(p - hi))
+//   and runs both products into one f32 accumulator, which keeps the
+//   result within f32 softmax.V at the 1e-4 bar (one bf16 term would
+//   not). The output goes through shared memory to 16-byte stores.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -121,4 +137,281 @@ extern "C" int avede_flash_attention_f32(const float* q, const float* k,
     case 64: return launch<64>(q, k, v, o, bh, L, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 [B, L, H, hd] entry (hd = 64)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int HD = 64;              // head dim: 64 bf16 = one 128-byte row
+constexpr int TR = 64;              // rows of a q or K/V tile
+constexpr int TT = 128;             // threads: 4 warps x 16 query rows
+constexpr int TILE = TR * HD;       // bf16 elements of one tile
+
+struct Stage {
+  __nv_bfloat16 q[TILE];
+  __nv_bfloat16 k[TILE];
+  __nv_bfloat16 v[TILE];
+};
+
+// element offset of (row, 16-byte chunk) in a swizzled 64x64 tile
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * HD + ((chunk ^ (row & 7)) << 3);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// rows row0.. of a matrix with row stride ld (elements); rows >= L are
+// zero-filled (src-size 0)
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int ld,
+                                          int row0, int L) {
+#pragma unroll
+  for (int i = threadIdx.x; i < TR * 8; i += TT) {
+    const int r = i >> 3, c = i & 7;
+    const int gr = row0 + r;
+    const bool ok = gr < L;
+    const __nv_bfloat16* g = ok ? src + (long long)gr * ld + c * 8 : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst + swz(r, c))), "l"(g),
+                    "r"(ok ? 16 : 0) : "memory");
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// p -> (hi, lo) bf16 pairs with hi + lo = p to about 2^-17 relative
+__device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
+                                       uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+__global__ void __launch_bounds__(TT)
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, int B, int L, int H,
+                  float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  const int ld = H * HD;
+  const int nt = (L + TR - 1) / TR;           // q tiles = K/V tiles
+  const int items = B * H * nt;
+  const int mine = (int)blockIdx.x < items
+      ? (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  const int steps = mine * nt;                // (item, kv tile) steps
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  auto item_base = [&](int s, int& qt, int& kt) -> long long {
+    const int item = (int)blockIdx.x + (s / nt) * (int)gridDim.x;
+    kt = s % nt;
+    const int pair = item / nt;
+    qt = item % nt;
+    const int b = pair / H, h = pair % H;
+    return (long long)b * L * ld + (long long)h * HD;
+  };
+  auto issue = [&](int s) {
+    int qt, kt;
+    const long long base = item_base(s, qt, kt);
+    Stage& S = st[s & 1];
+    if (kt == 0) load_tile(S.q, q + base, ld, qt * TR, L);
+    load_tile(S.k, k + base, ld, kt * TR, L);
+    load_tile(S.v, v + base, ld, kt * TR, L);
+  };
+
+  if (steps > 0) issue(0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  uint32_t qf[4][4];
+  float acc[8][4];
+  float m[2], l[2];
+
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    Stage& S = st[s & 1];
+    int qt, kt;
+    const long long base = item_base(s, qt, kt);
+
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4(qf[kk], &S.q[swz(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                 2 * kk + (lane >> 4))]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+    }
+
+    // scores: 16 query rows x 64 keys per warp
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, &S.k[swz(8 * j + (lane & 7) + (lane >> 4) * 8,
+                            2 * kk + ((lane >> 3) & 1))]);
+        mma_bf16(sc[j], qf[kk], b[0], b[1]);
+        mma_bf16(sc[j + 1], qf[kk], b[2], b[3]);
+      }
+    }
+    const int key0 = kt * TR + 2 * (lane & 3);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (key0 + 8 * j + (e & 1) >= L) sc[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    float alpha[2], ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      alpha[i] = exp2f((m[i] - mx[i]) * scale_log2);
+      ms[i] = mx[i] * scale_log2;
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2f(fmaf(sc[j][e], scale_log2, -ms[e >> 1]));
+        rs[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+    }
+
+    // P.V with P = hi + lo, 16 keys per step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[4], al[4];
+      split2(sc[2 * kk][0], sc[2 * kk][1], ah[0], al[0]);
+      split2(sc[2 * kk][2], sc[2 * kk][3], ah[1], al[1]);
+      split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ah[2], al[2]);
+      split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, &S.v[swz(16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              n + (lane >> 4))]);
+        mma_bf16(acc[n], ah, b[0], b[1]);
+        mma_bf16(acc[n], al, b[0], b[1]);
+        mma_bf16(acc[n + 1], ah, b[2], b[3]);
+        mma_bf16(acc[n + 1], al, b[2], b[3]);
+      }
+    }
+
+    if (kt == nt - 1) {
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float t = l[i];
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+        inv[i] = 1.f / t;
+      }
+      // stage this warp's 16 output rows in its own rows of the q tile
+      __nv_bfloat16* stg = S.q;
+      const int r = warp * 16 + (lane >> 2);
+      const int cc = 2 * (lane & 3);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        *reinterpret_cast<uint32_t*>(&stg[swz(r, n) + cc]) =
+            pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(&stg[swz(r + 8, n) + cc]) =
+            pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = lane; i < 16 * 8; i += 32) {
+        const int row = warp * 16 + (i >> 3), c = i & 7;
+        const int grow = qt * TR + row;
+        if (grow < L)
+          *reinterpret_cast<uint4*>(o + base + (long long)grow * ld + c * 8) =
+              *reinterpret_cast<const uint4*>(&stg[swz(row, c)]);
+      }
+    }
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace
+
+// q, k, v, o: bf16 rows of H*64 elements ([B, L, H, 64] contiguous).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for hd != 64.
+extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int L, int H, int D, void* stream) {
+  if (D != HD) return (int)cudaErrorInvalidValue;
+  static int grid_cap = 0;
+  const int smem = 2 * (int)sizeof(Stage);
+  if (grid_cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(flash_bf16_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bf16_kernel,
+                                                  TT, smem);
+    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int items = B * H * ((L + TR - 1) / TR);
+  const int grid = items < grid_cap ? items : grid_cap;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  flash_bf16_kernel<<<grid, TT, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B, L, H, scale_log2);
+  return (int)cudaGetLastError();
 }

@@ -4,10 +4,13 @@
 Parameter names follow the JAX package's (``q_proj``, ``layer_norm1``,
 ``mlp.fc1``, ``layers.<i>``) so ``models/convert.py`` maps one onto the
 other. Unmasked, non-causal self-attention — every layer of the CLIP
-vision tower — goes through the hand-written ``flash_attention`` when
-``use_flash`` is set, in f32 as the JAX package feeds its Pallas kernel;
-causal text attention stays plain torch with an f32 softmax, as the JAX
-package left it to einsum.
+vision tower — goes through the hand-written ``flash_attention_blhd``
+when ``use_flash`` is set: the projections' outputs go in as they are,
+viewed per head, and its ``[B, L, D]`` output goes to ``out_proj``, with
+no cast or transpose copy around it (the JAX package casts to f32 and
+transposes for its Pallas kernel; bf16 → f32 is exact, so the values
+agree up to accumulation order). Causal text attention stays plain
+torch with an f32 softmax, as the JAX package left it to einsum.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention_blhd
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -42,27 +45,19 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         b, length, _ = x.shape
         hd = self.dim // self.num_heads
-
-        def split(t: torch.Tensor) -> torch.Tensor:      # → [B, H, L, hd]
-            return t.reshape(b, length, self.num_heads, hd).transpose(1, 2)
-
-        q = split(self.q_proj(x))
-        k = split(self.k_proj(x))
-        v = split(self.v_proj(x))
+        heads = (b, length, self.num_heads, hd)
+        q = self.q_proj(x).view(heads)
+        k = self.k_proj(x).view(heads)
+        v = self.v_proj(x).view(heads)
         if self.use_flash and not causal:
-            out = flash_attention(q.float().contiguous(),
-                                  k.float().contiguous(),
-                                  v.float().contiguous()).to(x.dtype)
-        else:
-            scores = (q.float() @ k.float().transpose(-1, -2)) \
-                / math.sqrt(hd)
-            if causal:
-                keep = torch.ones(length, length, dtype=torch.bool,
-                                  device=x.device).tril()
-                scores = scores.masked_fill(
-                    ~keep, torch.finfo(scores.dtype).min)
-            attn = torch.softmax(scores, dim=-1).to(x.dtype)
-            out = attn @ v
+            return self.out_proj(flash_attention_blhd(q, k, v))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, L, hd]
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        if causal:
+            keep = torch.ones(length, length, dtype=torch.bool,
+                              device=x.device).tril()
+            scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+        out = torch.softmax(scores, dim=-1).to(x.dtype) @ v
         out = out.transpose(1, 2).reshape(b, length, self.dim)
         return self.out_proj(out)
 

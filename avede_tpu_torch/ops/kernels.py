@@ -1,14 +1,17 @@
 """Hand-written CUDA kernels of the hot ops, with their plain versions
 (counterpart of ``avede_tpu/ops/pallas_kernels.py``).
 
-- ``fused_patch_embed`` — ``csrc/patch_embed.cu``, replacing
-  ``fused_patch_embed`` / ``_patch_matmul_kernel``
-  (``avede_tpu/ops/pallas_kernels.py:61-106``): uint8 or 0..255 float
-  frames → patchify → ``@ W' + b'``, with ``/255`` and the CLIP
-  normalisation folded into ``W'`` and ``b'`` (``fold_for_uint8``). The
-  kernel gathers each patch row from the frame tensor while it loads
-  its GEMM tile, so the patchified matrix never exists in device
-  memory. Bound by operations on the H100 (f32 SIMT GEMM).
+- ``fused_patch_embed_i420`` and ``fused_patch_embed`` —
+  ``csrc/patch_embed.cu``, replacing ``fused_patch_embed`` /
+  ``_patch_matmul_kernel`` (``avede_tpu/ops/pallas_kernels.py:61-106``):
+  patchify → ``@ W' + b'``, with ``/255`` and the CLIP normalisation
+  folded into ``W'`` and ``b'`` (``fold_for_uint8``). The serving entry
+  takes packed I420 frames and unpacks them while it builds its GEMM
+  tile, returning bf16 tokens; the contract entry takes uint8 or
+  0..255 float RGB frames and returns f32. Neither the unpacked image
+  nor the patchified matrix exists in device memory. Both run wgmma in
+  bf16 ×3 (``split_patch_weights`` splits ``W'`` once); bound by
+  operations on the H100.
 - ``cosine_scores`` — ``csrc/cosine_scores.cu``, replacing
   ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``): the
   ``[N, D] · [D]`` (or ``[Q, D]``) scoring product of every warm query,
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .preprocess import CLIP_MEAN, CLIP_STD
+from .preprocess import CLIP_MEAN, CLIP_STD, clip_preprocess_i420
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,17 +101,59 @@ def _patchify(frames: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(n, g * g, patch * patch * c)
 
 
+def split_patch_weights(w2: torch.Tensor, patch: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``W'`` [P·P·3, D] (rows in (py, px, c) order) → (w_hi, w_lo), bf16
+    [D, P·P·3] with ``w_hi + w_lo ≈ W'`` to about 2^-17 relative: the
+    kernel's operands, K-major, with K reordered to (row pair, channel,
+    row, px) so that each K step of 64 is one channel of two pixel
+    rows."""
+    k, d = w2.shape
+    w = w2.float().reshape(patch // 2, 2, patch, 3, d)   # pair, r, px, c
+    w = w.permute(4, 0, 3, 1, 2).reshape(d, k)
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    return hi.contiguous(), lo.contiguous()
+
+
 def fused_patch_embed_plain(frames: torch.Tensor, w2: torch.Tensor,
                             b2: torch.Tensor, patch: int) -> torch.Tensor:
     """Plain version of the kernel: patchify + ``@ W2 + b2`` in f32."""
     return _patchify(frames.float(), patch) @ w2.float() + b2.float()
 
 
+def _patch_launch(name, frames, size, split, b2, out, patch, wrapper):
+    if patch != 32:
+        raise ValueError(f"the kernel takes patch 32, not {patch}")
+    w_hi, w_lo = split
+    d = out.shape[-1]
+    if d % 96 or w_hi.shape != (d, patch * patch * 3) \
+            or w_lo.shape != w_hi.shape or w_hi.dtype != torch.bfloat16 \
+            or w_lo.dtype != torch.bfloat16:
+        raise ValueError("split weights must be bf16 [D, P·P·3] from "
+                         "split_patch_weights, D a multiple of 96")
+    _require_cuda(frames, w_hi, w_lo, b2)
+    if b2.dtype != torch.float32:
+        raise ValueError("the folded bias must be float32")
+    n = frames.shape[0]
+    if n == 0:
+        return out
+    fn = _entry("patch_embed", name, [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+    _build.check(fn(frames.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                    b2.data_ptr(), out.data_ptr(), n, size, d,
+                    _stream(frames)), name)
+    wrapper.launches += 1
+    return out
+
+
 def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
-                      b2: torch.Tensor, patch: int) -> torch.Tensor:
+                      b2: torch.Tensor, patch: int,
+                      split: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                      = None) -> torch.Tensor:
     """[N, S, S, 3] frames (uint8 or 0..255 f32) + folded weights
     (``fold_for_uint8``; ``b2`` = model bias + fold delta) → f32
-    [N, G·G, D] patch embeddings of the normalized frames."""
+    [N, G·G, D] patch embeddings of the normalized frames. ``split``:
+    ``split_patch_weights(w2, patch)``, made here if not given."""
     n, s, s2, c = frames.shape
     k, d = w2.shape
     if s != s2 or c != 3 or s % patch or k != patch * patch * 3 \
@@ -118,9 +163,6 @@ def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
                          f"patch {patch}")
     if frames.device.type == "cpu":
         return fused_patch_embed_plain(frames, w2, b2, patch)
-    _require_cuda(frames, w2, b2)
-    if w2.dtype != torch.float32 or b2.dtype != torch.float32:
-        raise ValueError("folded weights must be float32")
     if frames.dtype == torch.float32:
         name = "avede_patch_embed_f32"
     elif frames.dtype == torch.uint8:
@@ -128,20 +170,60 @@ def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
     else:
         raise ValueError(f"frames must be float32 or uint8, not "
                          f"{frames.dtype}")
+    _require_cuda(frames, w2, b2)
     g = s // patch
     out = torch.empty((n, g * g, d), dtype=torch.float32,
                       device=frames.device)
-    if n == 0:
-        return out
-    fn = _entry("patch_embed", name, [_P, _P, _P, _P, _I, _I, _I, _I, _P])
-    _build.check(fn(frames.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                    out.data_ptr(), n, s, patch, d, _stream(frames)),
-                 name)
-    fused_patch_embed.launches += 1
-    return out
+    return _patch_launch(name, frames, s,
+                         split or split_patch_weights(w2, patch), b2, out,
+                         patch, fused_patch_embed)
 
 
 fused_patch_embed.launches = 0
+
+
+def fused_patch_embed_i420_plain(packed: torch.Tensor, w2: torch.Tensor,
+                                 b2: torch.Tensor, patch: int,
+                                 out_dtype: torch.dtype = torch.bfloat16
+                                 ) -> torch.Tensor:
+    """Plain version of the I420 entry: the device unpack
+    (``clip_preprocess_i420(normalize=False) · 255``), the f32 patch
+    product, then a cast to ``out_dtype``."""
+    px = clip_preprocess_i420(packed, normalize=False) * 255.0
+    return fused_patch_embed_plain(px, w2, b2, patch).to(out_dtype)
+
+
+def fused_patch_embed_i420(packed: torch.Tensor, w2: torch.Tensor,
+                           b2: torch.Tensor, patch: int,
+                           split: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                           = None, out_dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """Packed I420 uint8 [N, S·3/2, S] + folded weights → [N, G·G, D]
+    patch embeddings of the normalized frames, in ``out_dtype`` (bf16 on
+    the card). ``split``: ``split_patch_weights(w2, patch)``, made here
+    if not given."""
+    n, hp, s = packed.shape
+    k, d = w2.shape
+    if hp != s * 3 // 2 or s % 4 or s % patch or k != patch * patch * 3 \
+            or b2.shape != (d,):
+        raise ValueError(f"bad shapes: packed {tuple(packed.shape)}, "
+                         f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}, "
+                         f"patch {patch}")
+    if packed.device.type == "cpu":
+        return fused_patch_embed_i420_plain(packed, w2, b2, patch, out_dtype)
+    if packed.dtype != torch.uint8 or out_dtype != torch.bfloat16:
+        raise ValueError("the I420 entry takes uint8 frames and returns "
+                         "bfloat16")
+    _require_cuda(packed, w2, b2)
+    g = s // patch
+    out = torch.empty((n, g * g, d), dtype=torch.bfloat16,
+                      device=packed.device)
+    return _patch_launch("avede_patch_embed_i420", packed, s,
+                         split or split_patch_weights(w2, patch), b2, out,
+                         patch, fused_patch_embed_i420)
+
+
+fused_patch_embed_i420.launches = 0
 
 
 def patch_embed_reference(frames_u8: torch.Tensor, kernel: torch.Tensor,

@@ -7,12 +7,13 @@ and the I420 unpack of the compact transfer codec
 
 Host side (numpy, no cv2): ``pack_frames_rgb`` and ``pack_frames_i420``
 shrink decoded frames to the model geometry before the host→device
-copy. They reproduce cv2's ``INTER_AREA`` resize (coverage weights, a
-separable matrix per axis; exact ``(sum + 2) >> 2`` on 2× downscales;
-``INTER_AREA``'s bilinear rule on upscales), the full-range BT.601
-matrix rounded half to even and saturated, and the 2×2 chroma mean
-rounded as cv2's integer-factor area path does — within one level of
-cv2's bytes. ``area_resize`` also serves the dedup signatures.
+copy. They give the same bytes as the JAX package's cv2 packs: cv2's
+``INTER_AREA`` resize (coverage weights, a separable matrix per axis;
+exact ``(sum + 2) >> 2`` on 2× downscales; on upscales ``INTER_AREA``'s
+bilinear rule in cv2's 11-bit fixed point), the full-range BT.601
+matrix in ``cv2.transform``'s 10-bit fixed point, and the 2×2 chroma
+mean of cv2's integer-factor area path. ``area_resize`` also serves the
+dedup signatures.
 """
 
 from __future__ import annotations
@@ -99,14 +100,35 @@ def clip_preprocess_i420(packed: torch.Tensor, normalize: bool = True,
 _YUV_W = np.array([[0.299, 0.587, 0.114],
                    [-0.168736, -0.331264, 0.5],
                    [0.5, -0.418688, -0.081312]], np.float32)
+# cv2.transform on uint8: coefficients and offsets in 10-bit fixed point,
+# half a unit added, an arithmetic shift, then saturation
+_YUV_BITS = 10
+# cv2's linear resize on uint8: taps in 11-bit fixed point
+_RESIZE_BITS = 11
+
+
+def _bilinear_rule(src: int, dst: int):
+    """INTER_AREA's bilinear rule along one axis (an upscale on either
+    axis switches cv2 to it for both): → (first source index [dst],
+    float32 weight of the next index [dst])."""
+    scale, inv = src / dst, dst / src
+    idx = np.empty(dst, np.int64)
+    frac = np.empty(dst, np.float32)
+    for d in range(dst):
+        sx = math.floor(d * scale)
+        fx = np.float32((d + 1) - (sx + 1) * inv)
+        fx = np.float32(0) if fx <= 0 else fx - np.float32(math.floor(fx))
+        if sx >= src - 1:
+            sx, fx = src - 1, np.float32(0)
+        idx[d], frac[d] = sx, fx
+    return idx, frac
 
 
 @functools.lru_cache(maxsize=64)
 def _resize_weights(src: int, dst: int, area: bool) -> np.ndarray:
     """[dst, src] f32 interpolation matrix of cv2's INTER_AREA along one
     axis: coverage weights when shrinking (``computeResizeAreaTab``),
-    INTER_AREA's bilinear rule when ``area`` is False (an upscale on
-    either axis switches cv2 to it for both)."""
+    INTER_AREA's bilinear rule when ``area`` is False."""
     w = np.zeros((dst, src), np.float64)
     scale = src / dst
     if area:
@@ -122,33 +144,67 @@ def _resize_weights(src: int, dst: int, area: bool) -> np.ndarray:
             if f2 - s2 > 1e-3:
                 w[d, s2] = np.float32(min(f2 - s2, 1.0, cell) / cell)
     else:
-        inv = dst / src
-        for d in range(dst):
-            sx = math.floor(d * scale)
-            fx = float(np.float32((d + 1) - (sx + 1) * inv))
-            fx = 0.0 if fx <= 0 else fx - math.floor(fx)
-            if sx >= src - 1:
-                sx, fx = src - 1, 0.0
-            w[d, sx] += 1.0 - fx
-            w[d, min(sx + 1, src - 1)] += fx
+        idx, frac = _bilinear_rule(src, dst)
+        rows = np.arange(dst)
+        np.add.at(w, (rows, idx), 1.0 - frac.astype(np.float64))
+        np.add.at(w, (rows, np.minimum(idx + 1, src - 1)), frac)
     w = w.astype(np.float32)
     w.setflags(write=False)
     return w
 
 
+@functools.lru_cache(maxsize=64)
+def _fixed_taps(src: int, dst: int):
+    """The bilinear rule as cv2 runs it on uint8: → (first index, next
+    index, weight of the first, weight of the next), the weights
+    ``rint(w · 2^11)`` of the float32 weights."""
+    idx, frac = _bilinear_rule(src, dst)
+    one = np.float32(1 << _RESIZE_BITS)
+    w0 = np.rint((np.float32(1) - frac) * one).astype(np.int32)
+    w1 = np.rint(frac * one).astype(np.int32)
+    return idx, np.minimum(idx + 1, src - 1), w0, w1
+
+
+def _upscale_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2's uint8 linear resize with INTER_AREA's upscale taps: the
+    horizontal pass keeps ``x · 2^11`` sums, the vertical one computes
+    ``((b0·(s0 >> 4)) >> 16) + ((b1·(s1 >> 4)) >> 16)``, then
+    ``(t + 2) >> 2`` (``VResizeLinear``'s uchar rule)."""
+    n, h, w = img.shape[:3]
+    y0, y1, b0, b1 = _fixed_taps(h, out_h)
+    x0, x1, a0, a1 = _fixed_taps(w, out_w)
+    chan = (None,) * (img.ndim - 3)
+    x = img.astype(np.int32)
+    hz = x[:, :, x0] * a0[(slice(None),) + chan]
+    hz += x[:, :, x1] * a1[(slice(None),) + chan]
+    hz >>= 4                                          # [N, H, out_w(, C)]
+    col = (slice(None), None) + chan
+    out = (b0[col] * hz[:, y0]) >> 16
+    out += (b1[col] * hz[:, y1]) >> 16
+    out += 2
+    out >>= 2
+    return out.astype(np.uint8)
+
+
 def area_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """cv2.resize(..., INTER_AREA) for a batch: [N, H, W(, C)] uint8 or
-    float32 → [N, out_h, out_w(, C)] of the same dtype. Integer results
-    round half to even and saturate; exact 2× shrinks of uint8 use
-    cv2's ``(a + b + c + d + 2) >> 2``."""
+    float32 → [N, out_h, out_w(, C)] of the same dtype. uint8 results
+    are cv2's bytes: exact 2× shrinks use ``(a + b + c + d + 2) >> 2``,
+    other shrinks round the f32 coverage sums half to even, and upscales
+    run cv2's fixed-point bilinear rule."""
     n, h, w = img.shape[:3]
     if (h, w) == (out_h, out_w):
         return img.copy()
     if img.dtype == np.uint8 and (h, w) == (2 * out_h, 2 * out_w):
-        x = img.reshape(n, out_h, 2, out_w, 2, *img.shape[3:])
-        s = x.astype(np.uint16).sum(axis=(2, 4), dtype=np.uint16)
-        return ((s + 2) >> 2).astype(np.uint8)
+        rows = img[:, 0::2].astype(np.uint16)
+        rows += img[:, 1::2]
+        s = rows[:, :, 0::2] + rows[:, :, 1::2]
+        s += 2
+        s >>= 2
+        return s.astype(np.uint8)
     area = h >= out_h and w >= out_w
+    if img.dtype == np.uint8 and not area:
+        return _upscale_u8(img, out_h, out_w)
     wy = _resize_weights(h, out_h, area)
     wx = _resize_weights(w, out_w, area)
     x = img.astype(np.float32)
@@ -170,6 +226,19 @@ def pack_frames_rgb(frames: np.ndarray, size: int) -> np.ndarray:
     return area_resize(frames[:, top:top + s, left:left + s], size, size)
 
 
+@functools.lru_cache(maxsize=2)
+def _yuv_fixed(src: str):
+    """``cv2.transform``'s integer form of the BT.601 matrix: → (int32
+    coefficients [3, 3] in the input's channel order, int32 offsets
+    [3] with the rounding half unit added)."""
+    w = _YUV_W if src == "rgb" else _YUV_W[:, ::-1]
+    one = np.float32(1 << _YUV_BITS)
+    coef = np.rint(w * one).astype(np.int32)
+    off = np.rint(np.array([0.0, 128.0, 128.0], np.float32) * one
+                  ).astype(np.int32) + (1 << (_YUV_BITS - 1))
+    return coef, off
+
+
 def pack_frames_i420(frames: np.ndarray, size: int,
                      src: str = "rgb") -> np.ndarray:
     """uint8 RGB (or ``src="bgr"``) [N, H, W, 3] → packed I420 uint8
@@ -178,14 +247,22 @@ def pack_frames_i420(frames: np.ndarray, size: int,
     chroma."""
     n = frames.shape[0]
     small = pack_frames_rgb(frames, size)
-    w = _YUV_W if src == "rgb" else _YUV_W[:, ::-1]
-    yuv = small.astype(np.float32) @ w.T + np.array([0.0, 128.0, 128.0],
-                                                    np.float32)
-    yuv = np.clip(np.rint(yuv), 0, 255).astype(np.uint8)
-    h2, q = size // 2, size // 4
-    chroma = area_resize(yuv[..., 1:], h2, h2)          # [N, h2, h2, 2]
+    coef, off = _yuv_fixed(src)
+    chans = [small[..., c].astype(np.int32) for c in range(3)]
     out = np.empty((n, size * 3 // 2, size), np.uint8)
-    out[:, :size] = yuv[..., 0]
-    out[:, size:size + q] = chroma[..., 0].reshape(n, q, size)
-    out[:, size + q:] = chroma[..., 1].reshape(n, q, size)
+    h2, q = size // 2, size // 4
+    acc = np.empty(small.shape[:3], np.int32)
+    for i in range(3):
+        np.multiply(chans[0], coef[i, 0], out=acc)
+        acc += chans[1] * coef[i, 1]
+        acc += chans[2] * coef[i, 2]
+        acc += off[i]
+        acc >>= _YUV_BITS
+        np.clip(acc, 0, 255, out=acc)
+        if i == 0:
+            out[:, :size] = acc
+        else:                                   # 2×2 mean, [N, h2, h2]
+            lo = size + (i - 1) * q
+            out[:, lo:lo + q] = area_resize(acc.astype(np.uint8), h2, h2
+                                            ).reshape(n, q, size)
     return out

@@ -2,11 +2,13 @@
 ``avede_tpu/parallel/embed.py``'s ``ClipEngine``).
 
 Frames go through the fused image path only: host pack
-(``SCAN_TRANSFER``) → bucket padding (``pick_bucket``) → device unpack
-(``clip_preprocess_i420(normalize=False) * 255``, or uint8 frames for
-``rgb``) → ``fused_patch_embed`` (hand-written kernel; the patch
-weights are folded once, at load time) → ``encode_image_from_patches``
-(flash attention in every vision layer) → unit-norm f32 embeddings.
+(``SCAN_TRANSFER``) → bucket padding (``pick_bucket``) →
+``fused_patch_embed_i420`` (hand-written kernel that unpacks the I420
+bytes while it builds its GEMM tile and returns tokens in the tower's
+dtype; ``fused_patch_embed`` takes uint8 frames for ``rgb``; the patch
+weights are folded and split for the kernel once, at load time) →
+``encode_image_from_patches`` (flash attention in every vision layer)
+→ unit-norm f32 embeddings.
 Warm queries run ``query_window_topk``: text tower → ``cosine_scores``
 kernel → window gather → top-k.
 
@@ -36,10 +38,10 @@ import torch
 from ..models.clip import CLIPConfig, init_clip, vit_b32
 from ..models.convert import load_params
 from ..models.tokenizer import Tokenizer
-from ..ops.kernels import fold_for_uint8, fused_patch_embed
-from ..ops.preprocess import (central_square_crop, clip_preprocess_i420,
-                              pack_frames_i420, pack_frames_rgb,
-                              resize_frames)
+from ..ops.kernels import (fold_for_uint8, fused_patch_embed,
+                           fused_patch_embed_i420, split_patch_weights)
+from ..ops.preprocess import (central_square_crop, pack_frames_i420,
+                              pack_frames_rgb, resize_frames)
 from ..ops.similarity import make_query_window_topk, pad_table
 from ..utils.config import settings
 from ..utils.logging import get_logger
@@ -154,6 +156,9 @@ class ClipEngine:
             model.vision.patch_embedding.kernel().detach())
         self._w2 = w2.contiguous().to(self.device)
         self._b2 = bias_delta.contiguous().to(self.device)
+        # the kernel's bf16 hi/lo operands (the CPU runs the plain f32 path)
+        self._w_split = (split_patch_weights(self._w2, self.cfg.patch_size)
+                         if self.device.type == "cuda" else None)
         self.model = model.to(self.device, self.cfg.torch_dtype).eval()
         self.tokenizer = Tokenizer(vocab_size=self.cfg.vocab_size,
                                    context_len=self.cfg.max_text_len)
@@ -200,15 +205,16 @@ class ClipEngine:
         """Device uint8 batch → unit-norm f32 [B, D] via the fused path:
         packed I420 [B, S*3/2, S], model-geometry RGB [B, S, S, 3], or
         full frames [B, H, W, 3] (crop + antialiased bicubic resize)."""
-        size = self.cfg.image_size
+        size, patch = self.cfg.image_size, self.cfg.patch_size
         if x.dim() == 3:
-            px = clip_preprocess_i420(x, normalize=False) * 255.0
-        elif tuple(x.shape[1:3]) == (size, size):
-            px = x
+            tokens = fused_patch_embed_i420(x, self._w2, self._b2, patch,
+                                            self._w_split,
+                                            self.cfg.torch_dtype)
         else:
-            px = resize_frames(central_square_crop(x).float(), size)
-        tokens = fused_patch_embed(px.contiguous(), self._w2, self._b2,
-                                   self.cfg.patch_size)
+            if tuple(x.shape[1:3]) != (size, size):
+                x = resize_frames(central_square_crop(x).float(), size)
+            tokens = fused_patch_embed(x.contiguous(), self._w2, self._b2,
+                                       patch, self._w_split)
         return self.model.encode_image_from_patches(tokens)
 
     def _empty(self) -> np.ndarray:

@@ -11,7 +11,12 @@ and the script exits non-zero without printing a result:
    source, all at once) into ``build/kernels/``;
 3. hold each kernel against its plain PyTorch version at the shapes of
    the main path, with f32 references (TF32 off) and the tolerance
-   ``max |kernel - plain| <= 1e-4 * max |plain| + 1e-5``; time kernel,
+   ``max |kernel - plain| <= 1e-4 * max |plain| + 1e-5``; an entry that
+   returns bf16 (flash attention on ``[B, L, H, hd]``, the I420 patch
+   embed) is held to its plain f32 result rounded to bf16: within one
+   bf16 ulp plus 1e-5 (flash) or plus the f32 bar (patch embed, whose
+   bf16 ×3 sums carry more than rounding), with the share of elements
+   that are not bit-equal reported; time kernel,
    plain version and one library call on the device (CUDA events around
    a CUDA-graph replay, host launch cost excluded), and the kernel's
    eager per-call wall (``call_ms``). The library's entries run at the
@@ -28,7 +33,9 @@ and the script exits non-zero without printing a result:
    288×512 BGR frames with a moving object, an ``EmbeddingCache`` in a
    temporary directory, one cold ``process_video``, six warm ones
    (three queries, each twice) and one four-query ``process_queries``;
-   every kernel's launch count, zeroed just before, must be above 0;
+   the launch counts, zeroed just before, must be above 0 for the
+   path's kernels (the I420 patch embed, bf16 flash attention, cosine
+   scores) and 0 for the contract entries (RGB patch embed, f32 flash);
    scores must be finite and sorted, repeated queries identical, and
    the top windows those of a numpy reference on the cached table;
 6. drive whole-library search (``LibrarySearch``, the service behind
@@ -71,10 +78,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# f32 FLOP/s outside the tensor cores — the kernels compute in f32.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32
+# FLOP/s outside the tensor cores, and the dense bf16 tensor-core rate.
+# Each row's bound uses the peak of the unit its design runs on.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
 TOL_REL, TOL_ABS = 1e-4, 1e-5
 
 N_FRAMES, FRAME_H, FRAME_W, FPS = 600, 288, 512, 30.0
@@ -109,9 +118,9 @@ def card_line() -> str:
     return out[0]
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -164,6 +173,19 @@ def max_err(torch, got, ref):
         fail("kernel and plain version disagree on non-finite entries")
     err = (got[fin] - ref[fin]).abs().max().item()
     return err, TOL_REL * ref[fin].abs().max().item() + TOL_ABS
+
+
+def bf16_err(torch, got, ref, rel: float = 0.0):
+    """bf16 ``got`` against the f32 ``ref`` rounded to bf16 → (max |got -
+    bf16(ref)|, max excess over one bf16 ulp + ``rel · max|ref|`` +
+    1e-5 (<= 0 passes), share of elements not bit-equal)."""
+    want = ref.to(torch.bfloat16)
+    _, exp = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(exp, dtype=torch.float32), exp - 8)
+    err = (got.float() - want.float()).abs()
+    tol = ulp + rel * ref.abs().max().item() + TOL_ABS
+    return (err.max().item(), (err - tol).max().item(),
+            (got != want).float().mean().item())
 
 
 class SyntheticVideo:
@@ -224,48 +246,127 @@ def check_kernels(torch, np, video):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
-    # 1. fused patch embed: the 128-frame bucket of the sparse cold scan,
-    # f32 0..255 frames from the I420 unpack of real packed frames
+    # 1. fused patch embed at the 128-frame bucket of the sparse cold
+    # scan, from real packed frames. (a) the serving entry: packed I420
+    # in, bf16 tokens out; (b) the TPU kernel's contract: the same frames
+    # unpacked to 0..255 f32 (and rounded to uint8), f32 out. Both run
+    # bf16 x3 on the tensor cores (two passes for uint8).
     n, s, p, d = 128, 224, 32, 768
-    packed = pack_frames_i420(video._chunk(0, n), s, src="bgr")
-    frames = (clip_preprocess_i420(torch.from_numpy(packed).to(dev),
-                                   normalize=False) * 255.0).contiguous()
+    packed = torch.from_numpy(pack_frames_i420(video._chunk(0, n), s,
+                                               src="bgr")).to(dev)
+    frames = (clip_preprocess_i420(packed, normalize=False) * 255.0
+              ).contiguous()
     kernel = torch.randn(p, p, 3, d, device=dev, generator=gen) \
         * (3 * p * p) ** -0.5
     w2, b2 = kernels.fold_for_uint8(kernel)
     w2, b2 = w2.contiguous(), b2.contiguous()
-    got = kernels.fused_patch_embed(frames, w2, b2, p)
+    split = kernels.split_patch_weights(w2, p)
+    gg, k = (s // p) ** 2, p * p * 3
+    w_oihw = w2.reshape(p, p, 3, d).permute(3, 2, 0, 1).contiguous()
+    gemm = 2.0 * n * gg * k * d
+    tensor_peak = "bf16 tensor cores 989 TFLOP/s"
+
+    got = kernels.fused_patch_embed_i420(packed, w2, b2, p, split)
+    ref = kernels.fused_patch_embed_i420_plain(packed, w2, b2, p,
+                                               torch.float32)
+    err, excess, unequal = bf16_err(torch, got, ref, TOL_REL)
+    w_bf = w_oihw.to(torch.bfloat16)
+    b, f = bound_ms(packed.numel() + 2 * 2 * w2.numel() + 4 * d
+                    + 2 * n * gg * d, 3 * gemm, BF16_TENSOR_FLOP_PER_S)
+    rows.append(dict(
+        name="fused_patch_embed_i420", route="cuda",
+        source="avede_tpu_torch/csrc/patch_embed.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:95",
+        shape=f"packed I420 u8 [{n},{s * 3 // 2},{s}] x W' [{k},{d}] "
+              f"-> bf16 [{n},{gg},{d}]",
+        max_abs_err=err, tol="1 bf16 ulp + 1e-4*max|plain| + 1e-5",
+        tol_excess=excess, not_bit_equal=unequal,
+        ms=time_ms(torch, lambda: kernels.fused_patch_embed_i420(
+            packed, w2, b2, p, split)),
+        call_ms=call_ms(torch, lambda: kernels.fused_patch_embed_i420(
+            packed, w2, b2, p, split)),
+        plain_ms=time_ms(torch, lambda: kernels.fused_patch_embed_i420_plain(
+            packed, w2, b2, p)),
+        bound_ms=b, bound_by=f, bound_peak=tensor_peak, bound_passes=3,
+        library_ms=None,
+        library="null: no single PyTorch call unpacks I420",
+        yardstick_ms=time_ms(torch, lambda: F.conv2d(
+            (clip_preprocess_i420(packed, normalize=False) * 255.0
+             ).permute(0, 3, 1, 2).to(torch.bfloat16), w_bf,
+            b2.to(torch.bfloat16), stride=p)),
+        yardstick="clip_preprocess_i420(normalize=False)*255 + F.conv2d "
+                  "in bf16 (cuDNN)"))
+    if excess > 0:
+        fail(f"fused_patch_embed_i420: max err {err} over its bar by "
+             f"{excess}")
+
+    got = kernels.fused_patch_embed(frames, w2, b2, p, split)
     ref = kernels.fused_patch_embed_plain(frames, w2, b2, p)
     err, tol = max_err(torch, got, ref)
     u8 = frames.round().clamp(0, 255).to(torch.uint8)
-    err_u8, tol_u8 = max_err(torch, kernels.fused_patch_embed(u8, w2, b2, p),
-                             kernels.fused_patch_embed_plain(u8, w2, b2, p))
-    w_oihw = w2.reshape(p, p, 3, d).permute(3, 2, 0, 1).contiguous()
+    err_u8, tol_u8 = max_err(torch, kernels.fused_patch_embed(
+        u8, w2, b2, p, split), kernels.fused_patch_embed_plain(u8, w2, b2, p))
     x_nchw = frames.permute(0, 3, 1, 2)
-    gg, k = (s // p) ** 2, p * p * 3
-    b, f = bound_ms(4 * (frames.numel() + w2.numel() + b2.numel()
-                         + n * gg * d), 2.0 * n * gg * k * d)
+    b, f = bound_ms(4 * (frames.numel() + b2.numel() + n * gg * d)
+                    + 2 * 2 * w2.numel(), 3 * gemm, BF16_TENSOR_FLOP_PER_S)
     rows.append(dict(
         name="fused_patch_embed", route="cuda",
         source="avede_tpu_torch/csrc/patch_embed.cu",
         replaces="avede_tpu/ops/pallas_kernels.py:95",
-        shape=f"frames f32 [{n},{s},{s},3] x W' [{k},{d}]",
+        shape=f"frames f32 [{n},{s},{s},3] x W' [{k},{d}] -> f32",
         max_abs_err=err, tol=tol, u8_max_abs_err=err_u8,
         ms=time_ms(torch, lambda: kernels.fused_patch_embed(
-            frames, w2, b2, p)),
+            frames, w2, b2, p, split)),
+        u8_ms=time_ms(torch, lambda: kernels.fused_patch_embed(
+            u8, w2, b2, p, split)),
         call_ms=call_ms(torch, lambda: kernels.fused_patch_embed(
-            frames, w2, b2, p)),
+            frames, w2, b2, p, split)),
         plain_ms=time_ms(torch, lambda: kernels.fused_patch_embed_plain(
             frames, w2, b2, p)),
-        bound_ms=b, bound_by=f,
+        bound_ms=b, bound_by=f, bound_peak=tensor_peak, bound_passes=3,
         library_ms=time_ms(torch, lambda: F.conv2d(
             x_nchw, w_oihw, b2, stride=p)),
         library="torch.nn.functional.conv2d (cuDNN, TF32 off)"))
     if err > tol or err_u8 > tol_u8:
         fail(f"fused_patch_embed: max err {err} (u8 {err_u8}) > {tol}")
+    del frames, u8, x_nchw
 
-    # 2. flash attention: one vision layer of the 128-frame bucket
+    # 2. flash attention: one vision layer of the 128-frame bucket.
+    # (a) the serving entry: bf16 q, k, v in the projections' [B, L, H,
+    # hd] layout, bf16 [B, L, H*hd] out; (b) the TPU kernel's contract:
+    # f32 [B, H, L, D].
     bsz, h, length, hd = 128, 12, 50, 64
+    q, kk, v = (torch.randn(bsz, length, h, hd, device=dev, generator=gen
+                            ).to(torch.bfloat16) for _ in range(3))
+    got = attention.flash_attention_blhd(q, kk, v)
+    ref = attention.flash_attention_blhd_plain(q.float(), kk.float(),
+                                               v.float())
+    err, excess, unequal = bf16_err(torch, got, ref)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    # q.k and the two bf16 terms of p.v
+    b, f = bound_ms(2 * 4 * q.numel(), 6.0 * bsz * h * length * length * hd,
+                    BF16_TENSOR_FLOP_PER_S)
+    rows.append(dict(
+        name="flash_attention_blhd", route="cuda",
+        source="avede_tpu_torch/csrc/flash_attention.cu",
+        replaces="avede_tpu/ops/attention.py:85",
+        shape=f"q,k,v bf16 [{bsz},{length},{h},{hd}] -> bf16 "
+              f"[{bsz},{length},{h * hd}]",
+        max_abs_err=err, tol="1 bf16 ulp + 1e-5", tol_excess=excess,
+        not_bit_equal=unequal,
+        ms=time_ms(torch, lambda: attention.flash_attention_blhd(q, kk, v)),
+        call_ms=call_ms(torch, lambda: attention.flash_attention_blhd(
+            q, kk, v)),
+        plain_ms=time_ms(torch, lambda: attention.flash_attention_blhd_plain(
+            q, kk, v)),
+        bound_ms=b, bound_by=f, bound_peak=tensor_peak, bound_passes=3,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)),
+        library="torch.nn.functional.scaled_dot_product_attention on the "
+                "bf16 [B, H, L, D] views"))
+    if excess > 0:
+        fail(f"flash_attention_blhd: max err {err} over its bar by {excess}")
+
     q, kk, v = (torch.randn(bsz, h, length, hd, device=dev, generator=gen)
                 for _ in range(3))
     got = attention.flash_attention(q, kk, v)
@@ -282,7 +383,7 @@ def check_kernels(torch, np, video):
         call_ms=call_ms(torch, lambda: attention.flash_attention(q, kk, v)),
         plain_ms=time_ms(torch, lambda: attention.attention_reference(
             q, kk, v)),
-        bound_ms=b, bound_by=f,
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, kk, v)),
         library="torch.nn.functional.scaled_dot_product_attention"))
@@ -311,7 +412,8 @@ def check_kernels(torch, np, video):
             emb, qv, valid), iters=200),
         plain_ms=time_ms(torch, lambda: kernels.cosine_scores_plain(
             emb, qv[None], valid), iters=200),
-        bound_ms=b, bound_by=f, library_ms=None,
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1, library_ms=None,
         library=NO_MASKED_MV,
         yardstick_ms=time_ms(torch, lambda: torch.mv(emb, qv).masked_fill_(
             invalid, float("-inf")), iters=200),
@@ -359,7 +461,8 @@ def check_library_kernels(torch, F, dev, gen):
             table_bf, qv, valid)),
         plain_ms=time_ms(torch, lambda: kernels.cosine_scores_bf16_plain(
             table_bf, qv[None], valid), iters=3),
-        bound_ms=b, bound_by=f, library_ms=None,
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1, library_ms=None,
         library=NO_MASKED_MV + "; torch.mv on bf16 also returns bf16 "
                                "scores",
         yardstick_ms=time_ms(torch, lambda: torch.mv(
@@ -387,7 +490,8 @@ def check_library_kernels(torch, F, dev, gen):
             table_i8, scales, qv, valid)),
         plain_ms=time_ms(torch, lambda: kernels.cosine_scores_int8_plain(
             table_i8, scales, qv[None], valid), iters=3),
-        bound_ms=b, bound_by=f, library_ms=None,
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1, library_ms=None,
         library="null: no PyTorch call takes int8 rows with row scales"))
     if err > tol:
         fail(f"cosine_scores_int8: max err {err} > {tol}")
@@ -412,7 +516,8 @@ def check_library_kernels(torch, F, dev, gen):
                    ms=time_ms(torch, lambda: fn(x), iters=iters),
                    call_ms=call_ms(torch, lambda: fn(x), iters=iters),
                    plain_ms=time_ms(torch, lambda: plain(x), iters=3),
-                   bound_ms=b, bound_by=f)
+                   bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+                   bound_passes=1)
         del x
         return out
 
@@ -465,8 +570,11 @@ def drive_main_path(torch, np, engine, video, cache_dir):
     from avede_tpu_torch.pipelines.phase1 import Phase1Scan
     from avede_tpu_torch.utils.config import settings
 
-    counted = (kernels.fused_patch_embed, attention.flash_attention,
-               kernels.cosine_scores)
+    # the contract entries (f32 flash, RGB patch embed) are counted too:
+    # they must stay at 0 on this path
+    needed = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
+              kernels.cosine_scores)
+    counted = needed + (kernels.fused_patch_embed, attention.flash_attention)
     scan = Phase1Scan(engine, reader=video,
                       cache=EmbeddingCache(str(cache_dir)))
     path, vid, top_k = "memory://synthetic-street", "synthetic-street", 10
@@ -489,8 +597,10 @@ def drive_main_path(torch, np, engine, video, cache_dir):
     multi_ms = (time.perf_counter() - t0) * 1e3
     launches = {fn.__name__: fn.launches for fn in counted}
 
-    if any(v <= 0 for v in launches.values()):
+    if any(launches[fn.__name__] <= 0 for fn in needed):
         fail(f"a kernel of the main path never launched: {launches}")
+    if launches["flash_attention"] or launches["fused_patch_embed"]:
+        fail(f"a contract entry ran on the main path: {launches}")
     for res in [cold] + warm + list(multi.values()):
         conf = [r["confidence"] for r in res]
         if not res or not np.all(np.isfinite(conf)) \
@@ -598,7 +708,8 @@ def drive_library(torch, np, engine, root):
     for vid in LIBRARY_VIDEOS:           # list_videos and _resolve find these
         (videos / f"{vid}.mp4").touch()
     settings.VIDEO_DIR = str(videos)
-    counted = (kernels.fused_patch_embed, attention.flash_attention,
+    counted = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
+               kernels.fused_patch_embed, attention.flash_attention,
                kernels.cosine_scores, kernels.cosine_scores_bf16,
                kernels.cosine_scores_int8, quant.quantize_rows)
     tier_kernels = {"bfloat16": ("cosine_scores_bf16",),
@@ -627,7 +738,8 @@ def drive_library(torch, np, engine, root):
                                       per_video_k=per_video_k))
             warm_ms.append((time.perf_counter() - t0) * 1e3)
         launches = {fn.__name__: fn.launches for fn in counted}
-        for name in ("fused_patch_embed", "flash_attention") + needed:
+        for name in ("fused_patch_embed_i420",
+                     "flash_attention_blhd") + needed:
             if launches[name] <= 0:
                 fail(f"library ({dtype}): {name} never launched: {launches}")
         if warm[0]["results"] != cold["results"]:

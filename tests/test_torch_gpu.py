@@ -56,6 +56,63 @@ def test_flash_kernel_matches_plain(cuda, L):
                                rtol=1e-4, atol=1e-4)
 
 
+def _within_bf16_ulp(got, ref, rel=0.0):
+    """bf16 ``got`` against the f32 ``ref`` rounded to bf16: every element
+    within one bf16 ulp of it plus ``rel · max|ref| + 1e-5`` (the f32
+    kernel's own bar where its sums carry more than rounding)."""
+    want = ref.to(torch.bfloat16).float()
+    _, exp = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+    err = (got.float() - want).abs()
+    tol = ulp + rel * ref.abs().max() + 1e-5
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.parametrize("L", [50, 70, 130])
+def test_flash_blhd_kernel_matches_plain(cuda, L):
+    g = torch.Generator(device="cuda").manual_seed(L)
+    q, k, v = (torch.randn(4, L, 12, 64, device=cuda, generator=g
+                           ).to(torch.bfloat16) for _ in range(3))
+    before = tattn.flash_attention_blhd.launches
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+def test_attention_layer_launches_bf16_entry_only(cuda):
+    from avede_tpu_torch.models.layers import MultiHeadAttention
+
+    layer = MultiHeadAttention(768, 12, use_flash=True).to(
+        cuda, torch.bfloat16)
+    x = torch.randn(8, 50, 768, device=cuda, dtype=torch.bfloat16)
+    before = (tattn.flash_attention_blhd.launches,
+              tattn.flash_attention.launches)
+    with torch.inference_mode():
+        layer(x)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_blhd.launches,
+            tattn.flash_attention.launches) == (before[0] + 1, before[1])
+
+
+def test_patch_embed_i420_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(1)
+    packed = torch.from_numpy(
+        rng.integers(0, 256, (5, 336, 224), dtype=np.uint8)).to(cuda)
+    kernel = torch.from_numpy(
+        rng.normal(0, 0.02, (32, 32, 3, 768)).astype(np.float32))
+    w2, b2 = (t.to(cuda) for t in tk.fold_for_uint8(kernel))
+    split = tk.split_patch_weights(w2, 32)
+    before = tk.fused_patch_embed_i420.launches
+    got = tk.fused_patch_embed_i420(packed, w2, b2, 32, split)
+    torch.cuda.synchronize()
+    assert tk.fused_patch_embed_i420.launches == before + 1
+    _within_bf16_ulp(got, tk.fused_patch_embed_i420_plain(
+        packed, w2, b2, 32, torch.float32), rel=1e-4)
+
+
 @pytest.mark.parametrize("nq", [1, 4])
 def test_cosine_kernel_matches_plain(cuda, nq):
     g = torch.Generator(device="cuda").manual_seed(nq)

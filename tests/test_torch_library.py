@@ -8,13 +8,13 @@ Index confidences agree to 1e-5 in every tier: the table values and the
 bf16-rounded query are bit-identical, and only the order of the f32 sum
 differs. So does ``LibrarySearch`` when both packages search the same
 tables (the JAX scan's). Through the whole path each package embeds
-with its own engine and host pack (the port's I420 matrix agrees with
-cv2's within one level), so the tables themselves differ by more than
-that, within the ``mvp`` slice's bar of 5e-3 per component
-(``tests/test_torch_phase1.py``, and ``test_engine_tables_within_bar``
-here); confidences there are held to that bar. Against the port's own
-host path they agree to 1e-5 in the f32 tier and 2e-3 in the bf16 and
-int8 tiers.
+with its own engine and host pack; the packs are byte-equal, so the
+tables agree to 1e-5 except where the two f32 embeddings straddle an
+int8 rounding boundary of the embedding cache, where a component is off
+by one int8 step of its row (``test_engine_tables_within_bar``).
+Confidences there are held to ENGINE_TOL. Against the port's own host
+path they agree to 1e-5 in the f32 tier and 2e-3 in the bf16 and int8
+tiers.
 """
 
 import os
@@ -35,7 +35,10 @@ from avede_tpu_torch.utils.config import settings as tsettings
 
 DTYPES = ["float32", "bfloat16", "int8"]
 CONF_TOL = 1e-5
-ENGINE_TOL = 5e-3
+# whole-path confidences: one int8 step of the cache (about 3e-3 at the
+# tiny model's 32 dims) times the query's component; measured at most
+# 1.61e-3 (one row with one such step), every other hit within 2e-7
+ENGINE_TOL = 2e-3
 TIER_TOL = {"float32": 1e-5, "bfloat16": 2e-3, "int8": 2e-3}
 
 
@@ -423,15 +426,23 @@ class TestLibrarySearchMatchesJax:
 
     def test_engine_tables_within_bar(self, library):
         """The two packages' full tables of the same clips (the JAX
-        engine's and the port's, each through its int8 cache): the reason
-        the whole-path hits are held to ENGINE_TOL and not to 1e-5."""
+        engine's and the port's, each through its int8 cache): equal to
+        1e-5 but where the cache rounded the two f32 embeddings to
+        neighbouring int8 levels, there one step of the row's scale —
+        the reason the whole-path hits are held to ENGINE_TOL and not to
+        1e-5."""
         jscan, tscan = library
         for vid in ("lib-a", "lib-b", "lib-c"):
             path = os.path.join(tsettings.VIDEO_DIR, f"{vid}.mp4")
             ej, tj = jscan.frame_embeddings(path, vid)
             et, tt = tscan.frame_embeddings(path, vid)
             assert ej.shape == et.shape and np.allclose(tj, tt)
-            assert np.abs(ej - et).max() < ENGINE_TOL
+            diff = np.abs(ej - et)
+            step = np.broadcast_to(np.abs(et).max(axis=1, keepdims=True)
+                                   / 127.0, diff.shape)
+            off = diff > 1e-5
+            assert off.sum(axis=1).max() <= 1       # rare: one at most a row
+            np.testing.assert_allclose(diff[off], step[off], rtol=1e-2)
 
     def test_host_path_matches_jax(self, library, monkeypatch):
         from avede_tpu.services.library_search import \

@@ -1,7 +1,8 @@
 """Port preprocessing against the JAX package: the device-side crop /
 resize / normalize and I420 unpack against the JAX programs, and the
-numpy host packs against the JAX package's cv2 packs (within one level
-of a uint8)."""
+numpy host packs against the JAX package's cv2 packs (byte-equal, in
+both channel orders, on downscales, exact 2× shrinks, upscales, odd
+batch sizes and lengths that leave a tail after cv2's SIMD body)."""
 
 import cv2
 import jax.numpy as jnp
@@ -25,10 +26,6 @@ def _frames(seed, shape):
             * np.cos(yy / 11.0)[..., None] * np.array([1.0, 0.6, -0.8]))
     noise = rng.normal(0, 25, shape)
     return np.clip(base[None] + noise, 0, 255).astype(np.uint8)
-
-
-def _max_lsb(a, b):
-    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
 class TestDevicePreprocess:
@@ -61,21 +58,57 @@ class TestHostPack:
     @pytest.mark.parametrize("shape,size", [((3, 288, 512, 3), 224),
                                             ((3, 64, 96, 3), 32),
                                             ((2, 20, 30, 3), 32),
-                                            ((2, 300, 400, 3), 224)])
+                                            ((2, 300, 400, 3), 224),
+                                            ((1, 100, 150, 3), 224),
+                                            ((5, 448, 448, 3), 224),
+                                            ((3, 40, 20, 3), 32)])
     def test_pack_rgb_within_one_level(self, shape, size):
+        """Byte-equal to cv2 (the name dates from a one-level bar)."""
         frames = _frames(2, shape)
-        assert _max_lsb(tpre.pack_frames_rgb(frames, size),
-                        jpre.pack_frames_rgb(frames, size)) <= 1
+        np.testing.assert_array_equal(tpre.pack_frames_rgb(frames, size),
+                                      jpre.pack_frames_rgb(frames, size))
 
     @pytest.mark.parametrize("src", ["rgb", "bgr"])
     @pytest.mark.parametrize("shape,size", [((3, 288, 512, 3), 224),
-                                            ((3, 64, 96, 3), 32)])
+                                            ((3, 64, 96, 3), 32),
+                                            ((5, 360, 640, 3), 224),
+                                            ((2, 20, 30, 3), 32),
+                                            ((1, 150, 100, 3), 224),
+                                            ((7, 50, 70, 3), 36)])
     def test_pack_i420_within_one_level(self, shape, size, src):
+        """Byte-equal to cv2 (the name dates from a one-level bar); odd
+        N, the upscale of frames smaller than the model and a 36×36 frame
+        (1296 pixels a frame, so no chunk ends on cv2's SIMD width)."""
         frames = _frames(3, shape)
         got = tpre.pack_frames_i420(frames, size, src=src)
         ref = jpre.pack_frames_i420(frames, size, src=src)
         assert got.shape == ref.shape == (shape[0], size * 3 // 2, size)
-        assert _max_lsb(got, ref) <= 1
+        np.testing.assert_array_equal(got, ref)
+
+    @pytest.mark.parametrize("src", ["rgb", "bgr"])
+    @pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 13, 17])
+    def test_yuv_matrix_equals_cv2_transform(self, n, src):
+        """The fixed-point YUV matrix against ``cv2.transform`` on chunks
+        of every small length (each a different tail after the SIMD
+        body), on every byte value in every channel."""
+        rng = np.random.default_rng(n)
+        px = rng.integers(0, 256, (1, n, 3), dtype=np.uint8)
+        px[0, 0] = [255, 0, 255] if n > 1 else px[0, 0]
+        w = tpre._YUV_W if src == "rgb" else tpre._YUV_W[:, ::-1]
+        m = np.hstack([w, np.array([[0.0], [128.0], [128.0]], np.float32)])
+        coef, off = tpre._yuv_fixed(src)
+        x = px.astype(np.int32)
+        got = np.clip((x @ coef.T + off) >> 10, 0, 255).astype(np.uint8)
+        np.testing.assert_array_equal(got, cv2.transform(px, m))
+
+    def test_upscale_equals_cv2(self):
+        img = _frames(9, (2, 23, 17, 3))
+        for oh, ow in ((32, 32), (64, 48), (23, 40), (30, 17)):
+            got = tpre.area_resize(img, oh, ow)
+            for i in range(2):
+                np.testing.assert_array_equal(
+                    got[i], cv2.resize(img[i], (ow, oh),
+                                       interpolation=cv2.INTER_AREA))
 
     def test_area_resize_exact_on_fractional_shrink(self):
         img = _frames(4, (2, 288, 288, 3))

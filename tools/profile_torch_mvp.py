@@ -2,7 +2,8 @@
 """Profile the PyTorch/CUDA port's ``mvp`` main path and its library
 search on one NVIDIA GPU.
 
-    python3 tools/profile_torch_mvp.py [--out DIR]
+    python3 tools/profile_torch_mvp.py [--out DIR] [--root DIR]
+                                       [--windows NAME,...]
 
 Same configuration as ``chip_smoke.py``'s main path and library phase
 (CLIP ViT-B/32, random weights from seed 0, bf16; its in-memory
@@ -15,7 +16,10 @@ with ``torch.profiler`` (CPU + CUDA activities):
 - ``library_cold``: the first ``LibrarySearch.search`` over
   ``chip_smoke.py``'s three library videos, one of them scanned sparse
   before (so ingest backfills it) and two taking the dense scan;
-- ``library_warm``: three further searches (three texts).
+- ``library_warm``: three further searches (three texts);
+- ``vision_bucket``: the vision tower alone on one 128-frame bucket of
+  packed I420 frames (``ClipEngine._embed_device``), over five buckets,
+  reported per bucket as well.
 
 For each window it prints one JSON line: host wall ms, device busy ms
 (union of device kernel and copy intervals) and their count, device
@@ -23,7 +27,11 @@ idle share (1 − busy / wall), the wall of the ``phase1.*`` spans, and
 the top device kernels by total time. It writes a Chrome trace per window
 under ``--out``. A last line times the host stages of one dense scan
 outside the profiler: frame synthesis, the I420 pack, the dedup
-signatures and the embedding of the 600 frames. Needs a card; imports
+signatures and the embedding of the 600 frames (window
+``dense_scan_stages``). ``--windows`` picks some of these windows;
+``--root`` profiles the package (and ``chip_smoke.py``) of another
+checkout, such as the parent commit unpacked by ``git archive``, so
+that two versions are compared in one call. Needs a card; imports
 nothing of JAX.
 """
 
@@ -37,6 +45,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+WINDOWS = ("vision_bucket", "cold", "warm", "library_cold", "library_warm",
+           "dense_scan_stages")
 
 
 def _device_work(events, cuda_type) -> list:
@@ -93,8 +103,14 @@ def _summary(torch, prof, wall_ms: float, name: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose package is profiled")
+    ap.add_argument("--windows", default=",".join(WINDOWS),
+                    help="comma-separated subset of " + ",".join(WINDOWS))
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
+    windows = set(args.windows.split(","))
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -129,8 +145,12 @@ def main() -> None:
                           cache=EmbeddingCache(str(Path(tmp) / "e")))
         path, vid = "memory://synthetic-street", "synthetic-street"
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        if "vision_bucket" in windows:
+            _vision_bucket(torch, np, engine, video, acts, card, out)
         for name, calls in (("cold", [queries[0]]),
                             ("warm", queries + queries)):
+            if name not in windows:
+                continue
             torch.cuda.synchronize()
             with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
@@ -142,6 +162,9 @@ def main() -> None:
             _report(torch, prof, wall_ms, name, card, len(calls), out)
 
         # library search, default (bfloat16) tier
+        if not windows & {"library_cold", "library_warm",
+                          "dense_scan_stages"}:
+            return
         videos = Path(tmp) / "library"
         videos.mkdir()
         for v in chip_smoke.LIBRARY_VIDEOS:
@@ -156,6 +179,8 @@ def main() -> None:
         search = LibrarySearch(lib_scan)
         for name, calls in (("library_cold", queries[:1]),
                             ("library_warm", queries)):
+            if name not in windows:
+                continue
             torch.cuda.synchronize()
             with profile(activities=acts) as prof:
                 t0 = time.perf_counter()
@@ -164,8 +189,9 @@ def main() -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             _report(torch, prof, wall_ms, name, card, len(calls), out)
-        print(json.dumps(_dense_stages(torch, np, engine, reader, card)),
-              flush=True)
+        if "dense_scan_stages" in windows:
+            print(json.dumps(_dense_stages(torch, np, engine, reader,
+                                           card)), flush=True)
 
 
 def _report(torch, prof, wall_ms, name, card, calls, out) -> None:
@@ -173,6 +199,34 @@ def _report(torch, prof, wall_ms, name, card, calls, out) -> None:
     row = _summary(torch, prof, wall_ms, name)
     row["card"] = card
     row["calls"] = calls
+    print(json.dumps(row), flush=True)
+
+
+def _vision_bucket(torch, np, engine, video, acts, card, out,
+                   bucket: int = 128, reps: int = 5) -> None:
+    """The vision tower alone on one packed I420 bucket, ``reps`` times
+    under the profiler; the row adds device ms and events per bucket."""
+    from torch.profiler import profile
+
+    from avede_tpu_torch.ops.preprocess import pack_frames_i420
+
+    size = engine.cfg.image_size
+    packed = torch.from_numpy(pack_frames_i420(
+        video._chunk(0, bucket), size, src="bgr")).to(engine.device)
+    for _ in range(2):
+        engine._embed_device(packed)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine._embed_device(packed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(out / "vision_bucket.json"))
+    row = _summary(torch, prof, wall_ms, "vision_bucket")
+    row.update(card=card, calls=reps, bucket=bucket,
+               device_ms_per_bucket=row["device_busy_ms"] / reps,
+               device_events_per_bucket=row["device_events"] / reps)
     print(json.dumps(row), flush=True)
 
 
