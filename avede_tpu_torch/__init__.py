@@ -9,7 +9,7 @@ numpy and the standard library only — never JAX, Flax or any module of
 The port serves the ``mvp`` text query: decode → host I420 pack →
 device unpack → fused patch embed (hand-written CUDA) → CLIP ViT-B/32
 with flash attention (hand-written CUDA) → int8 embedding cache → text
-tower → cosine scores (hand-written CUDA) → window top-k.
+tower → fused cosine score + window top-k (hand-written CUDA).
 
 Entry points (``ClipEngine``, ``Phase1Scan``, ``VideoProcessor``,
 ``api.app.create_app``) run on ``cuda`` unless the caller passes

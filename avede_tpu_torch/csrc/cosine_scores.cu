@@ -1,39 +1,63 @@
 // Cosine scores for Hopper (sm_90a): scores[n, j] = emb[n, :] . query[j, :]
-// in f32, with padded rows (valid[n] == 0) written as -inf.
+// in f32, with padded rows (valid[n] == 0) written as -inf, and the fused
+// entries that score, select and sort on the device.
 //
 // Replaces avede_tpu/ops/pallas_kernels.py: cosine_scores_pallas /
-// _score_kernel (the pl.pallas_call at :139). Three entries:
-// - f32 rows: the scoring product of every warm query ([Nb, 512] table
-//   against one or a few text embeddings);
-// - bf16 rows and int8 rows x a per-row f32 scale: the library index's
-//   bfloat16 and int8 tiers (avede_tpu/services/library_index.py:83-105).
-//   The query is rounded to bf16 and the sum taken in f32, as
-//   jnp.dot(table_bf16, q.astype(bf16), preferred_element_type=f32) does;
-//   an int8 row is cast exactly to float (|v| <= 127) and its sum is
-//   multiplied by the row's scale.
+// _score_kernel (the pl.pallas_call at :139) and the top-k that the JAX
+// package's programs run after it (window_topk, window_topk_multi,
+// avede_tpu/ops/similarity.py:55-95; the index's search programs,
+// avede_tpu/services/library_index.py:83-105).
 //
-// f32: one warp per table row: lanes read the row in coalesced 128-byte
-// steps, multiply by each query (a few KB, cached in L1) and reduce
-// with shuffles; lane 0 writes the score, or -inf for a padded row,
-// which is what window_topk applies next.
+// Serving entries (only (values [k], indices [k]) come out; the library
+// pipeline keeps the scores as a 4-byte scratch):
+// - avede_window_topk_f32: the mvp query. One block per query scores the
+//   window-middle rows only (the gather is fused into the row loads: W
+//   rows of the [Nb, D] table are read, not all Nb), keeps (key, window)
+//   pairs in shared memory and sorts them: up to 1024 keys by rank (each
+//   thread counts the keys above its own), more with a bitonic sort; W
+//   above the block's SORT_CAP keys runs as a running merge (keep k,
+//   refill, sort).
+// - avede_topk_f32 / _bf16 / _int8: the library index's tiers, one query
+//   over every row. The contract entry's own scoring kernel writes the
+//   f32 scores; then select passes over those 4 MB (at 2^20 rows): each
+//   counts 13 bits of the (key, row) composite, top bits first, in a
+//   shared-memory histogram among the rows still in play, and the last
+//   block to finish finds the bin that holds the k-th composite, until at
+//   most SORT_CAP rows lie at or above the threshold; one pass gathers
+//   them and its last block sorts them (by rank up to 512, else bitonic)
+//   and writes k. 2 + ND launches (ND = 4 digits at 2^20 rows); passes
+//   after the data settled return at once.
+// Contract entries (the TPU kernel's own function, scores out, on no
+// serving path at the default settings): avede_cosine_scores_f32 / _bf16
+// / _int8. The library index takes them for k above MAX_K (1024), where
+// the top-k is a stable sort outside the kernel.
+//
+// Exactness: every fused entry scores a row with the same device code as
+// the contract entry of its type (the library entries launch the contract
+// kernel itself; the mvp entry shares dot_f32 with it), so its (values,
+// indices) are bit-for-bit the stable descending sort of the contract
+// entry's scores: equal scores lower index first, -inf below every finite
+// score. The order key is the float's bits with negatives inverted, -0.0
+// folded onto +0.0 (a comparison sort treats them as equal); a row's
+// composite (key, ~row) is unique, so the select and the sorts need no
+// stability. Values are written from the scores themselves (the mvp
+// composite carries a -0.0 flag), so -0.0 stays -0.0.
 //
 // Bound on the H100: two FLOP per table element, so every entry is bound
-// by bytes. At the largest FRAME_BUCKETS table (1024 x 512 f32, 2 MB)
-// that is under a microsecond, and the launch costs more than the work.
-// At the library's million rows (1 GB in bf16, 0.5 GB in int8) the bytes
-// dominate. For one query and a width that is a whole number (1-4) of
-// 16-byte loads per lane (D = 512: two in bf16, one in int8), the entry
-// is templated on that number: the bf16-rounded query sits in registers,
-// nothing inside a row is masked, and each warp has 4 KB of rows in
-// flight per step (four bf16 or eight int8 rows at D = 512); the mask
-// bytes and scales are loaded with the rows. An int8 value becomes a
+// by bytes. mvp: the W gathered rows (74 x 2 KB at 600 frames) read by
+// one block, about 150 KB, far under a microsecond: the launch costs more
+// than the work. Library: the table (1 GB bf16, 0.5 GB in int8 at 2^20 x
+// 512); the scores' scratch (written once, read by each select pass that
+// runs) is this design's overhead, not part of the bound. For one query
+// and a width that is a whole number (1-4) of 16-byte loads per lane
+// (D = 512: two in bf16, one in int8), the lowp scoring is templated on
+// that number: the bf16-rounded query sits in registers, nothing inside a
+// row is masked, and each warp has 4 KB of rows in flight per step; the
+// mask bytes and scales are loaded with the rows. An int8 value becomes a
 // float on the ALU (a byte spliced into the mantissa of 2^23, then one
 // exact subtraction) rather than through the quarter-rate
-// integer-to-float conversion, which would cost about as much as the
-// bytes.
-// Other shapes (several queries, other widths) take a plain warp-per-row
-// loop. Fusing the window gather and top-k into these launches is later
-// work.
+// integer-to-float conversion. Other shapes take a plain warp-per-row
+// loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +68,112 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_BLOCK = THREADS / 32;
+
+// the top-k select
+constexpr int DIGIT = 13;                  // bits a histogram pass counts
+constexpr int BINS = 1 << DIGIT;
+constexpr int SORT_CAP = 4096;             // keys a block sorts in smem
+constexpr int MAX_K = 1024;                // largest k of the fused entries
+constexpr int SEL_THREADS = 256;           // the select passes' blocks
+constexpr int WT_THREADS = 1024;           // the mvp entry's block
+constexpr int STATE_INTS = 8;
+constexpr int SEL_BLOCKS_PER_SM = 2;
+enum : unsigned int { REFINE = 0, COMPACT = 1, DONE = 2 };
+
+static_assert(SORT_CAP * 8 == BINS * 4, "the sort reuses the histogram");
+static_assert(MAX_K < SORT_CAP, "the running merge keeps k and refills");
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A row's f32 score, the one definition both f32 kernels use: lanes
+// stride the row, FMA in column order, a butterfly sum (every lane ends
+// with the same value). At D = 512 the lane's 16 values are all loaded
+// before the first FMA (one memory round trip, not four); the sum is the
+// same sequence.
+__device__ __forceinline__ float dot_f32(const float* __restrict__ e,
+                                         const float* __restrict__ q,
+                                         int d, int lane) {
+  float acc = 0.f;
+  if (d == 512) {
+    float ev[16], qv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      ev[i] = e[lane + 32 * i];
+      qv[i] = q[lane + 32 * i];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc = fmaf(ev[i], qv[i], acc);
+  } else {
+    for (int c = lane; c < d; c += 32) acc = fmaf(e[c], q[c], acc);
+  }
+  return warp_sum(acc);
+}
+
+// Order-preserving key: larger score, larger key; -0.0 is +0.0, -inf is
+// below every finite score.
+__device__ __forceinline__ uint32_t order_key(float s) {
+  uint32_t b = __float_as_uint(s);
+  if ((b << 1) == 0u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Block-wide bitonic sort of n (a power of two) keys, descending.
+// Callers synchronise before; it synchronises after every stage.
+__device__ void bitonic_desc(unsigned long long* buf, int n) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
+        const int lo = 2 * stride * (i / stride) + i % stride;
+        const int hi = lo + stride;
+        const unsigned long long a = buf[lo], b = buf[hi];
+        if ((a < b) == ((lo & size) == 0)) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// Block-wide sort of n <= KPT * blockDim.x unique keys, descending: a
+// key's place is the number of keys above it, one pass over shared
+// memory instead of log^2 synchronised stages. Callers synchronise
+// before; it synchronises after.
+template <int KPT>
+__device__ void rank_sort_desc(unsigned long long* buf, int n) {
+  unsigned long long mine[KPT];
+  int rank[KPT];
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    const int i = threadIdx.x + j * blockDim.x;
+    mine[j] = i < n ? buf[i] : 0ull;
+    rank[j] = 0;
+  }
+  for (int i = 0; i < n; ++i) {
+    const unsigned long long other = buf[i];
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) rank[j] += other > mine[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < KPT; ++j)
+    if (threadIdx.x + j * blockDim.x < n) buf[rank[j]] = mine[j];
+  __syncthreads();
+}
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// f32 rows
 
 __global__ void __launch_bounds__(THREADS)
 cosine_scores_kernel(const float* __restrict__ emb,
@@ -56,14 +186,17 @@ cosine_scores_kernel(const float* __restrict__ emb,
   const float* e = emb + (long long)row * d;
   const bool ok = valid == nullptr || valid[row] != 0;
   for (int j = 0; j < nq; ++j) {
-    const float* qv = queries + (long long)j * d;
-    float acc = 0.f;
-    for (int c = lane; c < d; c += 32) acc = fmaf(e[c], qv[c], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const float acc = dot_f32(e, queries + (long long)j * d, d, lane);
     if (lane == 0) out[(long long)row * nq + j] = ok ? acc : -INFINITY;
   }
+}
+
+int launch_f32(const float* emb, const float* queries, const uint8_t* valid,
+               float* out, int n, int d, int nq, cudaStream_t stream) {
+  const int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  cosine_scores_kernel<<<blocks, THREADS, 0, stream>>>(emb, queries, valid,
+                                                      out, n, d, nq);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -80,13 +213,6 @@ __host__ __device__ constexpr int fast_rows(int steps) {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 struct Bf16Rows {
@@ -247,16 +373,300 @@ int launch_lowp(const typename R::T* emb, const float* scales,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// mvp entry: score the window middles, sort in shared memory
+
+// (key, window, -0.0 flag): descending order is score descending, then
+// window ascending; the flag sits below the window, so it never decides
+__device__ __forceinline__ unsigned long long window_key(float s, int w) {
+  return ((unsigned long long)order_key(s) << 32) |
+         ((unsigned long long)(0x7fffffffu - (uint32_t)w) << 1) |
+         (__float_as_uint(s) == 0x80000000u ? 1ull : 0ull);
+}
+
+__device__ __forceinline__ float window_value(unsigned long long c) {
+  const uint32_t key = (uint32_t)(c >> 32);
+  const uint32_t b = (c & 1ull) ? 0x80000000u
+                     : (key & 0x80000000u) ? (key & 0x7fffffffu) : ~key;
+  return __uint_as_float(b);
+}
+
+__global__ void __launch_bounds__(WT_THREADS)
+window_topk_kernel(const float* __restrict__ emb,
+                   const float* __restrict__ queries,
+                   const uint8_t* __restrict__ valid,
+                   const int* __restrict__ mids, float* __restrict__ vals,
+                   long long* __restrict__ idx, int d, int w, int k) {
+  __shared__ unsigned long long buf[SORT_CAP];
+  constexpr int WARPS = WT_THREADS / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* q = queries + (long long)blockIdx.x * d;
+  int kept = 0;
+  for (int base = 0; base < w;) {
+    const int take = min(w - base, SORT_CAP - kept);
+    for (int t = warp; t < take; t += WARPS) {
+      const int win = base + t;
+      const int m = mids[win];
+      float s = -INFINITY;                    // a padded window (-1)
+      if (m >= 0) {                           // warp-uniform
+        const float dot = dot_f32(emb + (long long)m * d, q, d, lane);
+        if (valid == nullptr || valid[m] != 0) s = dot;
+      }
+      if (lane == 0) buf[kept + t] = window_key(s, win);
+    }
+    const int total = kept + take;
+    __syncthreads();
+    if (total <= WT_THREADS) {
+      rank_sort_desc<1>(buf, total);
+    } else {
+      const int np = pow2_at_least(total);
+      for (int i = total + threadIdx.x; i < np; i += WT_THREADS)
+        buf[i] = 0ull;                        // below every real key
+      __syncthreads();
+      bitonic_desc(buf, np);
+    }
+    kept = min(k, total);
+    base += take;
+  }
+  const long long out = (long long)blockIdx.x * k;
+  for (int i = threadIdx.x; i < k; i += WT_THREADS) {
+    vals[out + i] = window_value(buf[i]);
+    idx[out + i] = 0x7fffffff - (int)((buf[i] >> 1) & 0x7fffffffull);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// library entries: radix-select passes over the contract kernel's scores
+
+struct SelState {
+  unsigned long long prefix;  // the digits chosen so far, in place
+  unsigned int above;         // rows with a composite above the prefix's range
+  unsigned int digit;         // the digit the next refine pass counts
+  unsigned int phase;         // REFINE, COMPACT or DONE
+  unsigned int blocks_done;   // tickets of the pass that is running
+  unsigned int n_cand;        // rows gathered by the COMPACT pass
+  unsigned int pad;
+};
+static_assert(sizeof(SelState) == STATE_INTS * 4, "workspace layout");
+
+struct Select {
+  unsigned int* hist;          // [BINS], zero between passes
+  SelState* st;
+  int* cand;                   // [SORT_CAP] row ids
+  const float* scores;         // [n], written by the scoring kernel
+  float* vals;                 // [k]
+  long long* idx;              // [k]
+  int n, k, ib;                // rows, k, bits of a row id
+};
+
+// the block's histogram; the final sort reuses it as SORT_CAP keys
+__device__ __forceinline__ unsigned int* block_hist() {
+  __shared__ unsigned long long h[BINS / 2];
+  return reinterpret_cast<unsigned int*>(h);
+}
+
+__device__ __forceinline__ unsigned long long composite(const Select& s,
+                                                        float score,
+                                                        int row) {
+  const unsigned long long mask = (1ull << s.ib) - 1ull;
+  return ((unsigned long long)order_key(score) << s.ib) |
+         (mask - (unsigned long long)row);
+}
+
+// low bit of digit j of the (32 + ib)-bit composite (j = -1: its width)
+__device__ __forceinline__ int digit_shift(const Select& s, int j) {
+  return max(32 + s.ib - DIGIT * (j + 1), 0);
+}
+
+// Every block calls this at the end of a pass; true in the last block
+// to finish, which then sees every other block's writes.
+__device__ bool last_block(const Select& s) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&s.st->blocks_done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The last block of a counting pass: find the bin of digit j that holds
+// the k-th largest composite, narrow the prefix to it, and either ask
+// for the next digit or, once at most SORT_CAP rows lie at or above the
+// bin, gather those.
+__device__ void select_digit(const Select& s, int j) {
+  constexpr int PER = BINS / SEL_THREADS;
+  __shared__ unsigned int part[SEL_THREADS];
+  SelState* st = s.st;
+  const unsigned int k_rem = (unsigned int)s.k - st->above;
+  // the global histogram into this block's own (its counts are flushed):
+  // coalesced loads, all in flight at once
+  unsigned int* h = block_hist();
+#pragma unroll 8
+  for (int b = threadIdx.x; b < BINS; b += SEL_THREADS)
+    h[b] = __ldcg(&s.hist[b]);
+  __syncthreads();
+  // thread t owns bins [BINS - PER (t + 1), BINS - PER t), so counts
+  // accumulate from the highest bin down
+  const int top = BINS - PER * threadIdx.x - 1;
+  unsigned int own = 0;
+  for (int i = 0; i < PER; ++i) own += h[top - i];
+  part[threadIdx.x] = own;
+  __syncthreads();
+  for (int off = 1; off < SEL_THREADS; off <<= 1) {   // inclusive scan
+    const unsigned int add =
+        (int)threadIdx.x >= off ? part[threadIdx.x - off] : 0u;
+    __syncthreads();
+    part[threadIdx.x] += add;
+    __syncthreads();
+  }
+  const unsigned int before = part[threadIdx.x] - own;   // bins above mine
+  if (before < k_rem && before + own >= k_rem) {
+    unsigned int cum = before, cnt = 0;
+    int b = top;
+    for (int i = 0; i < PER; ++i, --b) {
+      cnt = h[b];
+      if (cum + cnt >= k_rem) break;
+      cum += cnt;
+    }
+    const int shift = digit_shift(s, j);
+    const unsigned long long prefix =
+        st->prefix | ((unsigned long long)b << shift);
+    const unsigned int above = st->above + cum;
+    st->prefix = prefix;
+    if (above + cnt <= (unsigned int)SORT_CAP || shift == 0) {
+      st->phase = COMPACT;
+    } else {
+      st->above = above;
+      st->digit = (unsigned int)(j + 1);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < BINS; b += blockDim.x) s.hist[b] = 0u;
+  if (threadIdx.x == 0) st->blocks_done = 0u;
+}
+
+// The last block of the gather pass: sort the candidates, write k.
+__device__ void sort_candidates(const Select& s) {
+  unsigned long long* buf =
+      reinterpret_cast<unsigned long long*>(block_hist());
+  const int c = (int)__ldcg(&s.st->n_cand);
+  const int np = c <= 2 * SEL_THREADS ? c : pow2_at_least(c);
+  for (int i = threadIdx.x; i < np; i += blockDim.x) {
+    if (i < c) {
+      const int row = __ldcg(&s.cand[i]);
+      buf[i] = composite(s, __ldcg(&s.scores[row]), row);
+    } else {
+      buf[i] = 0ull;                           // below every real key
+    }
+  }
+  __syncthreads();
+  if (c <= 2 * SEL_THREADS)
+    rank_sort_desc<2>(buf, c);
+  else
+    bitonic_desc(buf, np);
+  const unsigned long long mask = (1ull << s.ib) - 1ull;
+  for (int i = threadIdx.x; i < s.k; i += blockDim.x) {
+    const int row = (int)(mask - (buf[i] & mask));
+    s.vals[i] = __ldcg(&s.scores[row]);
+    s.idx[i] = row;
+  }
+  if (threadIdx.x == 0) {
+    s.st->phase = DONE;
+    s.st->blocks_done = 0u;
+  }
+}
+
+// One pass over the scores: count digit j of the composites that match
+// the prefix so far (the first pass counts digit 0 of every row), or
+// gather the rows at or above the threshold; returns at once when the
+// select is done.
+__global__ void __launch_bounds__(SEL_THREADS) select_pass(Select s) {
+  const unsigned int phase = s.st->phase;
+  if (phase == DONE) return;                   // the whole grid
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned long long prefix = s.st->prefix;
+  if (phase == REFINE) {
+    unsigned int* h = block_hist();
+    for (int b = threadIdx.x; b < BINS; b += blockDim.x) h[b] = 0u;
+    __syncthreads();
+    const int j = (int)s.st->digit;
+    const int hi = digit_shift(s, j - 1), lo = digit_shift(s, j);
+    const unsigned long long mask = (1ull << (hi - lo)) - 1ull;
+    for (long long i = first; i < s.n; i += stride) {
+      const unsigned long long c = composite(s, s.scores[i], (int)i);
+      if ((c >> hi) == (prefix >> hi))
+        atomicAdd(&h[(c >> lo) & mask], 1u);
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < BINS; b += blockDim.x)
+      if (h[b] != 0u) atomicAdd(&s.hist[b], h[b]);
+    if (last_block(s)) select_digit(s, j);
+  } else {
+    for (long long i = first; i < s.n; i += stride)
+      if (composite(s, s.scores[i], (int)i) >= prefix)
+        s.cand[atomicAdd(&s.st->n_cand, 1u)] = (int)i;
+    if (last_block(s)) sort_candidates(s);
+  }
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The select passes after a scoring launch that wrote `scores` [n].
+// `work` holds the histogram, the state and the candidates
+// (avede_topk_work_ints ints). The grid is persistent, two blocks an SM:
+// each block ends in a 32 KB histogram flush, so fewer blocks flush less.
+template <class Score>
+int run_topk(Score score, float* scores, int* work, float* vals,
+             long long* idx, int n, int k, cudaStream_t stream) {
+  if (k < 1 || k > MAX_K || k > n) return (int)cudaErrorInvalidValue;
+  Select s;
+  s.hist = reinterpret_cast<unsigned int*>(work);
+  s.st = reinterpret_cast<SelState*>(work + BINS);
+  s.cand = work + BINS + STATE_INTS;
+  s.scores = scores;
+  s.vals = vals;
+  s.idx = idx;
+  s.n = n;
+  s.k = k;
+  s.ib = 1;
+  while ((1LL << s.ib) < n) ++s.ib;
+  cudaError_t err = cudaMemsetAsync(
+      work, 0, (BINS + STATE_INTS) * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  const int code = score();
+  if (code != 0) return code;
+  // one refine pass a digit at most, then the gather
+  const int passes = (32 + s.ib + DIGIT - 1) / DIGIT + 1;
+  const long long want = ((long long)n + SEL_THREADS - 1) / SEL_THREADS;
+  const long long cap = (long long)SEL_BLOCKS_PER_SM * sm_count();
+  const int blocks = (int)(want < cap ? want : cap);
+  for (int p = 0; p < passes; ++p)
+    select_pass<<<blocks, SEL_THREADS, 0, stream>>>(s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// contract entries
 
 // valid may be null (every row valid). Output is [n, nq], row-major.
 extern "C" int avede_cosine_scores_f32(const float* emb, const float* queries,
                                        const uint8_t* valid, float* out,
                                        int n, int d, int nq, void* stream) {
-  const int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  cosine_scores_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      emb, queries, valid, out, n, d, nq);
-  return (int)cudaGetLastError();
+  return launch_f32(emb, queries, valid, out, n, d, nq,
+                    (cudaStream_t)stream);
 }
 
 // bf16 table [n, d] (raw bf16 bits), f32 queries [nq, d]; out [n, nq] f32.
@@ -276,4 +686,59 @@ extern "C" int avede_cosine_scores_int8(const signed char* emb,
                                         int n, int d, int nq, void* stream) {
   return launch_lowp<Int8Rows>(emb, scales, queries, valid, out, n, d, nq,
                                (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// serving entries
+
+extern "C" int avede_topk_work_ints() {
+  return BINS + STATE_INTS + SORT_CAP;
+}
+
+// mvp: queries [nq, d]; mids [w] row ids (-1 = padded window). vals
+// [nq, k] f32, idx [nq, k] int64 window ids, k <= min(w, MAX_K).
+extern "C" int avede_window_topk_f32(const float* emb, const float* queries,
+                                     const uint8_t* valid, const int* mids,
+                                     float* vals, long long* idx, int d,
+                                     int nq, int w, int k, void* stream) {
+  if (k < 1 || k > MAX_K || k > w) return (int)cudaErrorInvalidValue;
+  window_topk_kernel<<<nq, WT_THREADS, 0, (cudaStream_t)stream>>>(
+      emb, queries, valid, mids, vals, idx, d, w, k);
+  return (int)cudaGetLastError();
+}
+
+// library tiers, one query [d] over every row: the contract kernel of
+// the tier writes scores [n] (f32 scratch), then the select passes; work
+// [avede_topk_work_ints()] int32 scratch; vals [k], idx [k] int64.
+extern "C" int avede_topk_f32(const float* emb, const float* query,
+                              const uint8_t* valid, float* scores, int* work,
+                              float* vals, long long* idx, int n, int d,
+                              int k, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return run_topk([&] {
+    return launch_f32(emb, query, valid, scores, n, d, 1, st);
+  }, scores, work, vals, idx, n, k, st);
+}
+
+extern "C" int avede_topk_bf16(const void* emb, const float* query,
+                               const uint8_t* valid, float* scores,
+                               int* work, float* vals, long long* idx, int n,
+                               int d, int k, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return run_topk([&] {
+    return launch_lowp<Bf16Rows>(static_cast<const __nv_bfloat16*>(emb),
+                                 nullptr, query, valid, scores, n, d, 1, st);
+  }, scores, work, vals, idx, n, k, st);
+}
+
+extern "C" int avede_topk_int8(const signed char* emb, const float* scales,
+                               const float* query, const uint8_t* valid,
+                               float* scores, int* work, float* vals,
+                               long long* idx, int n, int d, int k,
+                               void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return run_topk([&] {
+    return launch_lowp<Int8Rows>(emb, scales, query, valid, scores, n, d, 1,
+                                 st);
+  }, scores, work, vals, idx, n, k, st);
 }

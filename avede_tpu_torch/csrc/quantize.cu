@@ -16,15 +16,24 @@
 //   from device memory once; amax is reduced with shuffles and the int8
 //   row is written from the registers as char4. Other widths take a loop
 //   that reads the row twice (the second time from L1/L2).
-// - Per column: a block owns 32 neighbouring columns, so each warp reads
-//   128 contiguous bytes of a row; 16 row-lanes split K, reduce amax
-//   through shared memory, then read their rows again (from L2) to write.
+// - Per column: a thread-block cluster of 8 blocks owns 32 neighbouring
+//   columns (each warp reads 128 contiguous bytes of a row) and splits K
+//   into 8 slabs, one a block, so [3072, 768] runs 192 blocks on the 132
+//   SMs instead of 24. A block's 16 row-lanes keep their slab in
+//   registers (K <= 8 * 16 * COL_VALS; taller matrices read their slab a
+//   second time, from L2) and reduce amax through shared memory; each
+//   block then writes its column maxima into every block of the cluster
+//   (distributed shared memory, map_shared_rank), so one cluster barrier
+//   (plus one whose arrival overlaps the loads) leaves all 8 in every
+//   block, and each block quantizes its own slab.
+//   x is read from device memory once.
 //
 // Exactness against numpy and JAX, which compute in f32 and round half to
 // even: IEEE division x / scale (never x * (1 / scale); the build has no
 // --use_fast_math), rintf for the rounding, and max of |x| is the same in
 // any order. An all-zero row or column gives q = 0 and scale = 1e-12.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -34,8 +43,10 @@ namespace {
 constexpr int ROW_THREADS = 256;
 constexpr int ROW_WARPS = ROW_THREADS / 32;
 constexpr int MAX_VEC = 8;              // float4 loads a lane keeps: D <= 1024
-constexpr int COL_X = 32;               // columns per block
-constexpr int COL_Y = 16;               // row-lanes per column
+constexpr int COL_X = 32;               // columns per cluster
+constexpr int COL_Y = 16;               // row-lanes per block
+constexpr int CLUSTER = 8;              // blocks per cluster, splitting K
+constexpr int COL_VALS = 24;            // slab values a thread keeps
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float scale_of(float amax) {
@@ -107,25 +118,66 @@ quantize_rows_loop(const float* __restrict__ x, signed char* __restrict__ q,
 }
 
 // Per column of a row-major [k, n] matrix (the TPU kernel's contract).
-__global__ void __launch_bounds__(COL_X * COL_Y)
+// blockIdx.x picks 32 columns; the cluster's 8 blocks split K.
+template <bool IN_REGS>
+__global__ void __cluster_dims__(1, CLUSTER, 1)
+__launch_bounds__(COL_X * COL_Y, 2)
 quantize_cols(const float* __restrict__ x, signed char* __restrict__ q,
               float* __restrict__ scales, int k, int n) {
+  namespace cg = cooperative_groups;
   __shared__ float part[COL_Y][COL_X];
+  __shared__ float cluster_max[CLUSTER][COL_X];   // each block's, pushed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int slab = (k + CLUSTER - 1) / CLUSTER;
+  const int r0 = min(k, rank * slab), r1 = min(k, r0 + slab);
   const int col = blockIdx.x * COL_X + threadIdx.x;
+  const bool live = col < n;
+  // a block's shared memory may be written by the others only once it
+  // runs: arrive now, wait after the loads
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  float v[IN_REGS ? COL_VALS : 1];
   float amax = 0.f;
-  if (col < n)
-    for (int r = threadIdx.y; r < k; r += COL_Y)
+  if constexpr (IN_REGS) {
+#pragma unroll
+    for (int i = 0; i < COL_VALS; ++i) {
+      const int r = r0 + threadIdx.y + i * COL_Y;
+      v[i] = live && r < r1 ? x[(long long)r * n + col] : 0.f;
+      amax = fmaxf(amax, fabsf(v[i]));
+    }
+  } else if (live) {
+    for (int r = r0 + threadIdx.y; r < r1; r += COL_Y)
       amax = fmaxf(amax, fabsf(x[(long long)r * n + col]));
+  }
   part[threadIdx.y][threadIdx.x] = amax;
   __syncthreads();
+  // row-lane y < CLUSTER writes this block's column max into block y's
+  // shared memory; after one cluster barrier every block reads its own
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (threadIdx.y < CLUSTER) {
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < COL_Y; ++i) m = fmaxf(m, part[i][threadIdx.x]);
+    cluster.map_shared_rank(&cluster_max[0][0], threadIdx.y)
+        [rank * COL_X + threadIdx.x] = m;
+  }
+  cluster.sync();
   float m = 0.f;
 #pragma unroll
-  for (int i = 0; i < COL_Y; ++i) m = fmaxf(m, part[i][threadIdx.x]);
-  if (col >= n) return;
+  for (int b = 0; b < CLUSTER; ++b) m = fmaxf(m, cluster_max[b][threadIdx.x]);
+  if (!live) return;
   const float s = scale_of(m);
-  for (int r = threadIdx.y; r < k; r += COL_Y)
-    q[(long long)r * n + col] = quant(x[(long long)r * n + col], s);
-  if (threadIdx.y == 0) scales[col] = s;
+  if constexpr (IN_REGS) {
+#pragma unroll
+    for (int i = 0; i < COL_VALS; ++i) {
+      const int r = r0 + threadIdx.y + i * COL_Y;
+      if (r < r1) q[(long long)r * n + col] = quant(v[i], s);
+    }
+  } else {
+    for (int r = r0 + threadIdx.y; r < r1; r += COL_Y)
+      q[(long long)r * n + col] = quant(x[(long long)r * n + col], s);
+  }
+  if (rank == 0 && threadIdx.y == 0) scales[col] = s;
 }
 
 int row_blocks(int n) {
@@ -154,8 +206,13 @@ extern "C" int avede_quantize_rows(const float* x, signed char* q,
 extern "C" int avede_quantize_cols(const float* x, signed char* q,
                                    float* scales, int k, int n,
                                    void* stream) {
-  const dim3 block(COL_X, COL_Y);
-  quantize_cols<<<(n + COL_X - 1) / COL_X, block, 0, (cudaStream_t)stream>>>(
-      x, q, scales, k, n);
+  const dim3 block(COL_X, COL_Y), grid((n + COL_X - 1) / COL_X, CLUSTER);
+  const int slab = (k + CLUSTER - 1) / CLUSTER;
+  if (slab <= COL_Y * COL_VALS)
+    quantize_cols<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, q, scales, k, n);
+  else
+    quantize_cols<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        x, q, scales, k, n);
   return (int)cudaGetLastError();
 }

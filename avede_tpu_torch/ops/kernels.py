@@ -12,16 +12,26 @@
   nor the patchified matrix exists in device memory. Both run wgmma in
   bf16 ×3 (``split_patch_weights`` splits ``W'`` once); bound by
   operations on the H100.
-- ``cosine_scores`` — ``csrc/cosine_scores.cu``, replacing
-  ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``): the
-  ``[N, D] · [D]`` (or ``[Q, D]``) scoring product of every warm query,
-  with padded rows written as -inf. Bound by bytes.
-- ``cosine_scores_bf16`` and ``cosine_scores_int8`` — the same source's
-  entries for the library index's bfloat16 and int8 tables: the query
-  rounded to bf16, the sum in f32, an int8 row's sum times its f32
-  scale (``avede_tpu/services/library_index.py:83-105``). One kernel
-  reads the narrow table once; ``torch.mv`` would return bf16 scores,
-  and an int8 table would first need a bf16 copy of itself.
+- ``cosine_window_topk`` and ``cosine_topk_f32`` / ``_bf16`` /
+  ``_int8`` — ``csrc/cosine_scores.cu``'s serving entries, replacing
+  ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``) together
+  with the top-k the JAX programs run after it: score, select and sort
+  on the device, only ``(values [k], indices [k])`` come out. The first
+  serves the ``mvp`` query (one launch a call: the window-middle rows
+  are gathered as they load); the other three the index's float32,
+  bfloat16 and int8 tiers, where every row is a candidate (the tier's
+  contract scoring kernel, then radix-select passes over its scores).
+  The order is ``topk_scores``': descending, equal scores lower index
+  first, -inf last; bit-for-bit ``topk_scores`` of the contract entry's
+  scores on the card. Above ``FUSED_MAX_K`` they dispatch, on that
+  shape, to the contract entry and ``topk_scores``. Bound by bytes.
+- ``cosine_scores``, ``cosine_scores_bf16`` and ``cosine_scores_int8`` —
+  the same source's contract entries (the TPU kernel's function: scores
+  out, padded rows -inf) for f32 tables and the library index's
+  bfloat16 and int8 tables: the query rounded to bf16 for the narrow
+  tables, the sum in f32, an int8 row's sum times its f32 scale
+  (``avede_tpu/services/library_index.py:83-105``). No serving path
+  takes them at the default settings.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
@@ -381,3 +391,202 @@ def cosine_scores_int8(emb: torch.Tensor, scales: torch.Tensor,
 
 cosine_scores_bf16.launches = 0
 cosine_scores_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused score + select: the serving entries
+# ---------------------------------------------------------------------------
+
+# csrc/cosine_scores.cu's MAX_K: a larger k takes the contract entry and
+# ``topk_scores`` (a dispatch on the shape, never on a failure)
+FUSED_MAX_K = 1024
+_NEG_INF = float("-inf")
+
+
+def topk_scores(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k (values, indices) along the last axis, ties to the lower
+    index (``lax.top_k`` order; ``torch.topk`` promises none); k is
+    clipped to the axis length."""
+    k = min(k, scores.shape[-1])
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def window_scores(scores: torch.Tensor, middle_idx: torch.Tensor
+                  ) -> torch.Tensor:
+    """Gather window-middle rows of ``scores`` ([N] or [N, Q]); padded
+    windows (index -1) score -inf."""
+    w = scores[middle_idx.clamp(min=0).long()]
+    w_valid = middle_idx >= 0
+    if w.dim() == 2:
+        w_valid = w_valid[:, None]
+    return torch.where(w_valid, w, torch.full_like(w, _NEG_INF))
+
+
+def cosine_window_topk_plain(emb: torch.Tensor, valid: Optional[torch.Tensor],
+                             queries: torch.Tensor, mids: torch.Tensor,
+                             k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the mvp serving entry: the plain scores, the
+    window gather, then ``topk_scores`` per query."""
+    squeeze = queries.dim() == 1
+    q = queries[None, :] if squeeze else queries
+    s = window_scores(cosine_scores_plain(emb, q, valid), mids)   # [W, Q]
+    vals, idx = topk_scores(s.T, k)
+    return (vals[0], idx[0]) if squeeze else (vals, idx)
+
+
+def cosine_window_topk(emb: torch.Tensor, valid: Optional[torch.Tensor],
+                       queries: torch.Tensor, mids: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 table ``[Nb, D]``, bool ``valid`` ``[Nb]`` (or None), queries
+    f32 ``[Q, D]`` (or ``[D]``), int32 window-middle rows ``mids``
+    ``[Wb]`` (-1 = padded window) → (values ``[Q, k]``, int64 window
+    indices ``[Q, k]``) (``[k]`` each for a ``[D]`` query), k clipped to
+    Wb. Every ``mids`` entry must be below Nb."""
+    squeeze = queries.dim() == 1
+    q = queries[None, :] if squeeze else queries
+    n, d = emb.shape
+    if q.shape[1] != d or (valid is not None and valid.shape != (n,)) \
+            or mids.dim() != 1:
+        raise ValueError(f"bad shapes: emb {tuple(emb.shape)}, queries "
+                         f"{tuple(queries.shape)}, mids {tuple(mids.shape)}")
+    if emb.device.type == "cpu":
+        return cosine_window_topk_plain(emb, valid, queries, mids, k)
+    q = q.contiguous()
+    _require_cuda(emb, q, mids, *([valid] if valid is not None else []))
+    if emb.dtype != torch.float32 or q.dtype != torch.float32:
+        raise ValueError("cosine_window_topk takes float32 tables and "
+                         "queries")
+    if valid is not None and valid.dtype != torch.bool:
+        raise ValueError("valid must be a bool mask")
+    if mids.dtype != torch.int32:
+        raise ValueError("mids must be int32")
+    w, nq = mids.shape[0], q.shape[0]
+    k = min(k, w)
+    if k > FUSED_MAX_K:
+        vals, idx = topk_scores(window_scores(cosine_scores(emb, q, valid),
+                                              mids).T, k)
+        return (vals[0], idx[0]) if squeeze else (vals, idx)
+    vals = torch.empty((nq, k), dtype=torch.float32, device=emb.device)
+    idx = torch.empty((nq, k), dtype=torch.int64, device=emb.device)
+    if k and nq:                               # one block per query
+        fn = _entry("cosine_scores", "avede_window_topk_f32",
+                    [_P] * 6 + [_I] * 4 + [_P])
+        _build.check(fn(emb.data_ptr(), q.data_ptr(),
+                        valid.data_ptr() if valid is not None else None,
+                        mids.data_ptr(), vals.data_ptr(), idx.data_ptr(), d,
+                        nq, w, k, _stream(emb)), "avede_window_topk_f32")
+        cosine_window_topk.launches += 1
+    return (vals[0], idx[0]) if squeeze else (vals, idx)
+
+
+cosine_window_topk.launches = 0
+
+
+def cosine_topk_f32_plain(emb: torch.Tensor, query: torch.Tensor,
+                          valid: Optional[torch.Tensor], k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the f32 library entry: the plain scores, then
+    ``topk_scores``."""
+    return topk_scores(cosine_scores_plain(emb, query[None], valid)[:, 0], k)
+
+
+def cosine_topk_bf16_plain(emb: torch.Tensor, query: torch.Tensor,
+                           valid: Optional[torch.Tensor], k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the bf16 serving entry: the plain bf16 scores,
+    then ``topk_scores``."""
+    return topk_scores(cosine_scores_bf16_plain(emb, query[None], valid
+                                                )[:, 0], k)
+
+
+def cosine_topk_int8_plain(emb: torch.Tensor, scales: torch.Tensor,
+                           query: torch.Tensor,
+                           valid: Optional[torch.Tensor], k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the int8 serving entry: the plain int8 scores,
+    then ``topk_scores``."""
+    return topk_scores(cosine_scores_int8_plain(emb, scales, query[None],
+                                                valid)[:, 0], k)
+
+
+def _topk_library(emb, scales, query, valid, k, row_dtype, plain, unfused,
+                  symbol, wrapper):
+    """One query over every row of a library table through ``symbol``:
+    the tier's contract scoring kernel, then the select passes."""
+    n, d = emb.shape
+    if query.shape != (d,) or (valid is not None and valid.shape != (n,)) \
+            or (scales is not None and scales.shape != (n,)):
+        raise ValueError(f"bad shapes: emb {tuple(emb.shape)}, query "
+                         f"{tuple(query.shape)}")
+    rest = (query, valid) if scales is None else (scales, query, valid)
+    if emb.device.type == "cpu":
+        return plain(emb, *rest, k)
+    k = min(k, n)
+    if k > FUSED_MAX_K:
+        return topk_scores(unfused(emb, *rest), k)
+    query = query.contiguous()
+    _require_cuda(emb, query, *[t for t in (scales, valid) if t is not None])
+    if emb.dtype != row_dtype or query.dtype != torch.float32 \
+            or (scales is not None and scales.dtype != torch.float32):
+        raise ValueError(f"{symbol} takes {row_dtype} rows, a float32 "
+                         f"query and float32 scales")
+    if valid is not None and valid.dtype != torch.bool:
+        raise ValueError("valid must be a bool mask")
+    vals = torch.empty((k,), dtype=torch.float32, device=emb.device)
+    idx = torch.empty((k,), dtype=torch.int64, device=emb.device)
+    if k:
+        ptrs = [emb.data_ptr()] + ([scales.data_ptr()] if scales is not None
+                                   else []) \
+            + [query.data_ptr(), valid.data_ptr() if valid is not None
+               else None]
+        scores = torch.empty((n,), dtype=torch.float32, device=emb.device)
+        work_ints = _entry("cosine_scores", "avede_topk_work_ints", [])()
+        work = torch.empty((work_ints,), dtype=torch.int32,
+                           device=emb.device)
+        fn = _entry("cosine_scores", symbol, [_P] * (len(ptrs) + 4)
+                    + [_I, _I, _I, _P])
+        _build.check(fn(*ptrs, scores.data_ptr(), work.data_ptr(),
+                        vals.data_ptr(), idx.data_ptr(), n, d, k,
+                        _stream(emb)), symbol)
+        wrapper.launches += 1
+    return vals, idx
+
+
+def cosine_topk_f32(emb: torch.Tensor, query: torch.Tensor,
+                    valid: Optional[torch.Tensor], k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 table ``[N, D]`` × f32 query ``[D]`` → the top ``k`` (f32
+    values, int64 rows) of ``cosine_scores``, in ``topk_scores``' order;
+    k clipped to N."""
+    return _topk_library(emb, None, query, valid, k, torch.float32,
+                         cosine_topk_f32_plain, cosine_scores,
+                         "avede_topk_f32", cosine_topk_f32)
+
+
+def cosine_topk_bf16(emb: torch.Tensor, query: torch.Tensor,
+                     valid: Optional[torch.Tensor], k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 table ``[N, D]`` × f32 query ``[D]`` → the top ``k`` (f32
+    values, int64 rows) of ``cosine_scores_bf16``, in ``topk_scores``'
+    order; k clipped to N."""
+    return _topk_library(emb, None, query, valid, k, torch.bfloat16,
+                         cosine_topk_bf16_plain, cosine_scores_bf16,
+                         "avede_topk_bf16", cosine_topk_bf16)
+
+
+def cosine_topk_int8(emb: torch.Tensor, scales: torch.Tensor,
+                     query: torch.Tensor, valid: Optional[torch.Tensor],
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 table ``[N, D]`` with f32 row ``scales`` × f32 query ``[D]``
+    → the top ``k`` (f32 values, int64 rows) of ``cosine_scores_int8``,
+    in ``topk_scores``' order; k clipped to N."""
+    return _topk_library(emb, scales, query, valid, k, torch.int8,
+                         cosine_topk_int8_plain, cosine_scores_int8,
+                         "avede_topk_int8", cosine_topk_int8)
+
+
+cosine_topk_f32.launches = 0
+cosine_topk_bf16.launches = 0
+cosine_topk_int8.launches = 0

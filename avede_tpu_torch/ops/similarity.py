@@ -1,11 +1,13 @@
 """Cosine scoring + top-k over embedding tables (counterpart of
 ``avede_tpu/ops/similarity.py``).
 
-The scoring product goes through the hand-written ``cosine_scores``
-kernel (``ops/kernels.py``), which also writes -inf for padded rows.
-``lax.top_k`` breaks ties by taking the lower index first and
-``torch.topk`` promises no order, so top-k here is a stable descending
-sort: equal scores keep index order, as in the JAX package.
+The serving functions (``window_topk``, ``window_topk_multi`` and the
+program of ``make_query_window_topk``) are one launch of the fused
+``cosine_window_topk`` kernel (``ops/kernels.py``): it scores only the
+window-middle rows, writes -inf for padded rows and windows, and returns
+the top-k in ``lax.top_k``'s order (descending, equal scores lower index
+first). ``cosine_scores`` returns scores through the kernel's contract
+entry. On the CPU every function runs the plain composition.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .kernels import topk_scores  # noqa: F401  (re-exported)
 
 _NEG_INF = float("-inf")
 
@@ -35,15 +38,6 @@ def cosine_scores(frame_emb: torch.Tensor, query_emb: torch.Tensor,
     return kernels.cosine_scores(f.contiguous(), q.contiguous())
 
 
-def topk_scores(scores: torch.Tensor, k: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k (values, indices) along the last axis, ties to the lower
-    index (``lax.top_k`` order); k is clipped to the axis length."""
-    k = min(k, scores.shape[-1])
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def masked_topk(scores: torch.Tensor, valid: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k ignoring padded entries (``valid`` bool mask → -inf)."""
@@ -51,36 +45,27 @@ def masked_topk(scores: torch.Tensor, valid: torch.Tensor, k: int
                                    torch.full_like(scores, _NEG_INF)), k)
 
 
-def _window_scores(scores: torch.Tensor, middle_idx: torch.Tensor
-                   ) -> torch.Tensor:
-    """Gather window-middle rows of ``scores`` ([N] or [N, Q]); padded
-    windows (index -1) score -inf."""
-    w = scores[middle_idx.clamp(min=0).long()]
-    w_valid = middle_idx >= 0
-    if w.dim() == 2:
-        w_valid = w_valid[:, None]
-    return torch.where(w_valid, w, torch.full_like(w, _NEG_INF))
-
-
 def window_topk(frame_emb: torch.Tensor, valid: torch.Tensor,
                 query_emb: torch.Tensor, middle_idx: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Phase-1 core: score every frame (padded rows -inf), gather window
-    middles, return top-k (scores, window indices).
+    """Phase-1 core: score the window-middle frames (padded rows and
+    windows -inf) and return top-k (scores, window indices), in one
+    kernel launch.
 
     frame_emb [N, D] unit-norm f32, valid [N] bool, query_emb [D],
-    middle_idx [W] int (-1 = padding)."""
-    scores = kernels.cosine_scores(frame_emb, query_emb.float(), valid)
-    return topk_scores(_window_scores(scores, middle_idx), k)
+    middle_idx [W] int32 (-1 = padding)."""
+    return kernels.cosine_window_topk(frame_emb, valid, query_emb.float(),
+                                      middle_idx, k)
 
 
 def window_topk_multi(frame_emb: torch.Tensor, valid: torch.Tensor,
                       query_emb: torch.Tensor, middle_idx: torch.Tensor,
                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Multi-query phase-1 core: one ``[N, D] × [Q, D]`` scoring launch,
-    window gather, per-query top-k → ([Q, k] scores, [Q, k] indices)."""
-    scores = kernels.cosine_scores(frame_emb, query_emb.float(), valid)
-    return topk_scores(_window_scores(scores, middle_idx).T, k)
+    """Multi-query phase-1 core: one launch scores the window middles
+    against ``[Q, D]`` queries and selects per query → ([Q, k] scores,
+    [Q, k] window indices)."""
+    return kernels.cosine_window_topk(frame_emb, valid, query_emb.float(),
+                                      middle_idx, k)
 
 
 def pad_table(emb: np.ndarray, middle_idx: np.ndarray,
@@ -110,7 +95,7 @@ def pad_table(emb: np.ndarray, middle_idx: np.ndarray,
 
 def make_query_window_topk(model):
     """Serving program: token ids → text tower → unit-norm query →
-    score the table (kernel) → window gather → top-k.
+    the fused score + window gather + top-k kernel.
 
     Returns ``fn(ids [1, L], emb, valid, mids, k) → (vals [k], idx [k],
     text_emb [D])``; the text embedding comes back too so the caller's

@@ -9,8 +9,9 @@ dtype; ``fused_patch_embed`` takes uint8 frames for ``rgb``; the patch
 weights are folded and split for the kernel once, at load time) →
 ``encode_image_from_patches`` (flash attention in every vision layer)
 → unit-norm f32 embeddings.
-Warm queries run ``query_window_topk``: text tower → ``cosine_scores``
-kernel → window gather → top-k.
+Warm queries run ``query_window_topk``: text tower → one launch of the
+fused ``cosine_window_topk`` kernel (score the window middles, mask,
+top-k).
 
 ``embed_stream`` overlaps decode with embed: a staging thread packs,
 pads and copies each chunk into pinned host memory and issues its
@@ -334,8 +335,9 @@ class ClipEngine:
                           middle_idx: np.ndarray, k: int
                           ) -> Tuple[np.ndarray, np.ndarray]:
         """Warm-query serving path: token ids → text tower → score the
-        resident table (kernel) → window gather → top-k. The text
-        embedding lands in the LRU for other consumers."""
+        window middles of the resident table, mask and top-k in one
+        kernel launch (``cosine_window_topk``). The text embedding lands
+        in the LRU for other consumers."""
         dev = self.resident_table(emb, middle_idx)
         ids = torch.from_numpy(self.tokenizer([query])).to(self.device)
         vals, idx, q = self._query_topk_fn(ids, dev[0], dev[1], dev[2], k)

@@ -393,7 +393,7 @@ class Phase1Scan:
             return []
 
         with trace("phase1.score_topk"):
-            # ids → text tower → scores (kernel) → window top-k on the
+            # ids → text tower → fused score + window top-k (kernel) on the
             # bucket-padded resident table; the text embedding lands in
             # the engine's LRU
             k = min(top_k, len(mids))
@@ -418,8 +418,9 @@ class Phase1Scan:
                         threshold: Optional[float] = None,
                         video_id: Optional[str] = None
                         ) -> Dict[str, List[Dict]]:
-        """Multi-query scan: ONE embedding table, one [N, Q] scoring
-        launch — marginal cost per extra query ≈ one text encode."""
+        """Multi-query scan: ONE embedding table, one fused score +
+        top-k launch for all queries — marginal cost per extra query ≈
+        one text encode."""
         top_k = top_k or settings.TOP_K_RESULTS
         threshold = (settings.CONFIDENCE_THRESHOLD if threshold is None
                      else threshold)

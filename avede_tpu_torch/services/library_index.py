@@ -5,10 +5,11 @@ of ``avede_tpu/services/library_index.py``).
 library lives on the device as one bucketed ``[capacity, D]`` table in
 the tier's dtype — ``bfloat16`` by default, ``float32``, or per-row
 ``int8`` with f32 scales (``settings.LIBRARY_INDEX_DTYPE``) — with a
-bool ``valid`` mask over its rows. A query is one cosine kernel launch
-(``ops/kernels.py``: the f32, bf16 or int8 entry, padded and removed
-rows scored -inf) and a top-k; only the top ``k`` scores and row
-indices leave the device. Adds write bucket-padded spans into the
+bool ``valid`` mask over its rows. A query is one call of the tier's
+fused score + top-k kernel (``ops/kernels.py``: ``cosine_topk_f32``,
+``cosine_topk_bf16`` or ``cosine_topk_int8``; padded and removed rows
+score -inf); only the top ``k`` scores and row indices leave the
+device. Adds write bucket-padded spans into the
 table in place; the int8 tier quantizes each block on the device with
 the ``quantize_rows`` kernel (``ops/quant.py``). Capacity grows by
 doubling, which also compacts the holes that removals leave.
@@ -24,7 +25,6 @@ import numpy as np
 import torch
 
 from ..ops import kernels, quant
-from ..ops.similarity import topk_scores
 from ..utils.config import settings
 from ..utils.logging import get_logger
 from ..utils.platform import resolve_device
@@ -183,13 +183,14 @@ class DeviceLibraryIndex:
         # holes persist until the next capacity growth, which compacts
 
     # ------------------------------------------------------------------
-    def _scores_locked(self, q: torch.Tensor) -> torch.Tensor:
+    def _topk_locked(self, q: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self._int8:
-            return kernels.cosine_scores_int8(self._table, self._scales, q,
-                                              self._valid)
+            return kernels.cosine_topk_int8(self._table, self._scales, q,
+                                            self._valid, k)
         if self.dtype == "bfloat16":
-            return kernels.cosine_scores_bf16(self._table, q, self._valid)
-        return kernels.cosine_scores(self._table, q, self._valid)
+            return kernels.cosine_topk_bf16(self._table, q, self._valid, k)
+        return kernels.cosine_topk_f32(self._table, q, self._valid, k)
 
     def search(self, query_embedding: np.ndarray, k: int
                ) -> List[Dict]:
@@ -208,7 +209,7 @@ class DeviceLibraryIndex:
             # stream in order, so this search reads the table as it is
             # now, whatever later adds or growth write or free. The copy
             # to the host, which waits for the device, happens outside.
-            scores, idx = topk_scores(self._scores_locked(q), k_prog)
+            scores, idx = self._topk_locked(q, k_prog)
             starts = list(self._starts)
             spans = list(self._spans)
         scores = scores[:k].cpu().numpy()

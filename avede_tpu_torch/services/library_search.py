@@ -4,7 +4,7 @@
 Search EVERY uploaded video for a text query in one shot. The embedding
 cache already holds one unit-norm table per video. Whole-library
 searches go through the device-resident ``DeviceLibraryIndex`` (one
-cosine kernel launch + top-k on the device; videos without cached
+fused score + top-k kernel call on the device; videos without cached
 embeddings are embedded on first search and cached); a search over a
 ``video_ids`` subset scores the concatenated host tables with numpy,
 as the JAX package does.

@@ -19,13 +19,19 @@ and the script exits non-zero without printing a result:
    that are not bit-equal reported; time kernel,
    plain version and one library call on the device (CUDA events around
    a CUDA-graph replay, host launch cost excluded), and the kernel's
-   eager per-call wall (``call_ms``). The library's entries run at the
-   index's serving size: the bf16 and int8 cosine entries over 2^20
-   rows with a valid mask, ``quantize_rows`` at an add-block (768 rows)
-   and at growth (1,024,000 rows), ``quantize_per_channel`` at the TPU
-   kernel's [3072, 768]; quantization must equal its plain version
-   exactly. Where no single PyTorch call computes a kernel's function,
-   ``library_ms`` is null and ``library`` says why;
+   eager per-call wall (``call_ms``). The fused score + top-k entries
+   (``cosine_window_topk`` at the main path's 74 windows, and at Q = 4
+   and W = 5000; ``cosine_topk_f32``, ``_bf16`` and ``_int8`` over 2^20
+   rows at k = 64 and 1024) must equal ``topk_scores`` of their contract
+   entry's scores bit for bit; their yardstick is the contract entry +
+   ``torch.topk(sorted=True)``. The
+   library's entries run at the index's serving size: the bf16 and int8
+   cosine entries over 2^20 rows with a valid mask, ``quantize_rows`` at
+   an add-block (768 rows) and at growth (1,024,000 rows),
+   ``quantize_per_channel`` at the TPU kernel's [3072, 768] and at odd
+   shapes; quantization must equal its plain version exactly. Where no
+   single PyTorch call computes a kernel's function, ``library_ms`` is
+   null and ``library`` says why;
 4. check the card's bf16 embeddings against the CPU's f32 plain path
    on the same seeded weights, on a few frames (cosine >= 0.99);
 5. drive the main path at CLIP ViT-B/32 width (random weights from a
@@ -34,16 +40,18 @@ and the script exits non-zero without printing a result:
    temporary directory, one cold ``process_video``, six warm ones
    (three queries, each twice) and one four-query ``process_queries``;
    the launch counts, zeroed just before, must be above 0 for the
-   path's kernels (the I420 patch embed, bf16 flash attention, cosine
-   scores) and 0 for the contract entries (RGB patch embed, f32 flash);
+   path's kernels (the I420 patch embed, bf16 flash attention, the fused
+   ``cosine_window_topk``) and 0 for the contract entries (RGB patch
+   embed, f32 flash, ``cosine_scores``);
    scores must be finite and sorted, repeated queries identical, and
    the top windows those of a numpy reference on the cached table;
 6. drive whole-library search (``LibrarySearch``, the service behind
    ``POST /api/search-library``) over three synthetic videos, in the
-   bfloat16 and then the int8 tier, each with a fresh cache and search:
+   bfloat16, int8 and float32 tiers, each with a fresh cache and search:
    one video gets a cold ``process_video`` first, so ingest backfills
    it, the others take the dense scan; one cold search and three warm
-   ones. The kernels of ingest and of the tier must have launched; the
+   ones. The kernels of ingest and of the tier (its fused top-k entry)
+   must have launched and every contract entry not at all; the
    indexed hits must rank as a numpy reference of the host path with
    the index's run collapse (near ties within 2e-3 may swap), with
    confidences within 2e-3 of the f32 tables, and the host path
@@ -51,10 +59,13 @@ and the script exits non-zero without printing a result:
 7. build a ``DeviceLibraryIndex`` at serving size, 1000 seeded videos
    of 1000 unit rows (1,024,000 padded rows, capacity 2^20), in the
    bfloat16 and the int8 tier: add p50, total growth time, search p50
-   over 20 queries at k = 64, device ms of the cosine entry and of the
-   top-k beside their bounds, and each search's top 10 against an f32
-   reference on the same (dequantized) table where score gaps exceed
-   1e-4.
+   over 20 queries at k = 64 (the fused entry must launch, the contract
+   entry not), device ms of the fused search beside its bound (and of
+   the contract entry + stable sort it replaced), one search at k = 2048
+   (above the fused entry's largest k: the contract entry, whose first
+   64 hits must be the fused search's), and each search's top 10
+   against an f32 reference on the same (dequantized) table where score
+   gaps exceed 1e-4.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -96,9 +107,13 @@ INDEX_ROWS, INDEX_CAPACITY = INDEX_VIDEOS * 1024, 1 << 20
 LIBRARY_VIDEOS = ("lib-0", "lib-1", "lib-2")
 LIBRARY_TOL = 2e-3
 # the path whose launches a kernel's row reports (default: mvp)
-KERNEL_PATH = {"cosine_scores_bf16": "library_bfloat16",
+KERNEL_PATH = {"cosine_topk_f32": "library_float32",
+               "cosine_scores_bf16": "library_bfloat16",
+               "cosine_topk_bf16": "library_bfloat16",
                "cosine_scores_int8": "library_int8",
-               "quantize_rows": "library_int8"}
+               "cosine_topk_int8": "library_int8",
+               "quantize_rows": "library_int8",
+               "quantize_per_channel": "library_int8"}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
@@ -420,10 +435,91 @@ def check_kernels(torch, np, video):
         yardstick="torch.mv + masked_fill_ (two calls)"))
     if err > tol:
         fail(f"cosine_scores: max err {err} > {tol}")
+    rows.append(check_window_topk(torch, F, dev, gen, emb, valid))
     del emb
 
     rows += check_library_kernels(torch, F, dev, gen)
     return rows
+
+
+def exact_pair(torch, what, got, ref) -> None:
+    """Fail unless (values, indices) equal ``ref`` bit for bit."""
+    if got[0].shape != ref[0].shape or got[1].shape != ref[1].shape \
+            or not torch.equal(got[0].view(torch.int32),
+                               ref[0].view(torch.int32)) \
+            or not torch.equal(got[1], ref[1]):
+        fail(f"{what}: fused (values, indices) != topk_scores of the "
+             f"contract entry")
+
+
+def check_window_topk(torch, F, dev, gen, emb, valid):
+    """Phase 3, the mvp serving entry: the main path's 74 windows of the
+    1024-row table (bucket 128), k = 10; also Q = 4 and W = 5000 (the
+    running merge). Bar: bit-for-bit ``topk_scores`` of the contract
+    entry after the window gather."""
+    from avede_tpu_torch.ops import kernels
+    from avede_tpu_torch.ops.windows import window_middle_indices
+    from avede_tpu_torch.utils.config import settings
+
+    nb, dim, k = emb.shape[0], emb.shape[1], 10
+    w_mids = window_middle_indices(N_FRAMES, settings.WINDOW_SIZE,
+                                   settings.WINDOW_STRIDE)
+    mids = torch.full((128,), -1, dtype=torch.int32, device=dev)
+    mids[:len(w_mids)] = torch.from_numpy(w_mids.astype("int32")).to(dev)
+    qs = F.normalize(torch.randn(4, dim, device=dev, generator=gen), dim=1)
+
+    def contract(q, m, kk):
+        s = kernels.cosine_scores(emb, q, valid)
+        return kernels.topk_scores(kernels.window_scores(s, m).T, kk)
+
+    def yardstick(q, m, kk):
+        s = kernels.cosine_scores(emb, q, valid)
+        return torch.topk(kernels.window_scores(s, m).T, kk, sorted=True)
+
+    q1 = qs[:1]
+    exact_pair(torch, "cosine_window_topk", kernels.cosine_window_topk(
+        emb, valid, q1, mids, k), contract(q1, mids, k))
+    exact_pair(torch, "cosine_window_topk Q=4", kernels.cosine_window_topk(
+        emb, valid, qs, mids, 5), contract(qs, mids, 5))
+    big = torch.randint(-1, nb, (5000,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    exact_pair(torch, "cosine_window_topk W=5000", kernels.cosine_window_topk(
+        emb, valid, q1, big, 1024), contract(q1, big, 1024))
+
+    used = int((mids >= 0).sum())
+    # the gathered rows, their mask bytes, the query, mids and the output
+    b, f = bound_ms(4 * used * dim + used + 4 * dim + 4 * mids.numel()
+                    + 12 * k, 2.0 * used * dim)
+    return dict(
+        name="cosine_window_topk", route="cuda",
+        source="avede_tpu_torch/csrc/cosine_scores.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:139",
+        shape=f"table f32 [{nb},{dim}], valid, {used} window middles in "
+              f"mids [{mids.numel()}], query [{dim}], k {k}",
+        max_abs_err=0.0, tol="bit-equal to topk_scores(contract entry)",
+        exact=True,
+        ms=time_ms(torch, lambda: kernels.cosine_window_topk(
+            emb, valid, q1, mids, k), iters=200),
+        call_ms=call_ms(torch, lambda: kernels.cosine_window_topk(
+            emb, valid, q1, mids, k), iters=200),
+        plain_ms=time_ms(torch, lambda: kernels.cosine_window_topk_plain(
+            emb, valid, q1, mids, k), iters=200),
+        q4_ms=time_ms(torch, lambda: kernels.cosine_window_topk(
+            emb, valid, qs, mids, 5), iters=200),
+        w5000_k1024_ms=time_ms(torch, lambda: kernels.cosine_window_topk(
+            emb, valid, q1, big, 1024)),
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1, library_ms=None,
+        library="null: no single PyTorch call scores, masks, gathers and "
+                "selects",
+        yardstick_ms=time_ms(torch, lambda: yardstick(q1, mids, k),
+                             iters=200),
+        yardstick="cosine_scores (contract) + gather + torch.topk("
+                  "sorted=True), unstable order",
+        contract_sort_ms=time_ms(torch, lambda: contract(q1, mids, k),
+                                 iters=200),
+        contract_sort="cosine_scores (contract) + gather + topk_scores: the "
+                      "path before the fused entry")
 
 
 def check_library_kernels(torch, F, dev, gen):
@@ -442,6 +538,11 @@ def check_library_kernels(torch, F, dev, gen):
     emb = F.normalize(torch.randn(nb, dim, device=dev, generator=gen), dim=1)
     table_i8, scales = quant.quantize_rows(emb)
     table_bf = emb.to(torch.bfloat16)
+    rows.append(fused_topk_row(
+        torch, "cosine_topk_f32", kernels.cosine_topk_f32,
+        kernels.cosine_topk_f32_plain, kernels.cosine_scores, (emb,), qv,
+        valid, 4 * emb.numel(),
+        f"table f32 [{nb},{dim}] x query [{dim}], valid mask"))
     del emb
     mask_out = nb + 4 * nb + 4 * dim            # mask + scores + query
 
@@ -470,6 +571,11 @@ def check_library_kernels(torch, F, dev, gen):
         yardstick="torch.mv (bf16 scores) + masked_fill_ (two calls)"))
     if err > tol:
         fail(f"cosine_scores_bf16: max err {err} > {tol}")
+    rows.append(fused_topk_row(
+        torch, "cosine_topk_bf16", kernels.cosine_topk_bf16,
+        kernels.cosine_topk_bf16_plain, kernels.cosine_scores_bf16,
+        (table_bf,), qv, valid, 2 * table_bf.numel(),
+        f"table bf16 [{nb},{dim}] x query [{dim}], valid mask"))
     del table_bf
 
     got = kernels.cosine_scores_int8(table_i8, scales, qv, valid)
@@ -495,6 +601,12 @@ def check_library_kernels(torch, F, dev, gen):
         library="null: no PyTorch call takes int8 rows with row scales"))
     if err > tol:
         fail(f"cosine_scores_int8: max err {err} > {tol}")
+    rows.append(fused_topk_row(
+        torch, "cosine_topk_int8", kernels.cosine_topk_int8,
+        kernels.cosine_topk_int8_plain, kernels.cosine_scores_int8,
+        (table_i8, scales), qv, valid, table_i8.numel() + 4 * nb,
+        f"table int8 [{nb},{dim}] + scales [{nb}] x query [{dim}], "
+        f"valid mask"))
     del table_i8, scales
 
     def quant_case(fn, plain, shape, per_row, iters):
@@ -531,11 +643,63 @@ def check_library_kernels(torch, F, dev, gen):
         library="null: no PyTorch call computes per-row amax/127 "
                 "symmetric int8 with its scales",
         add_block=quant_case(quant.quantize_rows, quant.quantize_rows_plain,
-                             (768, dim), True, 200),
-        per_channel=quant_case(quant.quantize_per_channel,
-                               quant.quantize_per_channel_plain,
-                               (3072, 768), False, 50)))
+                             (768, dim), True, 200)))
+    # the TPU kernel's own contract, on thread-block clusters; odd shapes
+    # are held exact too
+    for shape in ((33, 130), (1, 40), (7, 33), (5001, 70)):
+        quant_case(quant.quantize_per_channel,
+                   quant.quantize_per_channel_plain, shape, False, 3)
+    rows.append(dict(
+        name="quantize_per_channel", route="cuda",
+        source="avede_tpu_torch/csrc/quantize.cu",
+        replaces="avede_tpu/ops/quant.py:70",
+        **quant_case(quant.quantize_per_channel,
+                     quant.quantize_per_channel_plain, (3072, 768), False,
+                     200),
+        odd_shapes_exact=[[33, 130], [1, 40], [7, 33], [5001, 70]],
+        library_ms=None,
+        library="null: no PyTorch call computes per-column amax/127 "
+                "symmetric int8 with its scales"))
     return rows
+
+
+def fused_topk_row(torch, name, fused, plain, contract, tables, qv, valid,
+                   table_bytes, shape):
+    """A library serving entry at 2^20 rows: bit-for-bit ``topk_scores``
+    of its contract entry at k = 64 and k = 1024, timed at k = 64 (the
+    index's default search) and 1024 (its widest fused one)."""
+    from avede_tpu_torch.ops import kernels
+
+    nb, dim, k = valid.shape[0], qv.shape[0], 64
+    for kk in (k, kernels.FUSED_MAX_K):
+        exact_pair(torch, f"{name} k={kk}", fused(*tables, qv, valid, kk),
+                   kernels.topk_scores(contract(*tables, qv, valid), kk))
+    # table (+ scales), mask, query and the output: the scores' scratch
+    # is the design's overhead, not the function's
+    b, f = bound_ms(table_bytes + nb + 4 * dim + 12 * k, 2.0 * nb * dim)
+    return dict(
+        name=name, route="cuda",
+        source="avede_tpu_torch/csrc/cosine_scores.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:139",
+        shape=f"{shape}, k {k}", max_abs_err=0.0,
+        tol="bit-equal to topk_scores(contract entry) at k 64 and 1024",
+        exact=True,
+        ms=time_ms(torch, lambda: fused(*tables, qv, valid, k)),
+        k1024_ms=time_ms(torch, lambda: fused(*tables, qv, valid, 1024)),
+        call_ms=call_ms(torch, lambda: fused(*tables, qv, valid, k)),
+        plain_ms=time_ms(torch, lambda: plain(*tables, qv, valid, k),
+                         iters=3),
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1, library_ms=None,
+        library="null: no single PyTorch call scores, masks and selects",
+        yardstick_ms=time_ms(torch, lambda: torch.topk(
+            contract(*tables, qv, valid), k, sorted=True)),
+        yardstick="contract entry + torch.topk(sorted=True), unstable "
+                  "order",
+        contract_sort_ms=time_ms(torch, lambda: kernels.topk_scores(
+            contract(*tables, qv, valid), k)),
+        contract_sort="contract entry + topk_scores (stable sort): the "
+                      "index search before the fused entry")
 
 
 def check_against_cpu(torch, np, engine, video):
@@ -570,11 +734,13 @@ def drive_main_path(torch, np, engine, video, cache_dir):
     from avede_tpu_torch.pipelines.phase1 import Phase1Scan
     from avede_tpu_torch.utils.config import settings
 
-    # the contract entries (f32 flash, RGB patch embed) are counted too:
-    # they must stay at 0 on this path
+    # the contract entries (f32 flash, RGB patch embed, the cosine
+    # scores) are counted too: they must stay at 0 on this path
     needed = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
-              kernels.cosine_scores)
-    counted = needed + (kernels.fused_patch_embed, attention.flash_attention)
+              kernels.cosine_window_topk)
+    contracts = (kernels.fused_patch_embed, attention.flash_attention,
+                 kernels.cosine_scores)
+    counted = needed + contracts
     scan = Phase1Scan(engine, reader=video,
                       cache=EmbeddingCache(str(cache_dir)))
     path, vid, top_k = "memory://synthetic-street", "synthetic-street", 10
@@ -599,7 +765,7 @@ def drive_main_path(torch, np, engine, video, cache_dir):
 
     if any(launches[fn.__name__] <= 0 for fn in needed):
         fail(f"a kernel of the main path never launched: {launches}")
-    if launches["flash_attention"] or launches["fused_patch_embed"]:
+    if any(launches[fn.__name__] for fn in contracts):
         fail(f"a contract entry ran on the main path: {launches}")
     for res in [cold] + warm + list(multi.values()):
         conf = [r["confidence"] for r in res]
@@ -696,7 +862,8 @@ def check_ranking(what, got, ref, tables, q, tol):
 
 def drive_library(torch, np, engine, root):
     """Phase 6: whole-library search through ``LibrarySearch`` at
-    ViT-B/32 width, in the bfloat16 and int8 tiers of the index."""
+    ViT-B/32 width, in the bfloat16, int8 and float32 tiers of the
+    index."""
     from avede_tpu_torch.io.embedding_cache import EmbeddingCache
     from avede_tpu_torch.ops import attention, kernels, quant
     from avede_tpu_torch.pipelines.phase1 import Phase1Scan
@@ -708,12 +875,16 @@ def drive_library(torch, np, engine, root):
     for vid in LIBRARY_VIDEOS:           # list_videos and _resolve find these
         (videos / f"{vid}.mp4").touch()
     settings.VIDEO_DIR = str(videos)
+    contracts = (kernels.fused_patch_embed, attention.flash_attention,
+                 kernels.cosine_scores, kernels.cosine_scores_bf16,
+                 kernels.cosine_scores_int8, quant.quantize_per_channel)
     counted = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
-               kernels.fused_patch_embed, attention.flash_attention,
-               kernels.cosine_scores, kernels.cosine_scores_bf16,
-               kernels.cosine_scores_int8, quant.quantize_rows)
-    tier_kernels = {"bfloat16": ("cosine_scores_bf16",),
-                    "int8": ("cosine_scores_int8", "quantize_rows")}
+               kernels.cosine_window_topk, kernels.cosine_topk_f32,
+               kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
+               quant.quantize_rows) + contracts
+    tier_kernels = {"bfloat16": ("cosine_topk_bf16",),
+                    "int8": ("cosine_topk_int8", "quantize_rows"),
+                    "float32": ("cosine_topk_f32",)}
     top_k, per_video_k, out = 10, 3, {}
     for dtype, needed in tier_kernels.items():
         settings.LIBRARY_INDEX_DTYPE = dtype
@@ -742,6 +913,8 @@ def drive_library(torch, np, engine, root):
                      "flash_attention_blhd") + needed:
             if launches[name] <= 0:
                 fail(f"library ({dtype}): {name} never launched: {launches}")
+        if any(launches[fn.__name__] for fn in contracts):
+            fail(f"library ({dtype}): a contract entry ran: {launches}")
         if warm[0]["results"] != cold["results"]:
             fail(f"library ({dtype}): warm result differs from the cold one")
         meta = cold["metadata"]
@@ -790,16 +963,19 @@ def unit_rows(np, seed: int, n: int, dim: int):
 def drive_index(torch, np, dtype: str):
     """Phase 7: a ``DeviceLibraryIndex`` at serving size, 1000 seeded
     videos of 1000 unit rows (each made when it is added), with the
-    cosine entry and the top-k timed on the device against their
-    bounds, and the top 10 of 20 searches held to an f32 reference."""
+    fused search timed on the device against its bound, a search above
+    the fused entry's largest k, and the top 10 of 20 searches held to
+    an f32 reference."""
     from avede_tpu_torch.ops import kernels, quant
     from avede_tpu_torch.ops.similarity import topk_scores
     from avede_tpu_torch.services.library_index import DeviceLibraryIndex
 
     dim, k = 512, 64
     int8 = dtype == "int8"
-    counted = ((kernels.cosine_scores_int8, quant.quantize_rows) if int8
-               else (kernels.cosine_scores_bf16,))
+    fused = kernels.cosine_topk_int8 if int8 else kernels.cosine_topk_bf16
+    contract = (kernels.cosine_scores_int8 if int8
+                else kernels.cosine_scores_bf16)
+    counted = (fused, contract) + ((quant.quantize_rows,) if int8 else ())
     torch.cuda.reset_peak_memory_stats()
     for fn in counted:
         fn.launches = 0
@@ -833,32 +1009,37 @@ def drive_index(torch, np, dtype: str):
         hits.append(index.search(q, k))
         search_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {fn.__name__: fn.launches for fn in counted}
-    if any(v <= 0 for v in launches.values()):
-        fail(f"index ({dtype}): a kernel never launched: {launches}")
+    if any(v <= 0 for n, v in launches.items() if n != contract.__name__) \
+            or launches[contract.__name__]:
+        fail(f"index ({dtype}): a serving kernel never launched or the "
+             f"contract entry ran: {launches}")
+    # above the fused entry's largest k the index takes the contract
+    # entry and the stable sort; its first k hits are the fused ones
+    wide = index.search(queries[0], 2 * kernels.FUSED_MAX_K)
+    if contract.launches != 1 or wide[:k] != hits[0]:
+        fail(f"index ({dtype}): the search at k = "
+             f"{2 * kernels.FUSED_MAX_K} took {contract.launches} contract "
+             f"launches or differs from the fused search")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9   # adds, growth, search
 
-    # the device time of the cosine entry and of the top-k, each beside
-    # its bound, on the index's own table
+    # the fused search's device time beside its bound, on the index's own
+    # table, and the contract entry + stable sort it replaced
     table, valid, scales = index._table, index._valid, index._scales
     n = table.shape[0]
     qd = torch.from_numpy(queries[0]).cuda()
-    if int8:
-        def score():
-            return kernels.cosine_scores_int8(table, scales, qd, valid)
-        nbytes = n * dim + 4 * n
-    else:
-        def score():
-            return kernels.cosine_scores_bf16(table, qd, valid)
-        nbytes = 2 * n * dim
-    scores = score()
-    cos_bound, cos_by = bound_ms(nbytes + n + 4 * n + 4 * dim,
-                                 2.0 * n * dim)
-    topk_bound, topk_by = bound_ms(4 * n + 12 * k, 0.0)
-    timing = {"cosine_ms": time_ms(torch, score),
-              "cosine_bound_ms": cos_bound, "cosine_bound_by": cos_by,
-              "topk_ms": call_ms(torch, lambda: topk_scores(scores, k),
-                                 iters=20),
-              "topk_bound_ms": topk_bound, "topk_bound_by": topk_by}
+    tables = (table, scales) if int8 else (table,)
+    nbytes = n * dim + 4 * n if int8 else 2 * n * dim
+    bound, by = bound_ms(nbytes + n + 4 * dim + 12 * k, 2.0 * n * dim)
+    timing = {
+        "search_device_ms": time_ms(torch, lambda: fused(
+            *tables, qd, valid, k)),
+        "search_bound_ms": bound, "search_bound_by": by,
+        "search_device_ms_k1024": time_ms(torch, lambda: fused(
+            *tables, qd, valid, kernels.FUSED_MAX_K)),
+        "contract_sort_device_ms": time_ms(torch, lambda: topk_scores(
+            contract(*tables, qd, valid), k)),
+        "wide_search_k": 2 * kernels.FUSED_MAX_K,
+        "wide_search_hits": len(wide)}
 
     # reference: the same (dequantized) table in f32 against the query
     # as the tier sees it (rounded to bf16); only the sum order differs
@@ -892,7 +1073,7 @@ def drive_index(torch, np, dtype: str):
            "search_p50_ms": statistics.median(search_ms),
            "near_tie_swaps": swapped, "launches": launches, **timing,
            "peak_gb": peak_gb}
-    del index, table, valid, scales, scores
+    del index, table, valid, scales, tables
     torch.cuda.empty_cache()
     return out
 

@@ -147,8 +147,11 @@ def test_quantize_rows_kernel_equals_plain(cuda, shape):
     assert torch.equal(out[0][8:], pq) and torch.equal(out[1][8:], ps)
 
 
-@pytest.mark.parametrize("shape", [(3072, 768), (33, 130)])
+@pytest.mark.parametrize("shape", [(3072, 768), (33, 130), (1, 40),
+                                   (7, 33), (5001, 70)])
 def test_quantize_per_channel_kernel_equals_plain(cuda, shape):
+    """Exact, on clusters: K not a multiple of the cluster, K = 1, N not
+    a multiple of the column group, K past the register slab."""
     g = torch.Generator(device="cuda").manual_seed(shape[1])
     w = torch.randn(*shape, device=cuda, generator=g) * 0.02
     w[:, 1] = 0.0
@@ -225,3 +228,85 @@ def test_library_index_on_card_matches_cpu(cuda, dtype):
         == [(h["video_id"], h["frame_index"]) for h in b]
     np.testing.assert_allclose([h["confidence"] for h in a],
                                [h["confidence"] for h in b], atol=1e-5)
+
+
+def _bit_equal(got, ref):
+    """(values, indices) pairs equal bit for bit (-0.0 is not +0.0)."""
+    assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+    assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(got[1], ref[1])
+
+
+def _window_case(cuda, nq, w, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    emb = torch.nn.functional.normalize(
+        torch.randn(1024, 512, device=cuda, generator=g), dim=-1)
+    emb[700:710] = emb[3]                       # exact ties
+    valid = torch.arange(1024, device=cuda) < 900
+    q = torch.nn.functional.normalize(
+        torch.randn(nq, 512, device=cuda, generator=g), dim=-1)
+    mids = torch.randint(-1, 1024, (w,), device=cuda, generator=g,
+                         dtype=torch.int32)     # repeats: more ties
+    return emb, valid, q, mids
+
+
+@pytest.mark.parametrize("nq,w,k", [(1, 128, 10), (1, 128, 128),
+                                    (4, 128, 5), (1, 5000, 1024),
+                                    (4, 5000, 64), (1, 3, 1)])
+def test_window_topk_fused_equals_contract(cuda, nq, w, k):
+    """The mvp entry, bit for bit ``topk_scores`` of the contract entry's
+    scores after the window gather; W = 5000 runs the running merge."""
+    from avede_tpu_torch.ops.similarity import topk_scores
+
+    emb, valid, q, mids = _window_case(cuda, nq, w, nq * w + k)
+    before = tk.cosine_window_topk.launches
+    got = tk.cosine_window_topk(emb, valid, q, mids, k)
+    torch.cuda.synchronize()
+    assert tk.cosine_window_topk.launches == before + 1
+    ref = topk_scores(tk.window_scores(tk.cosine_scores(emb, q, valid),
+                                       mids).T, k)
+    _bit_equal(got, ref)
+
+
+def _library_case(cuda, dtype, n, d, seed, ties):
+    emb, valid, g = _table(cuda, n, d, seed)
+    q = torch.nn.functional.normalize(
+        torch.randn(d, device=cuda, generator=g), dim=-1)
+    if ties == "dup":                  # 2000 equal rows on top: k lands in
+        emb[1000:3000] = q             # the tie
+    elif ties == "invalid":            # 132 valid rows: -inf ties past them
+        valid[:] = False
+        valid[::997] = True
+    if dtype == "int8":
+        table, scales = tq.quantize_rows(emb)
+        return (table, scales), q, valid
+    return (emb.to(getattr(torch, dtype)),), q, valid
+
+
+_FUSED = {"float32": ("cosine_topk_f32", "cosine_scores"),
+          "bfloat16": ("cosine_topk_bf16", "cosine_scores_bf16"),
+          "int8": ("cosine_topk_int8", "cosine_scores_int8")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,d,k,ties", [
+    (1 << 20, 512, 64, None), (1 << 20, 512, 1024, None),
+    (1 << 17, 512, 1024, "dup"), (1 << 17, 512, 512, "invalid"),
+    (3000, 100, 300, None), (1000, 512, 4096, None),
+    (1 << 17, 512, 2048, None), (5000, 512, 1, None)])
+def test_library_topk_fused_equals_contract(cuda, dtype, n, d, k, ties):
+    """The library tiers' entries, bit for bit ``topk_scores`` of the
+    contract entry: exact ties (duplicated rows), -inf ties past the
+    valid rows, an odd width, k = 1, and k past FUSED_MAX_K (the
+    contract entry plus the sort, by shape)."""
+    from avede_tpu_torch.ops.similarity import topk_scores
+
+    tables, q, valid = _library_case(cuda, dtype, n, d, n + d + k, ties)
+    fused, contract = (getattr(tk, name) for name in _FUSED[dtype])
+    before = (fused.launches, contract.launches)
+    got = fused(*tables, q, valid, k)
+    torch.cuda.synchronize()
+    above = min(k, n) > tk.FUSED_MAX_K
+    assert (fused.launches, contract.launches) == \
+        (before[0] + (not above), before[1] + above)
+    _bit_equal(got, topk_scores(contract(*tables, q, valid), k))

@@ -141,6 +141,69 @@ class TestIndexMatchesJax:
         pair.check_tables()
 
 
+class TestFusedSearchMatchesJax:
+    """Each tier's fused score + top-k entry (its plain composition on
+    the CPU) against the JAX index's search program on the same table:
+    row indices exactly equal, scores to CONF_TOL (the f32 sum's
+    order), -inf rows (padding, a removed video) ranked last in row
+    order."""
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("k", [1, 16, 1024])
+    def test_entry_matches_jax_search(self, dtype, k):
+        rng = np.random.default_rng(31)
+        pair = _Pair(32, dtype)
+        for i, n in enumerate((300, 40, 200)):
+            pair.add(f"v{i}", _unit(rng, n, 32), np.arange(float(n)))
+        pair.remove("v1")                                   # a hole
+        pair.check_tables()
+        q = _unit(rng, 1, 32)[0]
+        j, t = pair.j, pair.t
+        kk = min(k, j.capacity)
+        if dtype == "int8":
+            rv, ri = jli._search_fn(kk, True)(j._table, j._scales, j._valid,
+                                              jax.numpy.asarray(q))
+            gv, gi = tk.cosine_topk_int8(t._table, t._scales,
+                                         torch.from_numpy(q), t._valid, k)
+        else:
+            rv, ri = jli._search_fn(kk)(j._table, j._valid,
+                                        jax.numpy.asarray(q))
+            if dtype == "bfloat16":
+                gv, gi = tk.cosine_topk_bf16(t._table, torch.from_numpy(q),
+                                             t._valid, k)
+            else:
+                gv, gi = tk.cosine_topk_f32(t._table, torch.from_numpy(q),
+                                            t._valid, k)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+        np.testing.assert_allclose(gv.numpy(), np.asarray(rv),
+                                   atol=CONF_TOL, rtol=0)
+        assert np.isneginf(gv.numpy()).sum() == max(0, kk - t.n_rows)
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_search_takes_the_fused_entry(self, dtype, monkeypatch):
+        """``DeviceLibraryIndex.search`` calls its tier's fused entry
+        (and not the contract entry) with the rounded-up k."""
+        calls = []
+        name = {"float32": "cosine_topk_f32", "bfloat16":
+                "cosine_topk_bf16", "int8": "cosine_topk_int8"}[dtype]
+        real = getattr(tk, name)
+
+        def spy(*args):
+            calls.append(args[-1])
+            return real(*args)
+
+        monkeypatch.setattr(tk, name, spy)
+        for contract in ("cosine_scores", "cosine_scores_bf16",
+                         "cosine_scores_int8"):
+            monkeypatch.setattr(tk, contract, None)     # must not be called
+        idx = tli.DeviceLibraryIndex(32, dtype=dtype, device="cpu")
+        idx.add("v", _unit(np.random.default_rng(4), 50, 32),
+                np.arange(50.0))
+        assert len(idx.search(_unit(np.random.default_rng(5), 1, 32)[0],
+                              10)) == 10
+        assert calls == [16]
+
+
 class TestDeviceLibraryIndex:
     """The cases of ``tests/test_library_index.py`` that apply to one
     device, on the port's index."""

@@ -19,7 +19,11 @@ with ``torch.profiler`` (CPU + CUDA activities):
 - ``library_warm``: three further searches (three texts);
 - ``vision_bucket``: the vision tower alone on one 128-frame bucket of
   packed I420 frames (``ClipEngine._embed_device``), over five buckets,
-  reported per bucket as well.
+  reported per bucket as well;
+- ``index_search`` (outside the profiler): ``chip_smoke.py``'s phase 7,
+  the ``DeviceLibraryIndex`` at serving size (1,000,000 rows) in the
+  bfloat16 and int8 tiers, with its search p50 at k = 64 and whatever
+  device times that checkout's phase 7 reports.
 
 For each window it prints one JSON line: host wall ms, device busy ms
 (union of device kernel and copy intervals) and their count, device
@@ -46,7 +50,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 WINDOWS = ("vision_bucket", "cold", "warm", "library_cold", "library_warm",
-           "dense_scan_stages")
+           "dense_scan_stages", "index_search")
 
 
 def _device_work(events, cuda_type) -> list:
@@ -129,6 +133,10 @@ def main() -> None:
     out.mkdir(parents=True, exist_ok=True)
     card = chip_smoke.card_line()
     _build.build_all()
+    if "index_search" in windows:
+        print(json.dumps({"window": "index_search", "card": card, **{
+            dtype: chip_smoke.drive_index(torch, np, dtype)
+            for dtype in ("bfloat16", "int8")}}), flush=True)
     video = chip_smoke.SyntheticVideo(np, seed=0)
     queries = chip_smoke.QUERIES
     with tempfile.TemporaryDirectory() as tmp:
