@@ -2,10 +2,12 @@
 // attention with an online softmax over K/V tiles. Two entries:
 //
 // - avede_flash_attention_bf16 (the serving path): bf16 q, k, v in the
-//   projections' own layout [B, L, H, hd] (each the contiguous [B, L, D]
-//   output of its nn.Linear viewed per head, rows at a stride of H*hd),
-//   bf16 output [B, L, H*hd] that out_proj reads as it is. No transpose
-//   or f32 copy exists around it.
+//   projections' own layout [B, L, H, hd], token rows at a stride of ldi
+//   elements: H*hd for the contiguous [B, L, D] output of an nn.Linear
+//   viewed per head (CLIP), 3*H*hd for the q, k and v thirds of one fused
+//   qkv projection's [B, L, 3D] output (BLIP's vision tower), read in
+//   place. Output bf16 [B, L, H*hd] that out_proj reads as it is. No
+//   transpose or copy exists around it.
 // - avede_flash_attention_f32 (the TPU kernel's contract): f32
 //   [B*H, L, D], one thread per query row (kept from the first port).
 //
@@ -16,8 +18,13 @@
 // bf16) each (frame, head) pair moves 25.6 KB for about 0.64 MFLOP,
 // some 25 FLOP per byte, far under the ~295 at which the bf16 tensor
 // cores (989 TFLOP/s) become the limit over HBM (3.35 TB/s): it is bound
-// by bytes. The bf16 design therefore spends on bytes in flight and on
-// launches, not on the widest tensor-core instruction:
+// by bytes. At BLIP's vision shape (L = 577: ten 64-key tiles, the last
+// holding one key) the products grow with L^2 to about 290 FLOP per byte
+// of the function's own work (QK^T and P.V once each): still bound by
+// bytes, just under the ridge; the second P.V term below (see the last
+// point) takes this design to about 430.
+// The bf16 design spends on bytes in flight and on launches, not on the
+// widest tensor-core instruction:
 // - 4 warps per block, one warp per 16 query rows (a 64-row q tile),
 //   mma.sync m16n8k16 (bf16 in, f32 accumulate); a 64-row wgmma tile
 //   would waste a fifth of its rows at L = 50.
@@ -222,10 +229,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int B, int L, int H,
-                  float scale_log2) {
+                  int ldi, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Stage* st = reinterpret_cast<Stage*>(smem_raw);
-  const int ld = H * HD;
+  const int ld = H * HD;                      // output row stride
   const int nt = (L + TR - 1) / TR;           // q tiles = K/V tiles
   const int items = B * H * nt;
   const int mine = (int)blockIdx.x < items
@@ -233,21 +240,22 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int steps = mine * nt;                // (item, kv tile) steps
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  auto item_base = [&](int s, int& qt, int& kt) -> long long {
+  // offset of step s's (batch, head) in a matrix with row stride `rows`
+  auto item_base = [&](int s, int& qt, int& kt, int rows) -> long long {
     const int item = (int)blockIdx.x + (s / nt) * (int)gridDim.x;
     kt = s % nt;
     const int pair = item / nt;
     qt = item % nt;
     const int b = pair / H, h = pair % H;
-    return (long long)b * L * ld + (long long)h * HD;
+    return (long long)b * L * rows + (long long)h * HD;
   };
   auto issue = [&](int s) {
     int qt, kt;
-    const long long base = item_base(s, qt, kt);
+    const long long base = item_base(s, qt, kt, ldi);
     Stage& S = st[s & 1];
-    if (kt == 0) load_tile(S.q, q + base, ld, qt * TR, L);
-    load_tile(S.k, k + base, ld, kt * TR, L);
-    load_tile(S.v, v + base, ld, kt * TR, L);
+    if (kt == 0) load_tile(S.q, q + base, ldi, qt * TR, L);
+    load_tile(S.k, k + base, ldi, kt * TR, L);
+    load_tile(S.v, v + base, ldi, kt * TR, L);
   };
 
   if (steps > 0) issue(0);
@@ -264,7 +272,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     Stage& S = st[s & 1];
     int qt, kt;
-    const long long base = item_base(s, qt, kt);
+    const long long base = item_base(s, qt, kt, ld);    // of the output
 
     if (kt == 0) {
 #pragma unroll
@@ -389,12 +397,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// q, k, v, o: bf16 rows of H*64 elements ([B, L, H, 64] contiguous).
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for hd != 64.
+// q, k, v: bf16 [B, L, H, 64] with token rows ldi elements apart (ldi >=
+// H*64, a multiple of 8, each pointer 16-byte aligned); o: contiguous
+// bf16 [B, L, H*64]. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for hd != 64 or a bad ldi.
 extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o, int B,
-                                          int L, int H, int D, void* stream) {
-  if (D != HD) return (int)cudaErrorInvalidValue;
+                                          int L, int H, int D, int ldi,
+                                          void* stream) {
+  if (D != HD || ldi < H * HD || ldi % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   static int grid_cap = 0;
   const int smem = 2 * (int)sizeof(Stage);
   if (grid_cap == 0) {
@@ -412,6 +424,6 @@ extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_bf16_kernel<<<grid, TT, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B, L, H, scale_log2);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B, L, H, ldi, scale_log2);
   return (int)cudaGetLastError();
 }

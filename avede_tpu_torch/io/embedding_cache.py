@@ -18,6 +18,8 @@ their tables apart).
                                     dedup_gated, created}
 
 A cache entry is valid only if model tag + sampling parameters match.
+``FrameReprCache`` keeps phase 2's per-frame captions beside the table
+(``<video_id>.<kind>.npz``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import threading
 import time
 from collections import OrderedDict
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -249,3 +251,128 @@ class EmbeddingCache:
         new_valid[row_idx] = True
         return self.put(video_id, merged, ts, model_tag, frame_hw,
                         sample_rate, valid=new_valid)
+
+
+class FrameReprCache:
+    """Per-frame, query-INDEPENDENT rerank representations (BLIP
+    captions), cached per video next to the embedding tables, in the
+    JAX package's format: ``<video_id>.<kind>.npz`` mapping
+    ``r<timestamp_ms>`` → array (captions are numpy unicode scalars —
+    npz-safe without pickle), with a ``tag`` entry for model-identity
+    invalidation. In-memory dict tier in front of disk. A warm rerank
+    therefore reads no frame and runs no captioner.
+
+    Concurrency: the load-merge-save in ``put_many`` is guarded by an
+    in-process lock only — the API serves from ONE process, so
+    cross-process writers are out of contract; two independent
+    processes pointed at the same cache dir could drop each other's
+    merged entries.
+
+    ``persist=False`` keeps the cache memory-only (used when the
+    embedding cache is disabled: disabling caching must not keep
+    writing rerank reprs to disk)."""
+
+    def __init__(self, kind: str, cache_dir: Optional[str] = None,
+                 persist: bool = True) -> None:
+        self.kind = kind
+        self.persist = persist
+        self.dir = Path(cache_dir or settings.EMBEDDING_DIR)
+        if persist:
+            self.dir.mkdir(parents=True, exist_ok=True)
+        # memory tier: video_id → (tag, entries), LRU-evicted under a
+        # byte budget like EmbeddingCache's tier — the tag is PART of
+        # the cached value, so an in-process model-knob change discards
+        # rather than serves (and never persists) stale reprs
+        self._mem: "OrderedDict[str, Tuple[str, Dict[str, np.ndarray]]]" \
+            = OrderedDict()
+        self._mem_bytes = 0
+        self._lock = threading.Lock()
+
+    def _path(self, video_id: str) -> Path:
+        return self.dir / f"{video_id}.{self.kind}.npz"
+
+    @staticmethod
+    def key(timestamp: float) -> str:
+        return f"r{int(round(timestamp * 1000))}"
+
+    @staticmethod
+    def _nbytes(entries: Dict[str, np.ndarray]) -> int:
+        return sum(getattr(v, "nbytes", 64) for v in entries.values())
+
+    def _mem_store(self, video_id: str, tag: str,
+                   entries: Dict[str, np.ndarray]) -> None:
+        if video_id in self._mem:
+            self._mem_bytes -= self._nbytes(self._mem[video_id][1])
+            del self._mem[video_id]
+        budget = settings.EMBEDDING_MEM_CACHE_MB * (1 << 20)
+        if budget <= 0:     # 0 disables the tier (EmbeddingCache rule)
+            return
+        self._mem[video_id] = (tag, entries)
+        self._mem_bytes += self._nbytes(entries)
+        while self._mem_bytes > budget and len(self._mem) > 1:
+            _, (_, old) = self._mem.popitem(last=False)
+            self._mem_bytes -= self._nbytes(old)
+
+    def _load(self, video_id: str, tag: str) -> Dict[str, np.ndarray]:
+        hit = self._mem.get(video_id)
+        if hit is not None and hit[0] == tag:
+            self._mem.move_to_end(video_id)
+            return hit[1]
+        entries: Dict[str, np.ndarray] = {}
+        p = self._path(video_id)
+        if self.persist and p.exists():
+            try:
+                with np.load(p, allow_pickle=False) as z:
+                    if str(z["tag"]) == tag:
+                        entries = {k: z[k] for k in z.files if k != "tag"}
+                    else:
+                        logger.info("Repr cache tag changed for %s "
+                                    "(%s) — discarding", video_id,
+                                    self.kind)
+            except (OSError, ValueError, KeyError) as exc:
+                logger.warning("Corrupt repr cache for %s: %s",
+                               video_id, exc)
+        self._mem_store(video_id, tag, entries)
+        return entries
+
+    def get_many(self, video_id: str, tag: str, timestamps
+                 ) -> Dict[str, np.ndarray]:
+        """→ {key: repr} for the cached subset of ``timestamps``."""
+        with self._lock:
+            entries = self._load(video_id, tag)
+            keys = [self.key(t) for t in timestamps]
+            return {k: entries[k] for k in keys if k in entries}
+
+    def put_many(self, video_id: str, tag: str,
+                 new: Dict[str, np.ndarray]) -> None:
+        if not new:
+            return
+        with self._lock:
+            # a new dict, not the one the memory tier holds: _mem_store
+            # subtracts the stored dict's size, which an in-place update
+            # would already have grown (the JAX package's put_many has
+            # that defect, so its tier under-counts)
+            entries = {**self._load(video_id, tag), **new}
+            self._mem_store(video_id, tag, entries)
+            if not self.persist:
+                return
+            try:
+                # atomic replace: a crash mid-write must not truncate
+                # the only copy of every cached repr for the video.
+                # The tmp name must END in .npz — np.savez appends the
+                # extension otherwise and the rename source vanishes.
+                p = self._path(video_id)
+                tmp = p.with_name(p.stem + ".tmp.npz")
+                np.savez(tmp, tag=np.str_(tag), **entries)
+                tmp.replace(p)
+            except OSError as exc:  # disk full etc — keep memory tier
+                logger.warning("Repr cache write failed for %s: %s",
+                               video_id, exc)
+
+    def invalidate(self, video_id: str) -> None:
+        with self._lock:
+            hit = self._mem.pop(video_id, None)
+            if hit is not None:
+                self._mem_bytes -= self._nbytes(hit[1])
+            if self.persist:
+                self._path(video_id).unlink(missing_ok=True)

@@ -8,7 +8,9 @@ that decode, so importing this module needs no cv2).
 - frames resized so max(H, W) ≤ ``FRAME_MAX_SIZE`` (512), aspect kept;
 - timestamps = frame_index / fps; fps falls back to 30 when the
   container reports garbage;
-- RGB uint8 output (decoder-native BGR through a ``finish`` hook).
+- RGB uint8 output (decoder-native BGR through a ``finish`` hook);
+- seeks to single frames by timestamp (``read_frames_at``) for the
+  phase-2 candidates that scan retention does not hold.
 """
 
 from __future__ import annotations
@@ -313,6 +315,43 @@ class VideoReader:
         tw, th = _fit_size(meta.width, meta.height, self.max_side)
         fcap, rate = decode_budget(fcap, (th, tw), rate)
         return len(sample_indices(meta.total_frames, rate, fcap))
+
+    def read_frames_at(self, path: str, timestamps: List[float],
+                       return_ok: bool = False):
+        """Frames at ``timestamps`` (RGB uint8, resized): one capture, a
+        seek per timestamp (phase 2 reads its candidate frames this way
+        when scan retention does not hold them). Failed reads stay
+        zero-filled; ``return_ok=True`` also returns the [N] success mask,
+        so callers that cache derived values can leave failures out."""
+        import cv2
+
+        meta = probe_video(path)
+        tw, th = _fit_size(meta.width, meta.height, self.max_side)
+        out = np.zeros((len(timestamps), th, tw, 3), np.uint8)
+        ok_mask = np.zeros((len(timestamps),), bool)
+        cap = cv2.VideoCapture(str(path))
+        if not cap.isOpened():
+            raise VideoDecodeError(f"cannot open video: {path}")
+        try:
+            for n, t in enumerate(timestamps):
+                idx = min(max(int(round(t * meta.fps)), 0),
+                          max(meta.total_frames - 1, 0))
+                cap.set(cv2.CAP_PROP_POS_FRAMES, idx)
+                ok, frame = cap.read()
+                if ok:
+                    self._convert_into(frame, out[n])
+                    ok_mask[n] = True
+        finally:
+            cap.release()
+        return (out, ok_mask) if return_ok else out
+
+    def read_frame_at(self, path: str, timestamp: float) -> np.ndarray:
+        """Single frame at a timestamp (RGB uint8, resized)."""
+        out, ok = self.read_frames_at(path, [timestamp], return_ok=True)
+        if not ok[0]:
+            raise VideoDecodeError(
+                f"cannot read frame at {timestamp}s from {path}")
+        return out[0]
 
     @staticmethod
     def _convert_into(frame_bgr: np.ndarray, out: np.ndarray) -> None:

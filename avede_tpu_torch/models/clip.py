@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels import _patchify
-from .layers import Transformer
+from .layers import Transformer, seeded_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,21 +187,5 @@ def init_clip(cfg: Optional[CLIPConfig] = None, seed: int = 0
     """Model with deterministic random weights from ``seed`` (the repo
     ships no pretrained weights): normal(0, fan_in^-1/2) matrices,
     normal(0, 0.02) embeddings, unit LayerNorm scales, zero biases."""
-    model = CLIPModel(cfg or vit_b32())
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name == "logit_scale":
-                continue
-            leaf = name.rsplit(".", 1)[-1]
-            owner = model.get_submodule(name.rsplit(".", 1)[0])
-            if isinstance(owner, nn.LayerNorm):
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf == "bias":
-                p.zero_()
-            elif isinstance(owner, (nn.Linear, PatchEmbedding)):
-                fan_in = p[0].numel()
-                p.normal_(0.0, fan_in ** -0.5, generator=gen)
-            else:
-                p.normal_(0.0, 0.02, generator=gen)
-    return model
+    return seeded_init(CLIPModel(cfg or vit_b32()), seed,
+                       (nn.Linear, PatchEmbedding), skip=("logit_scale",))

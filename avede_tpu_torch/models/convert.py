@@ -2,7 +2,8 @@
 ``avede_tpu/models/convert.py``).
 
 ``params_from_jax`` turns a Flax parameter tree (nested mappings of
-arrays) into a state dict for ``models/clip.py``; ``load_params`` reads
+arrays) into a state dict for the port's models (``models/clip.py``,
+``models/blip.py``, ``models/univtg.py``); ``load_params`` reads
 the flat slash-joined ``.npz`` that ``avede_tpu.models.convert.
 save_params`` writes, so both packages can serve one weight file.
 

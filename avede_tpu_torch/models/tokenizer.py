@@ -1,8 +1,8 @@
-"""CLIP text tokenization (copy of the CLIP half of
-``avede_tpu/models/tokenizer.py``; the BLIP WordPiece side waits for the
-rerank slice).
+"""Text tokenization (copy of ``avede_tpu/models/tokenizer.py``).
 
-Two tiers:
+BLIP's caption side: ``WordPieceTokenizer`` (BERT WordPiece, given a
+``vocab.txt``, ``settings.BLIP_VOCAB``) and ``HashCaptionDecoder`` (its
+fallback when the vocab does not fit the model). CLIP's, two tiers:
 
 - ``CLIPBPETokenizer`` — a full byte-pair-encoding implementation of the
   CLIP tokenizer (the one behind ``open_clip.tokenize``).
@@ -181,6 +181,66 @@ class HashTokenizer:
             h = int.from_bytes(hashlib.md5(tok.encode()).digest()[:4], "big")
             ids.append(4 + h % (self.vocab_size - 8))
         return ids
+
+
+class WordPieceTokenizer:
+    """BERT WordPiece (BLIP text side) — greedy longest-match given a
+    ``vocab.txt``; decode merges ``##`` continuations."""
+
+    def __init__(self, vocab_path: str) -> None:
+        self.vocab_path = str(vocab_path)  # cache-tag identity
+        raw = Path(vocab_path)
+        data = (gzip.open(raw, "rt", encoding="utf-8").read()
+                if raw.suffix == ".gz" else raw.read_text("utf-8"))
+        words = data.splitlines()
+        self.vocab = {w: i for i, w in enumerate(words)}
+        self.inv = words
+        self.unk = self.vocab.get("[UNK]", 100)
+
+    def encode(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for word in whitespace_clean(basic_clean(text)).lower().split(" "):
+            start = 0
+            while start < len(word):
+                end = len(word)
+                cur = None
+                while start < end:
+                    piece = word[start:end]
+                    if start > 0:
+                        piece = "##" + piece
+                    if piece in self.vocab:
+                        cur = self.vocab[piece]
+                        break
+                    end -= 1
+                if cur is None:
+                    ids.append(self.unk)
+                    break
+                ids.append(cur)
+                start = end
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        out: List[str] = []
+        for i in ids:
+            if i >= len(self.inv):
+                continue
+            tok = self.inv[i]
+            if tok.startswith("[") and tok.endswith("]"):
+                continue
+            if tok.startswith("##") and out:
+                out[-1] = out[-1] + tok[2:]
+            else:
+                out.append(tok)
+        return " ".join(out)
+
+
+class HashCaptionDecoder:
+    """Deterministic fallback decode for generated caption ids when no
+    WordPiece vocab fits the model: each id becomes a stable pseudo-word,
+    so the caption→CLIP-text similarity path stays exercisable."""
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return " ".join(f"tok{int(i)}" for i in ids if int(i) > 3)
 
 
 class Tokenizer:

@@ -7,18 +7,22 @@ over K/V tiles. Any L works: the kernel masks K rows past L itself, so
 nothing is padded. Bound by bytes on the H100.
 
 - ``flash_attention_blhd`` serves every layer of the CLIP vision tower
-  (L = 50, hd = 64 at ViT-B/32): bf16 q, k, v in the projections' own
-  ``[B, L, H, hd]`` layout in, bf16 ``[B, L, H·hd]`` out, tensor-core
+  (L = 50, hd = 64 at ViT-B/32) and of BLIP's (L = 577 at 384 px, patch
+  16): bf16 q, k, v in the projections' own ``[B, L, H, hd]`` layout in
+  (BLIP's are the three thirds of its fused qkv output, read in place at
+  a row stride of 3·D: no copy), bf16 ``[B, L, H·hd]`` out, tensor-core
   products with f32 softmax and accumulation.
 - ``flash_attention`` is the TPU kernel's contract: f32 ``[B, H, L, D]``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
-counts kernel launches.
+CUDA tensors it launches the kernel or raises. ``flash_attention.launches``
+counts kernel launches; ``flash_attention_blhd.launches_by_length`` counts
+them by L (their sum is the entry's count).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -78,35 +82,65 @@ def flash_attention_blhd_plain(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).reshape(b, length, h * d).to(q.dtype)
 
 
+def _row_stride(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The token-row stride the bf16 kernel reads q, k and v at: each is
+    ``[B, L, H, hd]`` with contiguous heads and one row stride ``ld``
+    (``H·hd`` for a projection's own output, ``3·H·hd`` for a third of a
+    fused qkv output), 16-byte aligned; anything else raises."""
+    b, length, h, d = q.shape
+    # a size-1 dimension's stride is arbitrary: with one token the batch
+    # stride is the row stride
+    ld = q.stride(1) if length > 1 else (q.stride(0) if b > 1 else h * d)
+    want = (length * ld, ld, d, 1)
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+        if any(n > 1 and s != w
+               for n, s, w in zip(t.shape, t.stride(), want)):
+            raise ValueError(
+                f"flash_attention_blhd: strides {tuple(t.stride())}, want "
+                f"{want} (rows at one stride, heads contiguous)")
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention_blhd: pointer not 16-byte "
+                             "aligned")
+    if ld < h * d or ld % 8:
+        raise ValueError(f"flash_attention_blhd: row stride {ld}")
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return ld
+
+
 def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q, k, v: ``[B, L, H, hd]`` (each projection's ``[B, L, H·hd]``
-    viewed per head) → ``[B, L, H·hd]`` (non-causal, no mask). On the
-    card: bf16 with hd = 64."""
+    viewed per head, or the thirds of a fused ``[B, L, 3·H·hd]`` qkv
+    output, read in place at their row stride) → ``[B, L, H·hd]``
+    (non-causal, no mask). On the card: bf16 with hd = 64.
+    ``launches_by_length`` counts the launches by L."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"bad shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if q.device.type == "cpu":
         return flash_attention_blhd_plain(q, k, v)
-    _require_cuda(q, k, v)
     b, length, h, d = q.shape
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
             or v.dtype != torch.bfloat16:
         raise ValueError("flash_attention_blhd takes bfloat16 q, k, v")
     if d != 64:
         raise ValueError(f"flash_attention_blhd takes head dim 64, not {d}")
+    ld = _row_stride(q, k, v)
     out = torch.empty((b, length, h * d), dtype=torch.bfloat16,
                       device=q.device)
     if q.numel() == 0:
         return out
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _entry("flash_attention", "avede_flash_attention_bf16",
-                [p, p, p, p, i, i, i, i, p])
+                [p, p, p, p, i, i, i, i, i, p])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), b, length, h, d, _stream(q)),
+                    out.data_ptr(), b, length, h, d, ld, _stream(q)),
                  "avede_flash_attention_bf16")
-    flash_attention_blhd.launches += 1
+    flash_attention_blhd.launches_by_length[length] += 1
     return out
 
 
-flash_attention_blhd.launches = 0
+flash_attention_blhd.launches_by_length = collections.Counter()

@@ -2,8 +2,8 @@
 
 Device side (torch, NHWC like the JAX package): central square crop,
 antialiased bicubic resize and CLIP normalisation (``clip_preprocess``),
-and the I420 unpack of the compact transfer codec
-(``clip_preprocess_i420``).
+BLIP's straight resize + normalisation (``blip_preprocess``), and the
+I420 unpack of the compact transfer codec (``clip_preprocess_i420``).
 
 Host side (numpy, no cv2): ``pack_frames_rgb`` and ``pack_frames_i420``
 shrink decoded frames to the model geometry before the host→device
@@ -69,6 +69,14 @@ def clip_preprocess(frames: torch.Tensor, size: int = 224,
     x = central_square_crop(frames).to(d) / 255.0
     x = resize_frames(x, size)
     return _normalize(x) if normalize else x
+
+
+def blip_preprocess(frames: torch.Tensor, size: int = 384) -> torch.Tensor:
+    """uint8 [N, H, W, 3] → float32 [N, size, size, 3], BLIP-normalized:
+    a straight bicubic resize to size×size (no crop, aspect not kept),
+    /255, then the CLIP constants (HF ``BlipImageProcessor``)."""
+    x = resize_frames(frames.float() / 255.0, size)
+    return _normalize(x)
 
 
 def clip_preprocess_i420(packed: torch.Tensor, normalize: bool = True,

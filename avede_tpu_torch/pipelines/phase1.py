@@ -10,8 +10,9 @@ Sampled frames are embedded on the device in bucket-padded chunks
 (``parallel/embed.py``); windows are index arithmetic
 (``ops/windows.py``); scoring + top-k run on a device-resident table
 (``ClipEngine.query_window_topk``). Embeddings persist in the versioned
-cache so repeat queries skip decode AND embed entirely. Spans are
-``torch.profiler.record_function`` ranges, visible in a profiler trace.
+cache so repeat queries skip decode AND embed entirely. Spans
+(``utils/trace.py``) are ``torch.profiler.record_function`` ranges that
+also record their wall time into the metrics monitor.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function as trace
 
 from ..io.embedding_cache import EmbeddingCache
 from ..io.frame_retention import FrameRetention
@@ -32,6 +32,7 @@ from ..ops.windows import window_middle_indices, window_timestamps
 from ..parallel.embed import ClipEngine
 from ..utils.config import settings
 from ..utils.logging import get_logger
+from ..utils.trace import trace
 
 logger = get_logger(__name__)
 

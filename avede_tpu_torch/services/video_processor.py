@@ -1,11 +1,12 @@
-"""Central orchestration facade, ``mvp`` mode (counterpart of
+"""Central orchestration facade (counterpart of
 ``avede_tpu/services/video_processor.py``).
 
 The single object the API talks to: query preprocessing, video
-validation, mode dispatch, threshold filtering, per-result clip
-extraction and typed error envelopes. ``reranked`` and ``advanced``
-answer with an error envelope until the rerank and grounding slices
-are ported.
+validation, mode dispatch (``mvp`` → phase 1, ``reranked`` → phase 2's
+BLIP caption rerank, ``advanced`` → phase 3's temporal grounding),
+threshold filtering, per-result clip extraction and typed error
+envelopes. The heavier pipelines are built at first use over the one
+shared CLIP engine.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from .query_rewrite import preprocess_query
 logger = get_logger(__name__)
 
 QUERY_MODES = ("mvp", "reranked", "advanced")
-PORTED_MODES = ("mvp",)
 
 
 class VideoProcessor:
@@ -38,6 +38,25 @@ class VideoProcessor:
         self.engine = engine or ClipEngine(device=device)
         self.phase1 = Phase1Scan(self.engine)
         self.clip_writer = ClipWriter()
+        self._phase2 = None
+        self._phase3 = None
+
+    # -- lazy pipelines (BLIP and the grounding head load on first use) --
+    @property
+    def phase2(self):
+        if self._phase2 is None:
+            from ..pipelines.phase2 import Phase2Rerank
+
+            self._phase2 = Phase2Rerank(self.phase1)
+        return self._phase2
+
+    @property
+    def phase3(self):
+        if self._phase3 is None:
+            from ..pipelines.phase3 import Phase3Temporal
+
+            self._phase3 = Phase3Temporal(self.phase2)
+        return self._phase3
 
     def resolve_video(self, video_id: str) -> str:
         """``data/videos/<id>.<ext>`` lookup over the supported
@@ -67,11 +86,14 @@ class VideoProcessor:
                 raise AvedeError(
                     f"unknown mode '{mode}' (expected one of {QUERY_MODES})")
             validate_video(video_path)
-            if mode not in PORTED_MODES:
-                raise AvedeError(f"mode '{mode}' is not ported yet "
-                                 f"(ported: {PORTED_MODES})")
             clean = preprocess_query(query)
-            results = self.phase1.process_video(
+            if mode == "mvp":
+                pipeline = self.phase1
+            elif mode == "reranked":
+                pipeline = self.phase2
+            else:
+                pipeline = self.phase3
+            results = pipeline.process_video(
                 video_path, clean, top_k=top_k, threshold=threshold,
                 video_id=video_id)
             if extract_clips:

@@ -4,8 +4,8 @@ A plain dataclass with the same names and defaults as the JAX
 package's settings that this port reads, and the same environment
 overrides: every field can be set by an environment variable of its
 name; numbers, booleans, lists and dicts parse as JSON. Only the
-settings the ported paths (``mvp`` query, library search) read are
-here.
+settings the ported paths (the ``mvp``, ``reranked`` and ``advanced``
+queries, library search) read are here.
 """
 
 import dataclasses
@@ -46,8 +46,15 @@ class Settings:
 
     # --- Model ---
     CLIP_WEIGHTS: Optional[str] = None  # flat slash-joined .npz
+    BLIP_MODEL: str = "blip-base"       # "blip2..." selects the Q-Former
+    BLIP_WEIGHTS: Optional[str] = None
+    CAPTION_NUM_BEAMS: int = 1          # 1 = greedy; >1 = beam search
+    CAPTION_LENGTH_PENALTY: float = 1.0
+    UNIVTG_WEIGHTS: Optional[str] = None
     TOKENIZER_VOCAB: Optional[str] = dataclasses.field(
         default_factory=lambda: _bundled_asset("clip_bpe_merges.txt.gz"))
+    BLIP_VOCAB: Optional[str] = dataclasses.field(    # BERT WordPiece
+        default_factory=lambda: _bundled_asset("blip_wordpiece_vocab.txt.gz"))
 
     # --- Scan ---
     STREAM_CHUNK_FRAMES: int = 256      # decode→embed overlap chunk

@@ -15,8 +15,13 @@ from tests.conftest import make_test_video
 @pytest.fixture()
 def client(tmp_path, monkeypatch):
     from avede_tpu_torch.api.app import create_app
+    from avede_tpu_torch.models.blip import tiny_blip_config
     from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.models.univtg import tiny_grounding_config
     from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.pipelines.phase2 import Phase2Rerank
+    from avede_tpu_torch.pipelines.phase3 import Phase3Temporal
+    from avede_tpu_torch.services.captioner import CaptionService
     from avede_tpu_torch.services.video_processor import VideoProcessor
 
     for attr, sub in [("DATA_DIR", ""), ("VIDEO_DIR", "videos"),
@@ -25,7 +30,13 @@ def client(tmp_path, monkeypatch):
                       ("LOG_DIR", "logs")]:
         monkeypatch.setattr(settings, attr, str(tmp_path / sub))
     engine = ClipEngine(cfg=tiny_test_config(), device="cpu")
-    app = create_app(VideoProcessor(engine=engine))
+    processor = VideoProcessor(engine=engine)
+    # tiny BLIP and grounding head behind reranked / advanced
+    processor._phase2 = Phase2Rerank(processor.phase1, captioner=CaptionService(
+        engine, cfg=tiny_blip_config()))
+    processor._phase3 = Phase3Temporal(processor._phase2,
+                                       cfg=tiny_grounding_config(32))
+    app = create_app(processor)
     loop = asyncio.new_event_loop()
     tc = TestClient(TestServer(app, loop=loop), loop=loop)
     loop.run_until_complete(tc.start_server())
@@ -36,6 +47,7 @@ def client(tmp_path, monkeypatch):
             return resp.status, await resp.json()
         return loop.run_until_complete(go())
 
+    call.processor = processor
     yield call
     loop.run_until_complete(tc.close())
     loop.close()
@@ -72,12 +84,42 @@ class TestPortApi:
         assert [r["window_index"] for r in warm["results"]] \
             == [r["window_index"] for r in out["results"]]
 
-    def test_unported_mode_is_500_envelope(self, client, tmp_path):
+    @pytest.mark.parametrize("mode", ["reranked", "advanced"])
+    def test_rerank_modes_complete(self, client, tmp_path, mode):
+        video = make_test_video(tmp_path / "src.mp4", n_frames=60)
+        _, body = _upload(client, video)
+        payload = {"video_id": body["video_id"], "query": "white square",
+                   "mode": mode, "top_k": 3, "threshold": -1.0}
+        status, out = client("POST", "/api/query", json=payload)
+        assert status == 200 and out["status"] == "completed"
+        assert out["total_found"] == len(out["results"]) > 0
+        for r in out["results"]:
+            assert isinstance(r["caption"], str)
+            if mode == "advanced":
+                assert r["start_time"] <= r["timestamp"] <= r["end_time"]
+        status, warm = client("POST", "/api/query", json=payload)
+
+        def answer(res):       # each call cuts its clips to new files
+            return [{k: v for k, v in r.items() if not k.startswith("clip_")}
+                    for r in res["results"]]
+
+        assert status == 200 and answer(warm) == answer(out)
+        ops = client("GET", "/api/metrics")[1]["operations"]
+        assert "phase2.rerank" in ops and "phase1.score_topk" in ops
+
+    def test_unported_mode_is_500_envelope(self, client, tmp_path,
+                                           monkeypatch):
+        """The BLIP-2 reranker is not ported: selecting it answers an
+        advanced query with a 500 error envelope."""
+        monkeypatch.setattr(settings, "BLIP_MODEL", "blip2-opt-2.7b")
+        client.processor._phase2 = client.processor._phase3 = None
         video = make_test_video(tmp_path / "src.mp4", n_frames=30)
         _, body = _upload(client, video)
         status, out = client("POST", "/api/query", json={
-            "video_id": body["video_id"], "query": "q", "mode": "advanced"})
+            "video_id": body["video_id"], "query": "q", "mode": "advanced",
+            "threshold": -1.0})
         assert status == 500 and out["status"] == "error"
+        assert "not ported" in out["error"]
 
     def test_query_unknown_video_404(self, client):
         status, _ = client("POST", "/api/query",

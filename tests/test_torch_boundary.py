@@ -39,7 +39,10 @@ def test_port_imports_no_jax_or_reference_package():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "avede_tpu_torch.api.app" in out["modules"]
-    assert "avede_tpu_torch.pipelines.phase1" in out["modules"]
+    for mod in ("pipelines.phase1", "pipelines.phase2", "pipelines.phase3",
+                "models.blip", "models.univtg", "services.captioner",
+                "utils.trace"):
+        assert f"avede_tpu_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
 

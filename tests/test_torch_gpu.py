@@ -74,12 +74,47 @@ def test_flash_blhd_kernel_matches_plain(cuda, L):
     g = torch.Generator(device="cuda").manual_seed(L)
     q, k, v = (torch.randn(4, L, 12, 64, device=cuda, generator=g
                            ).to(torch.bfloat16) for _ in range(3))
-    before = tattn.flash_attention_blhd.launches
+    before = tattn.flash_attention_blhd.launches_by_length.total()
     got = tattn.flash_attention_blhd(q, k, v)
     torch.cuda.synchronize()
-    assert tattn.flash_attention_blhd.launches == before + 1
+    assert tattn.flash_attention_blhd.launches_by_length.total() \
+        == before + 1
     ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
     _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("L", [577, 65, 1])
+def test_flash_blhd_kernel_reads_fused_qkv_in_place(cuda, L):
+    """BLIP's layout: q, k, v are the thirds of one [B, L, 3·H·64]
+    projection, read at a row stride of 3·H·64 (L = 577: ten key
+    tiles, the last holding one key)."""
+    g = torch.Generator(device="cuda").manual_seed(L)
+    qkv = torch.randn(3, L, 3 * 12 * 64, device=cuda, generator=g
+                      ).to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (12, 64)) for t in qkv.chunk(3, dim=-1))
+    before = tattn.flash_attention_blhd.launches_by_length[L]
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[L] == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+    with pytest.raises(ValueError, match="strides"):
+        tattn.flash_attention_blhd(q, k.contiguous(), v)
+
+
+def test_blip_vision_layer_launches_flash(cuda):
+    from avede_tpu_torch.models.blip import BlipVisionLayer, blip_base
+
+    layer = BlipVisionLayer(blip_base()).to(cuda, torch.bfloat16)
+    x = torch.randn(2, 577, 768, device=cuda, dtype=torch.bfloat16)
+    before = tattn.flash_attention_blhd.launches_by_length[577]
+    with torch.inference_mode():
+        got = layer(x)
+        ref = layer.float().cpu()(x.float().cpu())
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[577] == before + 1
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, -1)
+    assert float(cos.min()) >= 0.99
 
 
 def test_attention_layer_launches_bf16_entry_only(cuda):
@@ -88,13 +123,13 @@ def test_attention_layer_launches_bf16_entry_only(cuda):
     layer = MultiHeadAttention(768, 12, use_flash=True).to(
         cuda, torch.bfloat16)
     x = torch.randn(8, 50, 768, device=cuda, dtype=torch.bfloat16)
-    before = (tattn.flash_attention_blhd.launches,
-              tattn.flash_attention.launches)
+    counts = tattn.flash_attention_blhd.launches_by_length
+    before = (counts.total(), tattn.flash_attention.launches)
     with torch.inference_mode():
         layer(x)
     torch.cuda.synchronize()
-    assert (tattn.flash_attention_blhd.launches,
-            tattn.flash_attention.launches) == (before[0] + 1, before[1])
+    assert (counts.total(), tattn.flash_attention.launches) \
+        == (before[0] + 1, before[1])
 
 
 def test_patch_embed_i420_kernel_matches_plain(cuda):

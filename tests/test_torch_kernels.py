@@ -256,13 +256,14 @@ class TestWrapperDispatch:
 
     def test_cpu_path_counts_no_launch_new_entries(self):
         before = (tk.fused_patch_embed_i420.launches,
-                  tattn.flash_attention_blhd.launches)
+                  tattn.flash_attention_blhd.launches_by_length.total())
         tk.fused_patch_embed_i420(torch.zeros(1, 48, 32, dtype=torch.uint8),
                                   torch.zeros(768, 4), torch.zeros(4), 16)
         tattn.flash_attention_blhd(*(torch.zeros(1, 5, 2, 16)
                                      for _ in range(3)))
         assert (tk.fused_patch_embed_i420.launches,
-                tattn.flash_attention_blhd.launches) == before
+                tattn.flash_attention_blhd.launches_by_length.total()) \
+            == before
 
     def test_cpu_path_counts_no_launch(self):
         before = (tk.fused_patch_embed.launches,

@@ -168,11 +168,17 @@ class TestMvpSlice:
         assert np.abs(full - ref).max() <= CONF_TOL
 
     def test_unported_modes_answer_with_error_envelope(self, processors,
-                                                       tmp_data_dirs):
+                                                       tmp_data_dirs,
+                                                       monkeypatch):
+        """Every query mode is served; what is not ported yet (the BLIP-2
+        reranker that ``BLIP_MODEL`` can select for ``reranked`` and
+        ``advanced``) answers with an error envelope, as an unknown mode
+        does."""
         _, tproc = processors
+        monkeypatch.setattr(tsettings, "BLIP_MODEL", "blip2-opt-2.7b")
         video = make_test_video(tmp_data_dirs / "videos" / "v2.mp4")
         for mode in ("reranked", "advanced"):
-            out = tproc.process_query(video, "q", mode=mode)
+            out = tproc.process_query(video, "q", mode=mode, threshold=-1.0)
             assert out["status"] == "error"
             assert "not ported" in out["error"]
         out = tproc.process_query(video, "q", mode="bogus")

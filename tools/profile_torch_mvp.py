@@ -17,6 +17,16 @@ with ``torch.profiler`` (CPU + CUDA activities):
   ``chip_smoke.py``'s three library videos, one of them scanned sparse
   before (so ingest backfills it) and two taking the dense scan;
 - ``library_warm``: three further searches (three texts);
+- ``rerank_cold``: one cold ``VideoProcessor.process_query(mode=
+  "reranked")`` (fresh caches: the cold scan, then BLIP-base, random
+  weights from seed 0, bf16, on 2 × top_k candidates), as in
+  ``chip_smoke.py`` phase 8;
+- ``rerank_warm``: three warm ``reranked`` calls (captions cached: no
+  BLIP);
+- ``advanced_warm``: three warm ``advanced`` calls (phase 2 warm plus the
+  grounding head over the whole table), after one unprofiled
+  ``advanced`` call that captions its extra candidates and backfills
+  the table;
 - ``vision_bucket``: the vision tower alone on one 128-frame bucket of
   packed I420 frames (``ClipEngine._embed_device``), over five buckets,
   reported per bucket as well;
@@ -27,7 +37,8 @@ with ``torch.profiler`` (CPU + CUDA activities):
 
 For each window it prints one JSON line: host wall ms, device busy ms
 (union of device kernel and copy intervals) and their count, device
-idle share (1 − busy / wall), the wall of the ``phase1.*`` spans, and
+idle share (1 − busy / wall), the wall of the ``phase1.*``,
+``phase2.*`` and ``phase3.*`` spans, and
 the top device kernels by total time. It writes a Chrome trace per window
 under ``--out``. A last line times the host stages of one dense scan
 outside the profiler: frame synthesis, the I420 pack, the dedup
@@ -49,8 +60,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-WINDOWS = ("vision_bucket", "cold", "warm", "library_cold", "library_warm",
+WINDOWS = ("vision_bucket", "cold", "warm", "rerank_cold", "rerank_warm",
+           "advanced_warm", "library_cold", "library_warm",
            "dense_scan_stages", "index_search")
+SPANS = ("phase1.", "phase2.", "phase3.")
 
 
 def _device_work(events, cuda_type) -> list:
@@ -58,7 +71,7 @@ def _device_work(events, cuda_type) -> list:
     ranges that ``record_function`` annotations also leave there."""
     return [e for e in events if e.device_type == cuda_type
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("phase1.")]
+            and not e.name.startswith(SPANS)]
 
 
 def _busy_us(work) -> float:
@@ -83,7 +96,7 @@ def _summary(torch, prof, wall_ms: float, name: str) -> dict:
     busy_ms = _busy_us(work) / 1e3
     spans = {}
     for e in events:
-        if e.name.startswith("phase1.") and e.device_type != cuda_type:
+        if e.name.startswith(SPANS) and e.device_type != cuda_type:
             spans[e.name] = spans.get(e.name, 0.0) \
                 + (e.time_range.end - e.time_range.start) / 1e3
     kernels = {}
@@ -168,6 +181,9 @@ def main() -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             _report(torch, prof, wall_ms, name, card, len(calls), out)
+        if windows & {"rerank_cold", "rerank_warm", "advanced_warm"}:
+            _rerank_windows(torch, np, engine, video, acts, card, out,
+                            Path(tmp) / "rerank", windows)
 
         # library search, default (bfloat16) tier
         if not windows & {"library_cold", "library_warm",
@@ -202,12 +218,63 @@ def main() -> None:
                                            card)), flush=True)
 
 
-def _report(torch, prof, wall_ms, name, card, calls, out) -> None:
+def _report(torch, prof, wall_ms, name, card, calls, out, **extra) -> None:
     prof.export_chrome_trace(str(out / f"{name}.json"))
     row = _summary(torch, prof, wall_ms, name)
     row["card"] = card
     row["calls"] = calls
+    row.update(extra)
     print(json.dumps(row), flush=True)
+
+
+def _rerank_windows(torch, np, engine, video, acts, card, out, cache_dir,
+                    windows) -> None:
+    """The ``reranked`` and ``advanced`` modes through
+    ``VideoProcessor.process_query`` on a fresh cache: ``rerank_cold``,
+    ``rerank_warm`` and ``advanced_warm`` (after one unprofiled
+    ``advanced`` call). Each row adds BLIP's decode steps of the window's
+    last caption batch, if any ran."""
+    from torch.profiler import profile
+
+    import chip_smoke
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.services import video_processor
+
+    # no cv2 on the card's machine: the in-memory source stands in for
+    # the container that validate_video would probe
+    video_processor.validate_video = lambda path: None
+    proc = video_processor.VideoProcessor(engine=engine)
+    proc.phase1 = Phase1Scan(engine, reader=video,
+                             cache=EmbeddingCache(str(cache_dir)))
+    cap = proc.phase2.captioner
+    proc.phase3                                     # build the head
+
+    def run(mode, calls):
+        cap.model.decode_steps = 0
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                res = proc.process_query(
+                    "memory://rerank-street", chip_smoke.QUERIES[0],
+                    mode=mode, threshold=-1.0, extract_clips=False,
+                    video_id="rerank-street")
+                if res["status"] != "completed":
+                    sys.exit(f"profile_torch_mvp: {mode}: {res}")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof, wall_ms
+
+    for name, mode, calls in (("rerank_cold", "reranked", 1),
+                              ("rerank_warm", "reranked", 3),
+                              ("advanced_warm", "advanced", 3)):
+        if name == "advanced_warm":
+            run(mode, 1)                 # captions + backfill, unprofiled
+        prof, wall_ms = run(mode, calls)
+        if name in windows:
+            _report(torch, prof, wall_ms, name, card, calls, out,
+                    decode_steps=cap.model.decode_steps)
 
 
 def _vision_bucket(torch, np, engine, video, acts, card, out,
