@@ -1,5 +1,5 @@
 """The REST application (counterpart of ``avede_tpu/api/app.py``): the
-routes of the ported ``mvp`` slice, answering as the JAX routes do.
+routes of the ported slices, answering as the JAX routes do.
 
 - ``GET  /api/health``  — liveness + error count;
 - ``GET  /api/metrics`` — per-operation timings (``utils/metrics.py``);
@@ -7,7 +7,19 @@ routes of the ported ``mvp`` slice, answering as the JAX routes do.
 - ``POST /api/query``   — ``{video_id, query, mode, top_k, threshold}``;
 - ``POST /api/search-library`` — ``{query, top_k, threshold,
   per_video_k, video_ids}`` over every uploaded video;
-- ``GET  /api/videos``  — uploaded videos.
+- ``POST /api/unlimited-detection`` — ``{video_id, object_queries,
+  detection_mode, matching_precision, top_k, confidence_threshold,
+  debug_mode}``: open-vocabulary detection over the video;
+- ``GET  /api/download/{clip_filename}`` — a cut clip (no path
+  separators or ``..`` in the name);
+- ``GET  /api/videos``, ``GET /api/clips`` — uploaded videos, cut clips;
+- ``GET  /api/detection-modes`` — detection modes and precisions.
+
+Request bodies are coerced as the JAX package's pydantic 2 models do in
+their lax mode (``"5"``, ``5.0`` and ``true`` are the int 5, 5 and 1;
+``"0.3"`` is the float 0.3), by hand: the machine with the card has no
+pydantic. Every answer carries the ``Access-Control-Allow-*`` headers of
+``settings.CORS_ORIGINS``, and OPTIONS is answered for every path.
 
 aiohttp is imported inside ``create_app`` and the handlers, so importing
 this module needs no aiohttp. Model work runs in a thread executor so
@@ -22,6 +34,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import functools
+import re
 import threading
 import uuid
 from pathlib import Path
@@ -84,24 +97,101 @@ async def _run_blocking(fn, *args, **kwargs):
         None, functools.partial(fn, *args, **kwargs))
 
 
-def _parse_query(body: Any) -> Optional[Dict[str, Any]]:
-    """Validate a ``/api/query`` body (the fields and defaults of the
-    JAX package's ``QueryRequest``); None when invalid."""
+_INVALID = object()
+_INT_TEXT = re.compile(r"[+-]?[0-9]+(?:_[0-9]+)*(?:\.0+)?")
+_TRUE = ("1", "on", "t", "true", "y", "yes")
+_FALSE = ("0", "off", "f", "false", "n", "no")
+
+
+def _lax_int(v: Any) -> Any:
+    """pydantic 2's lax ``int``: ints, bools, integral finite floats and
+    decimal strings (whitespace, sign, ``_`` between digits and a
+    ``.0`` tail allowed) → int; anything else → ``_INVALID``."""
+    if isinstance(v, int):
+        return int(v)
+    if isinstance(v, float):
+        return int(v) if v == v and abs(v) != float("inf") \
+            and v.is_integer() else _INVALID
+    if isinstance(v, str):
+        t = v.strip()
+        if _INT_TEXT.fullmatch(t):
+            return int(t.split(".")[0].replace("_", ""))
+    return _INVALID
+
+
+def _lax_float(v: Any) -> Any:
+    """pydantic 2's lax ``float``: numbers, bools and ASCII numeric
+    strings (``inf`` and ``nan`` included) → float; else ``_INVALID``."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    if isinstance(v, str) and v.isascii():
+        try:
+            return float(v)
+        except ValueError:
+            pass
+    return _INVALID
+
+
+def _lax_bool(v: Any) -> Any:
+    """pydantic 2's lax ``bool``: bools, 0/1 as int or float, and the
+    words it knows in any case → bool; else ``_INVALID``."""
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str):
+        t = v.strip().lower()
+        if t in _TRUE or t in _FALSE:
+            return t in _TRUE
+    return _INVALID
+
+
+def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
+    """Validate a JSON body against ``(name, kind, default)`` fields as a
+    pydantic 2 model in lax mode would (``default`` ``_INVALID`` marks a
+    required field; an explicit null is kept for ``int?`` / ``float?``);
+    None when invalid. Unknown keys are ignored."""
     if not isinstance(body, dict):
         return None
-    vid, q = body.get("video_id"), body.get("query")
-    if not isinstance(vid, str) or not isinstance(q, str):
-        return None
-    mode = body.get("mode", "mvp")
-    top_k, thr = body.get("top_k"), body.get("threshold")
-    if not isinstance(mode, str) \
-            or (top_k is not None and (isinstance(top_k, bool)
-                                       or not isinstance(top_k, int))) \
-            or (thr is not None and (isinstance(thr, bool)
-                                     or not isinstance(thr, (int, float)))):
-        return None
-    return {"video_id": vid, "query": q, "mode": mode, "top_k": top_k,
-            "threshold": None if thr is None else float(thr)}
+    out: Dict[str, Any] = {}
+    for name, kind, default in fields:
+        if name not in body:
+            if default is _INVALID:
+                return None
+            out[name] = default
+            continue
+        v = body[name]
+        if kind in ("int?", "float?") and v is None:
+            out[name] = None
+            continue
+        if kind == "str":
+            v = v if isinstance(v, str) else _INVALID
+        elif kind == "str|list[str]":
+            v = v if isinstance(v, str) or (isinstance(v, list) and all(
+                isinstance(x, str) for x in v)) else _INVALID
+        elif kind == "int?":
+            v = _lax_int(v)
+        elif kind == "float?":
+            v = _lax_float(v)
+        elif kind == "bool":
+            v = _lax_bool(v)
+        if v is _INVALID:
+            return None
+        out[name] = v
+    return out
+
+
+# the fields of the JAX package's QueryRequest and UnlimitedDetectionRequest
+_QUERY_FIELDS = (("video_id", "str", _INVALID), ("query", "str", _INVALID),
+                 ("mode", "str", "mvp"), ("top_k", "int?", None),
+                 ("threshold", "float?", None))
+_DETECTION_FIELDS = (("video_id", "str", _INVALID),
+                     ("object_queries", "str|list[str]", _INVALID),
+                     ("detection_mode", "str", "hybrid"),
+                     ("matching_precision", "str", "balanced"),
+                     ("top_k", "int?", 10),
+                     ("confidence_threshold", "float?", 0.3),
+                     ("debug_mode", "bool", False))
 
 
 async def health(request):
@@ -113,8 +203,20 @@ async def metrics(request):
     return _json(get_monitor().summary())
 
 
+def _python_int(v: Any) -> Any:
+    """``int(v)`` as the JAX route applies it (``"5"``, ``5.7`` and
+    ``true`` are 5, 5 and 1); ``_INVALID`` where it raises."""
+    try:
+        return int(v)
+    except (TypeError, ValueError, OverflowError):
+        return _INVALID
+
+
 def _parse_library(body: Any) -> Optional[Dict[str, Any]]:
-    """Validate a ``/api/search-library`` body; None when invalid."""
+    """Validate a ``/api/search-library`` body: a non-empty string query,
+    ``top_k`` and ``per_video_k`` through ``int()`` as the JAX route
+    does, a number threshold and a list of string video ids; None when
+    invalid (where the JAX route's ``int()`` raises it answers 500)."""
     if not isinstance(body, dict):
         return None
     q = body.get("query")
@@ -122,8 +224,8 @@ def _parse_library(body: Any) -> Optional[Dict[str, Any]]:
         return None
     out: Dict[str, Any] = {"query": q}
     for name, default in (("top_k", 10), ("per_video_k", 3)):
-        v = body.get(name, default)
-        if isinstance(v, bool) or not isinstance(v, int):
+        v = _python_int(body.get(name, default))
+        if v is _INVALID:
             return None
         out[name] = v
     thr, ids = body.get("threshold"), body.get("video_ids")
@@ -148,7 +250,7 @@ async def search_library(request):
     req = _parse_library(body)
     if req is None:
         return _json({"detail": "body needs a non-empty string query; "
-                                "optional int top_k and per_video_k, "
+                                "optional integer top_k and per_video_k, "
                                 "number threshold, list of string "
                                 "video_ids"}, 422)
     searcher = state.library
@@ -195,26 +297,76 @@ async def upload_video(request):
                   "format": ext, "size": size})
 
 
+def _resolve_or_none(state: ApiState, video_id: str) -> Optional[str]:
+    try:
+        return state.processor.resolve_video(video_id)
+    except Exception:  # noqa: BLE001 — any lookup failure is a 404
+        return None
+
+
 async def query(request):
     state: ApiState = request.app["state"]
     try:
         body = await request.json()
     except ValueError:
         return _json({"detail": "invalid JSON body"}, 422)
-    req = _parse_query(body)
+    req = _lax_fields(body, _QUERY_FIELDS)
     if req is None:
         return _json({"detail": "body needs string video_id and query; "
-                                "optional string mode, int top_k, "
+                                "optional string mode, integer top_k, "
                                 "number threshold"}, 422)
-    try:
-        video = state.processor.resolve_video(req["video_id"])
-    except Exception:  # noqa: BLE001 — any lookup failure is a 404
+    video = _resolve_or_none(state, req["video_id"])
+    if video is None:
         return _json({"detail": f"video not found: {req['video_id']}"}, 404)
-    out = await _run_blocking(
-        state.processor.process_query, video, req["query"],
-        mode=req["mode"], top_k=req["top_k"], threshold=req["threshold"],
-        video_id=req["video_id"])
+    with get_monitor().track("query", mode=req["mode"]):
+        out = await _run_blocking(
+            state.processor.process_query, video, req["query"],
+            mode=req["mode"], top_k=req["top_k"],
+            threshold=req["threshold"], video_id=req["video_id"])
     return _json(out, 200 if out.get("status") != "error" else 500)
+
+
+async def unlimited_detection(request):
+    """Open-vocabulary detection of ``object_queries`` over a video."""
+    state: ApiState = request.app["state"]
+    try:
+        body = await request.json()
+    except ValueError:
+        return _json({"detail": "invalid JSON body"}, 422)
+    req = _lax_fields(body, _DETECTION_FIELDS)
+    if req is None:
+        return _json({"detail": "body needs string video_id and "
+                                "object_queries (a string or a list of "
+                                "strings); optional string detection_mode "
+                                "and matching_precision, integer top_k, "
+                                "number confidence_threshold, boolean "
+                                "debug_mode"}, 422)
+    video = _resolve_or_none(state, req["video_id"])
+    if video is None:
+        return _json({"detail": f"video not found: {req['video_id']}"}, 404)
+    with get_monitor().track("unlimited_detection",
+                             mode=req["detection_mode"]):
+        out = await _run_blocking(
+            state.processor.process_unlimited_detection, video,
+            req["object_queries"], detection_mode=req["detection_mode"],
+            matching_precision=req["matching_precision"],
+            top_k=req["top_k"],
+            confidence_threshold=req["confidence_threshold"],
+            video_id=req["video_id"])
+    return _json(out, 200 if out.get("status") != "error" else 500)
+
+
+async def download_clip(request):
+    from aiohttp import web
+
+    name = request.match_info["clip_filename"]
+    path = Path(settings.CLIP_DIR) / name
+    # no path traversal: a bare file name inside CLIP_DIR only
+    if "/" in name or ".." in name or not path.exists():
+        return _json({"detail": "Clip not found"}, 404)
+    return web.FileResponse(path, headers={
+        "Content-Type": "video/mp4",
+        "Content-Disposition": f'attachment; filename="{name}"'})
 
 
 async def list_videos(request):
@@ -231,14 +383,63 @@ async def list_videos(request):
     return _json({"videos": videos})
 
 
+async def list_clips(request):
+    base = Path(settings.CLIP_DIR)
+    clips = []
+    if base.exists():
+        for p in sorted(base.glob("*.mp4")):
+            st = p.stat()
+            clips.append({"clip_id": p.stem, "filename": p.name,
+                          "size": st.st_size, "created": st.st_ctime})
+    return _json({"clips": clips})
+
+
+async def detection_modes(request):
+    descriptions = {
+        "hybrid": "OWL-ViT ∥ CLIP-grid fusion (best coverage)",
+        "owlvit": "Open-vocabulary transformer detection",
+        "clip": "CLIP sliding-grid similarity detection",
+        "yolo_enhanced": "YOLO detection + CLIP semantic filtering",
+    }
+    return _json({
+        "detection_modes": [
+            {"mode": m, "description": descriptions.get(m, "")}
+            for m in settings.DETECTION_MODES],
+        "matching_precisions": [
+            {"precision": k, "confidence_threshold": v}
+            for k, v in settings.MATCHING_PRECISIONS.items()],
+    })
+
+
+def _cors_middleware():
+    """Answer OPTIONS and add the ``Access-Control-Allow-*`` headers of
+    ``settings.CORS_ORIGINS`` to every answer."""
+    from aiohttp import web
+
+    @web.middleware
+    async def cors_middleware(request, handler):
+        if request.method == "OPTIONS":
+            resp = web.Response()
+        else:
+            resp = await handler(request)
+        resp.headers["Access-Control-Allow-Origin"] = ",".join(
+            settings.CORS_ORIGINS)
+        resp.headers["Access-Control-Allow-Methods"] = "GET,POST,OPTIONS"
+        resp.headers["Access-Control-Allow-Headers"] = "Content-Type"
+        return resp
+
+    return cors_middleware
+
+
 def create_app(processor=None, device: Optional[str] = None):
     """The aiohttp application; ``processor`` (a ``VideoProcessor``) is
     built on first use on ``device`` when not given."""
     from aiohttp import web
 
     settings.ensure_dirs()
-    app = web.Application(client_max_size=int(
-        settings.MAX_VIDEO_SIZE_GB * (1024 ** 3)))
+    app = web.Application(middlewares=[_cors_middleware()],
+                          client_max_size=int(
+                              settings.MAX_VIDEO_SIZE_GB * (1024 ** 3)))
     app["state"] = ApiState(processor, device)
     if settings.LIBRARY_PREWARM:
         # embed + index the existing library off the serving thread so
@@ -258,7 +459,11 @@ def create_app(processor=None, device: Optional[str] = None):
         web.post("/api/upload", upload_video),
         web.post("/api/query", query),
         web.post("/api/search-library", search_library),
+        web.post("/api/unlimited-detection", unlimited_detection),
+        web.get("/api/download/{clip_filename}", download_clip),
         web.get("/api/videos", list_videos),
+        web.get("/api/clips", list_clips),
+        web.get("/api/detection-modes", detection_modes),
     ])
     return app
 

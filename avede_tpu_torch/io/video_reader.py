@@ -9,6 +9,8 @@ that decode, so importing this module needs no cv2).
 - timestamps = frame_index / fps; fps falls back to 30 when the
   container reports garbage;
 - RGB uint8 output (decoder-native BGR through a ``finish`` hook);
+- ``stream_batches`` coalesces the stream into exact ``batch``-sized
+  (frames, timestamps) pairs for the detection path;
 - seeks to single frames by timestamp (``read_frames_at``) for the
   phase-2 candidates that scan retention does not hold.
 """
@@ -300,6 +302,32 @@ class VideoReader:
         logger.info("Extracted %d frames from %s (%dx%d, fps=%.2f, "
                     "%d decode workers)", total, path, tw, th, meta.fps,
                     len(spans))
+
+    def stream_batches(self, path: str, batch: int,
+                       sample_rate: Optional[int] = None,
+                       max_frames: Optional[int] = None):
+        """(uint8 [batch, H, W, 3], timestamps) generator with exact
+        ``batch``-sized yields (the last may be short): ``stream_frames``
+        flushes per decode span, so raw chunks end in odd sizes, and the
+        detectors run one batch shape."""
+        buf_f: List[np.ndarray] = []
+        buf_t: List[float] = []
+        have = 0
+        for frames, ts in self.stream_frames(path, chunk=batch,
+                                             sample_rate=sample_rate,
+                                             max_frames=max_frames):
+            buf_f.append(frames)
+            buf_t.extend(ts)
+            have += len(frames)
+            while have >= batch:
+                whole = (np.concatenate(buf_f, axis=0)
+                         if len(buf_f) > 1 else buf_f[0])
+                yield whole[:batch], buf_t[:batch]
+                buf_f, buf_t = [whole[batch:]], buf_t[batch:]
+                have = len(buf_f[0])
+        if have:
+            yield (np.concatenate(buf_f, axis=0)
+                   if len(buf_f) > 1 else buf_f[0]), buf_t
 
     def expected_sample_count(self, path: str,
                               sample_rate: Optional[int] = None,

@@ -3,15 +3,20 @@
 
 ``params_from_jax`` turns a Flax parameter tree (nested mappings of
 arrays) into a state dict for the port's models (``models/clip.py``,
-``models/blip.py``, ``models/univtg.py``); ``load_params`` reads
+``models/blip.py``, ``models/univtg.py``, ``models/owlvit.py``,
+``models/yolo.py``); given a whole Flax variables dict (``{"params":
+..., "batch_stats": ...}``, as YOLO's BatchNorm has) it carries the
+running statistics too. ``load_params`` reads
 the flat slash-joined ``.npz`` that ``avede_tpu.models.convert.
 save_params`` writes, so both packages can serve one weight file.
 
 Mapping, per leaf: path parts join with ``.`` and ``layers_<i>``
 becomes ``layers.<i>``; a 2-D Dense ``kernel [in, out]`` becomes
 ``weight [out, in]``; a 4-D conv ``kernel`` in HWIO becomes OIHW;
-LayerNorm ``scale`` and Embed ``embedding`` become ``weight``; every
-other leaf keeps its name.
+LayerNorm and BatchNorm ``scale`` and Embed ``embedding`` become
+``weight``; BatchNorm statistics ``mean`` and ``var`` (``batch_stats``)
+become ``running_mean`` and ``running_var``; every other leaf keeps its
+name.
 """
 
 from __future__ import annotations
@@ -36,10 +41,16 @@ def flatten_params(tree: Mapping[str, Any], prefix: str = ""
     return out
 
 
-def _key_and_value(path: str, value: np.ndarray):
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _key_and_value(path: str, value: np.ndarray, stats: bool = False):
     parts = [re.sub(r"^layers_(\d+)$", r"layers.\1", p)
              for p in path.split("/")]
     leaf = parts[-1]
+    if stats:
+        parts[-1] = _STATS.get(leaf, leaf)
+        return ".".join(parts), value
     if leaf == "kernel":
         parts[-1] = "weight"
         if value.ndim == 2:
@@ -51,22 +62,41 @@ def _key_and_value(path: str, value: np.ndarray):
     return ".".join(parts), value
 
 
-def params_from_flat(flat: Mapping[str, np.ndarray]
+def params_from_flat(flat: Mapping[str, np.ndarray], stats: bool = False
                      ) -> Dict[str, torch.Tensor]:
-    """{slash-joined path: array} → port state dict (f32 tensors)."""
+    """{slash-joined path: array} → port state dict (f32 tensors);
+    ``stats``: the paths are a ``batch_stats`` collection's."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
-        key, v = _key_and_value(path, np.asarray(value, np.float32))
+        key, v = _key_and_value(path, np.asarray(value, np.float32), stats)
         sd[key] = torch.from_numpy(np.array(v, np.float32, order="C"))
     return sd
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree of arrays → port state dict."""
+    """Flax parameter tree of arrays, or a variables dict holding
+    ``params`` and ``batch_stats``, → port state dict."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        sd = params_from_flat(flatten_params(tree["params"]))
+        sd.update(params_from_flat(
+            flatten_params(tree.get("batch_stats", {})), stats=True))
+        return sd
     return params_from_flat(flatten_params(tree))
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """Read a flat slash-joined ``.npz`` (the JAX package's format)."""
+    """Read a flat slash-joined ``.npz`` (the JAX package's format); a
+    file of a whole variables dict (every path under ``params/`` or
+    ``batch_stats/``) carries the running statistics too."""
     with np.load(path) as z:
-        return params_from_flat({k: z[k] for k in z.files})
+        flat = {k: z[k] for k in z.files}
+    cols: Dict[str, Dict[str, np.ndarray]] = {"params": {},
+                                              "batch_stats": {}}
+    for key, value in flat.items():
+        head, _, rest = key.partition("/")
+        if head not in cols or not rest:
+            return params_from_flat(flat)
+        cols[head][rest] = value
+    sd = params_from_flat(cols["params"])
+    sd.update(params_from_flat(cols["batch_stats"], stats=True))
+    return sd

@@ -18,8 +18,13 @@ pads and copies each chunk into pinned host memory and issues its
 host→device copy on a side CUDA stream while the device embeds the
 previous chunk (the role of ``avede_tpu/parallel/prefetch.py``).
 
-Image query (``embed_images``, ``embed_pixels`` and the batching
-executor) is not ported yet.
+Crops and reference images of any size go through ``embed_images``: each
+is cropped and resized on its own (``clip_preprocess``, bicubic), then
+the batch is padded to a bucket of ``[1, 4, 16, 64, 256]`` and runs the
+tower from pixels (``embed_pixels``; flash attention in every layer).
+The JAX package's batching executor, which coalesces such calls across
+concurrent requests, is not ported: this engine embeds each call as it
+comes.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ from ..models.convert import load_params
 from ..models.tokenizer import Tokenizer
 from ..ops.kernels import (fold_for_uint8, fused_patch_embed,
                            fused_patch_embed_i420, split_patch_weights)
-from ..ops.preprocess import (central_square_crop, pack_frames_i420,
-                              pack_frames_rgb, resize_frames)
+from ..ops.preprocess import (central_square_crop, clip_preprocess,
+                              pack_frames_i420, pack_frames_rgb,
+                              resize_frames)
 from ..ops.similarity import make_query_window_topk, pad_table
 from ..utils.config import settings
 from ..utils.logging import get_logger
@@ -271,6 +277,36 @@ class ClipEngine:
         emb = self._embed_device(host.to(self.device, non_blocking=True))
         valid = torch.arange(len(host), device=self.device) < len(part)
         return emb, valid
+
+    def embed_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        """uint8 [H_i, W_i, 3] images of any sizes → unit-norm float32
+        [N, D]: each is center-cropped and resized to the model square on
+        its own (on the engine's device), then one tower call."""
+        if len(images) == 0:
+            return self._empty()
+        size = self.cfg.image_size
+        batch = torch.cat([
+            clip_preprocess(torch.from_numpy(np.ascontiguousarray(
+                img, np.uint8)[None]).to(self.device), size=size)
+            for img in images])
+        return self.embed_pixels(batch)
+
+    @torch.inference_mode()
+    def embed_pixels(self, batch: Union[np.ndarray, torch.Tensor]
+                     ) -> np.ndarray:
+        """Preprocessed float [N, S, S, 3] → unit-norm float32 [N, D],
+        padded to a bucket of ``[1, 4, 16, 64, 256]`` (one image runs
+        alone)."""
+        n = len(batch)
+        if n == 0:
+            return self._empty()
+        size = self.cfg.image_size
+        bucket = 1 if n == 1 else pick_bucket(n, [4, 16, 64, 256])
+        padded = torch.zeros((bucket, size, size, 3), dtype=torch.float32,
+                             device=self.device)
+        padded[:n] = torch.as_tensor(batch, device=self.device)
+        out = self.model.encode_image(padded.to(self.cfg.torch_dtype))
+        return out[:n].float().cpu().numpy()
 
     # ------------------------------------------------------------------
     def _remember_text(self, text: str, emb: np.ndarray) -> None:

@@ -5,8 +5,10 @@ The single object the API talks to: query preprocessing, video
 validation, mode dispatch (``mvp`` → phase 1, ``reranked`` → phase 2's
 BLIP caption rerank, ``advanced`` → phase 3's temporal grounding),
 threshold filtering, per-result clip extraction and typed error
-envelopes. The heavier pipelines are built at first use over the one
-shared CLIP engine.
+envelopes; and open-vocabulary detection over a whole video
+(``process_unlimited_detection``: OWL-ViT, the CLIP grid and YOLO
+through ``OpenVocabMatcher``). The heavier pipelines and detectors are
+built at first use over the one shared CLIP engine.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ class VideoProcessor:
         self.clip_writer = ClipWriter()
         self._phase2 = None
         self._phase3 = None
+        self._universal_detector = None
+        self._open_vocab = None
 
     # -- lazy pipelines (BLIP and the grounding head load on first use) --
     @property
@@ -57,6 +61,25 @@ class VideoProcessor:
 
             self._phase3 = Phase3Temporal(self.phase2)
         return self._phase3
+
+    @property
+    def universal_detector(self):
+        """One detector hub (OWL-ViT, the CLIP grid, YOLO) for every
+        detection service."""
+        if self._universal_detector is None:
+            from .universal_detector import UniversalDetector
+
+            self._universal_detector = UniversalDetector(self.engine)
+        return self._universal_detector
+
+    @property
+    def open_vocab(self):
+        if self._open_vocab is None:
+            from .open_vocab_matcher import OpenVocabMatcher
+
+            self._open_vocab = OpenVocabMatcher(
+                self.engine, detector=self.universal_detector)
+        return self._open_vocab
 
     def resolve_video(self, video_id: str) -> str:
         """``data/videos/<id>.<ext>`` lookup over the supported
@@ -132,3 +155,37 @@ class VideoProcessor:
                 error_log.record(exc, severity="warning",
                                  component="clip_extraction")
         return results
+
+    # ------------------------------------------------------------------
+    def process_unlimited_detection(self, video_path: str, object_queries,
+                                    detection_mode: str = "hybrid",
+                                    matching_precision: str = "balanced",
+                                    top_k: int = 10,
+                                    confidence_threshold: float = 0.3,
+                                    video_id: Optional[str] = None
+                                    ) -> Dict[str, Any]:
+        """Open-vocabulary detection of ``object_queries`` (a string or a
+        list of strings) over the video, in ``detection_mode``."""
+        task_id = uuid.uuid4().hex
+        try:
+            validate_video(video_path)
+            queries = ([object_queries] if isinstance(object_queries, str)
+                       else list(object_queries))
+            out = self.open_vocab.match_unlimited_objects(
+                video_path, queries, detection_mode=detection_mode,
+                matching_precision=matching_precision, top_k=top_k,
+                confidence_threshold=confidence_threshold,
+                video_id=video_id)
+            return {"task_id": task_id, "status": "completed",
+                    "queries": queries, "detection_mode": detection_mode,
+                    "matching_precision": matching_precision, **out}
+        except Exception as exc:  # noqa: BLE001 — typed error envelope
+            error_log.record(exc, component="unlimited_detection")
+            env = error_envelope(task_id, exc)
+            env.update({"queries": object_queries
+                        if isinstance(object_queries, list)
+                        else [object_queries],
+                        "detection_mode": detection_mode,
+                        "matching_precision": matching_precision,
+                        "metadata": {}})
+            return env

@@ -5,7 +5,7 @@ package's settings that this port reads, and the same environment
 overrides: every field can be set by an environment variable of its
 name; numbers, booleans, lists and dicts parse as JSON. Only the
 settings the ported paths (the ``mvp``, ``reranked`` and ``advanced``
-queries, library search) read are here.
+queries, library search, open-vocabulary detection) read are here.
 """
 
 import dataclasses
@@ -51,6 +51,8 @@ class Settings:
     CAPTION_NUM_BEAMS: int = 1          # 1 = greedy; >1 = beam search
     CAPTION_LENGTH_PENALTY: float = 1.0
     UNIVTG_WEIGHTS: Optional[str] = None
+    YOLO_WEIGHTS: Optional[str] = None
+    OWLVIT_WEIGHTS: Optional[str] = None
     TOKENIZER_VOCAB: Optional[str] = dataclasses.field(
         default_factory=lambda: _bundled_asset("clip_bpe_merges.txt.gz"))
     BLIP_VOCAB: Optional[str] = dataclasses.field(    # BERT WordPiece
@@ -82,6 +84,32 @@ class Settings:
     CONFIDENCE_THRESHOLD: float = 0.25
     CLIP_DURATION: float = 30.0         # seconds per extracted clip
 
+    # --- Open-vocabulary detection ---
+    DETECTION_MODES: List[str] = dataclasses.field(
+        default_factory=lambda: ["hybrid", "owlvit", "clip", "yolo_enhanced"])
+    MATCHING_PRECISIONS: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"precise": 0.45, "balanced": 0.30,
+                                 "comprehensive": 0.18, "semantic": 0.25,
+                                 "visual": 0.25})
+    DETECTION_MAX_OBJECTS: int = 100
+    DETECTION_IOU_THRESHOLD: float = 0.45
+    CLIP_GRID_SIZE: int = 8             # CLIP grid detector cells per side
+
+    # --- Adaptive thresholds (size categories in px² at native size) ---
+    SMALL_OBJECT_SIZES: Dict[str, List[int]] = dataclasses.field(
+        default_factory=lambda: {"tiny": [0, 16 * 16],
+                                 "small": [16 * 16, 32 * 32],
+                                 "medium": [32 * 32, 96 * 96],
+                                 "large": [96 * 96, 10 ** 9]})
+    SMALL_OBJECT_BASE_THRESHOLDS: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"tiny": 0.05, "small": 0.10,
+                                 "medium": 0.25, "large": 0.40})
+    SMALL_OBJECT_BOOSTS: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"tiny": 2.0, "small": 1.5, "medium": 1.0,
+                                 "large": 1.0})
+    MULTI_SCALE_WEIGHTS: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"256": 1.2, "512": 1.0, "1024": 0.8})
+
     # --- Device execution ---
     COMPUTE_DTYPE: str = "bfloat16"     # on CUDA; the CPU computes in f32
     FRAME_BUCKETS: List[int] = dataclasses.field(
@@ -91,6 +119,7 @@ class Settings:
     # --- API ---
     API_HOST: str = "0.0.0.0"
     API_PORT: int = 8000
+    CORS_ORIGINS: List[str] = dataclasses.field(default_factory=lambda: ["*"])
 
     # --- Observability ---
     ALARM_PROC_SECONDS: float = 10.0    # slower operations raise an alarm

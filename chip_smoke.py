@@ -6,7 +6,11 @@
 Run from the root of a checkout. Phases, in order; any failure raises
 and the script exits non-zero without printing a result:
 
-1. print the card's name and power limit (``nvidia-smi``);
+1. print the card's name and power limit (``nvidia-smi``), and what the
+   machine could decode video and serve HTTP with (a report, installing
+   nothing: ``torchvision.io``, torchaudio's ffmpeg, ``av``, ``cv2``,
+   ``aiohttp``, the ``avcodec``/``nvcuvid`` libraries, an ``ffmpeg``
+   binary);
 2. build every kernel under ``avede_tpu_torch/csrc/`` (one ``nvcc`` per
    source, all at once) into ``build/kernels/``;
 3. hold each kernel against its plain PyTorch version at the shapes of
@@ -25,9 +29,15 @@ and the script exits non-zero without printing a result:
    rows at k = 64 and 1024) must equal ``topk_scores`` of their contract
    entry's scores bit for bit; their yardstick is the contract entry +
    ``torch.topk(sorted=True)``. The bf16 flash entry is also held at
-   BLIP's vision shape (row ``flash_attention_blhd[L=577]``: 30
+   BLIP's vision shape (row ``flash_attention_blhd[blip]``: 30
    candidates x 577 tokens, q, k and v the thirds of one fused qkv
-   projection read in place), SDPA its yardstick. The
+   projection read in place), SDPA its yardstick, and at the detection
+   path's shapes, contiguous heads at a row stride of 768: OWL-ViT
+   B/32's (row ``[owl]``: a 16-frame batch x 577 tokens), the CLIP
+   grid's (row ``[grid]``: 16 frames x 8 x 8 cells = 1024 images x 50
+   tokens) and the largest crop bucket's (row ``[crop]``: 256 x 50).
+   The entry counts launches by L only, so the detection rows' counts
+   are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
    cosine entries over 2^20 rows with a valid mask, ``quantize_rows`` at
    an add-block (768 rows) and at growth (1,024,000 rows),
@@ -92,12 +102,33 @@ and the script exits non-zero without printing a result:
    (the leading tokens it shares with the CPU's are reported). Prints the
    cold and warm walls, BLIP vision and generate ms per candidate
    batch, decode steps and ms per step, and the grounding forward's ms.
+9. (run after phase 8, while the CLIP engine is loaded) drive
+   open-vocabulary detection through
+   ``VideoProcessor.process_unlimited_detection`` at full width: OWL-ViT
+   B/32 (768 px, vision 768 x 12 with 12 heads, text 512 x 12, random
+   weights from seed 0, bf16), YOLOv8n at 640 px and the CLIP engine's
+   8 x 8 grid, on phase 5's source read as 200 evenly spread frames in
+   16-frame batches (the synthetic source serves ``stream_batches``):
+   one cold and one warm ``hybrid`` call, one each of ``owlvit``,
+   ``clip`` and ``yolo_enhanced``. The bf16 flash entry must launch at
+   L = 577 (OWL-ViT) and in the CLIP grid (L = 50; the crops' L = 50
+   launches are reported apart) and no other kernel at all; results
+   finite, sorted by the composite score, boxes ordered and overlapping
+   the frame, the two ``hybrid`` calls identical; the card's OWL-ViT
+   logits and boxes, YOLO's raw head, the CLIP grid's cell embeddings
+   and crop embeddings (``extract_object_embeddings``) against the
+   CPU's f32 plain path on the same weights, two frames, row cosine
+   >= 0.99. Prints each call's wall, the detections before
+   and after the temporal dedup, and the device ms (CUDA events around
+   eager calls) of the OWL-ViT forward, the YOLO forward and the CLIP
+   grid per 16-frame batch.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
 ``launches``, those on its own path: ``mvp`` for the first slice's
 kernels, the library search of its tier for the library's, the cold
-``reranked`` call for the flash entry at L = 577.
+``reranked`` call for the flash entry at BLIP's L = 577, and phase 9's
+five detection calls for it at OWL-ViT's.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -136,9 +167,31 @@ LIBRARY_VIDEOS = ("lib-0", "lib-1", "lib-2")
 LIBRARY_TOL = 2e-3
 # BLIP-base's vision tower: 384 px in 16 px patches, plus CLS
 BLIP_TOKENS = (384 // 16) ** 2 + 1
-BLIP_FLASH = f"flash_attention_blhd[L={BLIP_TOKENS}]"
-# the path whose launches a kernel's row reports (default: mvp)
-KERNEL_PATH = {"cosine_topk_f32": "library_float32",
+# OWL-ViT B/32's vision tower: 768 px in 32 px patches, plus CLS
+OWL_TOKENS = (768 // 32) ** 2 + 1
+# CLIP ViT-B/32's: 224 px in 32 px patches, plus CLS
+CLIP_TOKENS = (224 // 32) ** 2 + 1
+# the bf16 flash entry counts its launches by L only, read under these
+# keys: L = 577 is BLIP-base's vision tower on the rerank paths and
+# OWL-ViT's on the detection path (neither runs the other's model);
+# L = 50 is CLIP's (the mvp scan, the detection grid and crops)
+FLASH_L577 = f"flash_attention_blhd[L={BLIP_TOKENS}]"
+FLASH_L50 = f"flash_attention_blhd[L={CLIP_TOKENS}]"
+# phase 3's rows of the bf16 flash entry at each model's shape
+BLIP_FLASH = "flash_attention_blhd[blip]"
+OWL_FLASH = "flash_attention_blhd[owl]"
+GRID_FLASH = "flash_attention_blhd[grid]"
+CROP_FLASH = "flash_attention_blhd[crop]"
+DETECTION_BATCH = 16
+DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
+# the largest crop bucket of ``ClipEngine.embed_pixels``
+CROP_BUCKET = 256
+# the path whose launches a kernel's row reports (default: mvp), and
+# the launch key it reads there (default: the row's name)
+KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
+               GRID_FLASH: "unlimited_detection",
+               CROP_FLASH: "unlimited_detection",
+               "cosine_topk_f32": "library_float32",
                "cosine_scores_bf16": "library_bfloat16",
                "cosine_topk_bf16": "library_bfloat16",
                "cosine_scores_int8": "library_int8",
@@ -146,6 +199,8 @@ KERNEL_PATH = {"cosine_topk_f32": "library_float32",
                "quantize_rows": "library_int8",
                "quantize_per_channel": "library_int8",
                BLIP_FLASH: "reranked"}
+LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, OWL_FLASH: FLASH_L577,
+              GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
@@ -277,6 +332,25 @@ class SyntheticVideo:
             frames = self._chunk(lo, hi)
             ts = [i / FPS for i in range(lo, hi)]
             yield (finish(frames, ts) if finish is not None else frames), ts
+
+    def stream_batches(self, path: str, batch: int, sample_rate=None,
+                       max_frames=None):
+        """The detection path's ``VideoReader.stream_batches``: RGB frames
+        at the reader's sampled indices (every ``sample_rate``-th, spread
+        evenly under ``max_frames``), in exact ``batch``-sized pairs of
+        (frames, timestamps); the pixels are the 256-frame stream's."""
+        from avede_tpu_torch.io.video_reader import sample_indices
+
+        np, step = self.np, 256
+        idx = sample_indices(N_FRAMES, sample_rate or self.sample_rate,
+                             max_frames or N_FRAMES)
+        chunks = {lo: self._chunk(lo, min(lo + step, N_FRAMES))[..., ::-1]
+                  for lo in sorted({i - i % step for i in idx})}
+        for lo in range(0, len(idx), batch):
+            part = idx[lo: lo + batch]
+            yield (np.ascontiguousarray(np.stack(
+                [chunks[i - i % step][i % step] for i in part])),
+                [i / FPS for i in part])
 
     def read_frames_at(self, path: str, timestamps, return_ok: bool = False):
         """RGB frames at ``timestamps``, the pixels the last stream gave
@@ -455,6 +529,14 @@ def check_kernels(torch, np, video):
     if err > tol:
         fail(f"flash_attention: max err {err} > {tol}")
     rows.append(check_blip_flash(torch, F, dev, gen))
+    # the detection path: OWL-ViT's batch, the CLIP grid's cells of a
+    # 16-frame batch and the largest crop bucket
+    rows.append(check_blhd_flash(torch, F, dev, gen, OWL_FLASH,
+                                 DETECTION_BATCH, OWL_TOKENS))
+    rows.append(check_blhd_flash(torch, F, dev, gen, GRID_FLASH,
+                                 DETECTION_BATCH * 8 * 8, CLIP_TOKENS))
+    rows.append(check_blhd_flash(torch, F, dev, gen, CROP_FLASH,
+                                 CROP_BUCKET, CLIP_TOKENS))
 
     # 3. cosine scores: the 1024-row bucket of a 600-frame table
     nb, dim, n_valid = 1024, 512, N_FRAMES
@@ -537,6 +619,49 @@ def check_blip_flash(torch, F, dev, gen):
                 "bf16 [B, H, L, D] views")
     if excess > 0:
         fail(f"{BLIP_FLASH}: max err {err} over its bar by {excess}")
+    return row
+
+
+def check_blhd_flash(torch, F, dev, gen, name, bsz, length):
+    """Phase 3, a detection row of the serving flash entry: [bsz,
+    length, 12, 64], q, k and v each a projection's own [B, L, 768]
+    output viewed per head (contiguous heads, row stride 768), as the
+    detection path runs it. Same bar as the CLIP row."""
+    from avede_tpu_torch.ops import attention
+
+    h, hd = 12, 64
+    q, kk, v = (torch.randn(bsz, length, h * hd, device=dev, generator=gen
+                            ).to(torch.bfloat16).view(bsz, length, h, hd)
+                for _ in range(3))
+    got = attention.flash_attention_blhd(q, kk, v)
+    ref = attention.flash_attention_blhd_plain(q.float(), kk.float(),
+                                               v.float())
+    err, excess, unequal = bf16_err(torch, got, ref)
+    del ref
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    b, f = bound_ms(2 * 4 * q.numel(), 4.0 * bsz * h * length * length * hd,
+                    BF16_TENSOR_FLOP_PER_S)
+    row = dict(
+        name=name, route="cuda",
+        source="avede_tpu_torch/csrc/flash_attention.cu",
+        replaces="avede_tpu/ops/attention.py:85",
+        shape=f"q,k,v bf16 [{bsz},{length},{h},{hd}] (row stride "
+              f"{h * hd}) -> bf16 [{bsz},{length},{h * hd}]",
+        max_abs_err=err, tol="1 bf16 ulp + 1e-5", tol_excess=excess,
+        not_bit_equal=unequal,
+        ms=time_ms(torch, lambda: attention.flash_attention_blhd(q, kk, v)),
+        call_ms=call_ms(torch, lambda: attention.flash_attention_blhd(
+            q, kk, v)),
+        plain_ms=time_ms(torch, lambda: attention.flash_attention_blhd_plain(
+            q, kk, v), iters=5),
+        bound_ms=b, bound_by=f, bound_peak="bf16 tensor cores 989 TFLOP/s",
+        bound_passes=1,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)),
+        library="torch.nn.functional.scaled_dot_product_attention on the "
+                "bf16 [B, H, L, D] views")
+    if excess > 0:
+        fail(f"{name}: max err {err} over its bar by {excess}")
     return row
 
 
@@ -1061,8 +1186,8 @@ def reset_launches(fns) -> None:
 
 def read_launches(fns) -> dict:
     """Each wrapper's count; the bf16 flash entry's, kept by L, is
-    summed, and its BLIP launches (L = 577) are also given apart from
-    CLIP's (L = 50), as ``BLIP_FLASH``."""
+    summed, and its L = 577 and L = 50 launches are also given apart,
+    as ``FLASH_L577`` and ``FLASH_L50``."""
     out = {}
     for fn in fns:
         by_len = getattr(fn, "launches_by_length", None)
@@ -1070,8 +1195,8 @@ def read_launches(fns) -> dict:
             out[fn.__name__] = fn.launches
             continue
         out[fn.__name__] = by_len.total()
-        out[BLIP_FLASH] = by_len[BLIP_TOKENS]
-        out["flash_attention_blhd[L=50]"] = by_len[50]
+        out[FLASH_L577] = by_len[BLIP_TOKENS]
+        out[FLASH_L50] = by_len[CLIP_TOKENS]
     return out
 
 
@@ -1144,16 +1269,15 @@ def drive_rerank(torch, np, engine, video, cache_dir):
                       [ms for _, ms in warm], steps)
 
     rer, adv = launches["reranked"], launches["advanced"]
-    for name in [fn.__name__ for fn in needed] + [BLIP_FLASH,
-                                                  "flash_attention_blhd[L=50]"]:
+    for name in [fn.__name__ for fn in needed] + [FLASH_L577, FLASH_L50]:
         if rer[name] <= 0:
             fail(f"reranked: {name} never launched on the cold call: {rer}")
-    if adv[BLIP_FLASH] <= 0 or adv["fused_patch_embed_i420"] <= 0:
+    if adv[FLASH_L577] <= 0 or adv["fused_patch_embed_i420"] <= 0:
         fail(f"advanced: no BLIP forward or no backfill embed: {adv}")
     for key, counts in launches.items():
         if any(counts[fn.__name__] for fn in contracts):
             fail(f"{key}: a contract entry ran: {counts}")
-        if key.endswith("_warm") and counts[BLIP_FLASH]:
+        if key.endswith("_warm") and counts[FLASH_L577]:
             fail(f"{key}: BLIP ran on a warm query: {counts}")
 
     for mode, (first, _, warm, _, _) in runs.items():
@@ -1258,6 +1382,253 @@ def drive_rerank(torch, np, engine, video, cache_dir):
         "top_caption": runs["reranked"][0][0]["caption"][:80],
         "launches": launches, **checks,
     }
+
+
+def detection_box_report(np, results, width: int, height: int):
+    """(every box finite, ordered and overlapping the frame; share wholly
+    inside it). The detectors' boxes are not clipped (an OWL-ViT box
+    near the crop's edge may reach past the frame), as in the JAX
+    package."""
+    ok, inside = True, 0
+    for r in results:
+        x0, y0, x1, y1 = r["bbox"]
+        ok &= bool(np.all(np.isfinite(r["bbox"])) and x0 < x1 and y0 < y1
+                   and x1 > 0 and y1 > 0 and x0 < width and y0 < height)
+        inside += 0 <= x0 and 0 <= y0 and x1 <= width and y1 <= height
+    return ok, inside / max(len(results), 1)
+
+
+def drive_detection(torch, np, engine, video):
+    """Phase 9: open-vocabulary detection through
+    ``VideoProcessor.process_unlimited_detection`` at full width: OWL-ViT
+    B/32 (768 px, random weights from seed 0, bf16, flash attention at
+    L = 577 in every vision layer), YOLOv8n at 640 px (seed 0, bf16) and
+    the CLIP engine's grid (8 × 8 cells, flash at L = 50), on phase 5's
+    600-frame source read as 200 evenly spread frames in 16-frame
+    batches, ``comprehensive`` precision. One cold and one warm ``hybrid``
+    call, then one call each of ``owlvit``, ``clip`` and
+    ``yolo_enhanced``; launch counts zeroed before the phase, the grid's
+    L = 50 launches told apart from the crops'. Random
+    OWL-ViT weights put a sigmoid near 0.5 on every patch, so ``hybrid``
+    and ``owlvit`` must find objects; random CLIP weights score every
+    cell and crop near cosine 0, so ``clip`` and ``yolo_enhanced`` may
+    rightly find none under the adaptive thresholds (their counts are
+    reported)."""
+    import dataclasses
+
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.models.owlvit import init_owlvit
+    from avede_tpu_torch.models.yolo import init_yolo
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services.detector import (
+        ClipGridDetector, extract_object_embeddings)
+    from avede_tpu_torch.services import video_processor
+    from avede_tpu_torch.services.open_vocab_matcher import OpenVocabMatcher
+    from avede_tpu_torch.utils.config import settings
+
+    video_processor.validate_video = lambda path: None
+    proc = video_processor.VideoProcessor(engine=engine)
+    t0 = time.perf_counter()
+    det = proc.universal_detector              # OWL-ViT B/32
+    yolo = det.yolo                            # YOLOv8n
+    matcher = proc.open_vocab
+    build_s = time.perf_counter() - t0
+    matcher.reader = video
+    dedup_counts = []
+
+    def counted_dedup(results, **kw):
+        out = OpenVocabMatcher._deduplicate(results, **kw)
+        dedup_counts.append((len(results), len(out)))
+        return out
+
+    matcher._deduplicate = counted_dedup
+    # the grid's L = 50 launches, told apart from the crops' by the
+    # entry's count around each grid call
+    by_len = attention.flash_attention_blhd.launches_by_length
+    grid_embed, grid_l50 = det.clip_grid.cell_embeddings, [0]
+
+    def counted_grid(frames):
+        before = by_len[CLIP_TOKENS]
+        out = grid_embed(frames)
+        grid_l50[0] += by_len[CLIP_TOKENS] - before
+        return out
+
+    det.clip_grid.cell_embeddings = counted_grid
+    counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
+               kernels.cosine_window_topk, kernels.cosine_topk_f32,
+               kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
+               quant.quantize_rows, kernels.fused_patch_embed,
+               attention.flash_attention, kernels.cosine_scores,
+               kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
+               quant.quantize_per_channel)
+    path = "memory://detection-street"
+    rank_key = "composite_score"     # the comprehensive precision's rank
+    runs = []
+    reset_launches(counted)
+    for mode in ("hybrid", "hybrid", "owlvit", "clip", "yolo_enhanced"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = proc.process_unlimited_detection(
+            path, DETECTION_QUERIES, detection_mode=mode,
+            matching_precision="comprehensive", top_k=25,
+            confidence_threshold=0.1, video_id="detection-street")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if out["status"] != "completed":
+            fail(f"detection ({mode}): {out}")
+        runs.append((mode, out, wall_ms, dedup_counts[-1]))
+    launches = read_launches(counted)
+    del det.clip_grid.cell_embeddings
+    flash_l50 = {"clip_grid": grid_l50[0],
+                 "crops": launches[FLASH_L50] - grid_l50[0]}
+    if launches[FLASH_L577] <= 0 or flash_l50["clip_grid"] <= 0:
+        fail(f"detection: flash never launched at L = {OWL_TOKENS} "
+             f"(OWL-ViT) or in the CLIP grid: {launches}, {flash_l50}")
+    if any(n for name, n in launches.items()
+           if not name.startswith("flash_attention_blhd")):
+        fail(f"detection: a kernel off this path ran: {launches}")
+
+    per_mode, boxes_inside = {}, {}
+    for mode, out, wall_ms, (before, after) in runs:
+        res = out["results"]
+        keys = [r[rank_key] for r in res]
+        ok, share = detection_box_report(np, res, FRAME_W, FRAME_H)
+        if (not res and mode in ("hybrid", "owlvit")) or not ok \
+                or not np.all(np.isfinite(keys)) \
+                or keys != sorted(keys, reverse=True):
+            fail(f"detection ({mode}): results not finite, sorted and in "
+                 f"the frame: {res[:3]}")
+        for r in res:
+            if r["query"] not in DETECTION_QUERIES or not all(np.isfinite(
+                    [r["confidence"], r["visual_quality"],
+                     r["semantic_relevance"], r["size_score"]])):
+                fail(f"detection ({mode}): bad result {r}")
+        if out["metadata"]["frames_processed"] != 200:
+            fail(f"detection ({mode}): {out['metadata']}")
+        boxes_inside[mode] = share
+        per_mode.setdefault(mode, []).append({
+            "wall_ms": wall_ms, "results": len(res),
+            "before_dedup": before, "after_dedup": after})
+
+    if runs[0][1]["results"] != runs[1][1]["results"]:
+        fail("detection: repeated hybrid calls gave different results")
+
+    # card bf16 against the CPU's f32 plain path on the same seeded
+    # weights, two frames: OWL-ViT, YOLO's head, the CLIP grid's cell
+    # embeddings and crop embeddings through the bucketed path
+    frames = next(video.stream_batches(path, 2, max_frames=200))[0]
+    ids = det.owl_tokenizer(DETECTION_QUERIES)
+    cpu_owl = init_owlvit(dataclasses.replace(det.owl_cfg, dtype="float32"),
+                          seed=0).eval()
+    cpu_yolo = init_yolo(dataclasses.replace(yolo.cfg, dtype="float32"),
+                         seed=0).eval()
+    cpu_clip = ClipEngine(cfg=vit_b32(), device="cpu", seed=0)
+    # crops of a large, a medium, a thin and a sub-2-px box (an 8 x 8
+    # black crop) of each frame: 8 crops, the embed bucket of 16
+    crop_boxes = [[0, 0, FRAME_W, FRAME_H], [100, 50, 300, 250],
+                  [10, 10, 14, 200], [40, 40, 41, 41]]
+    from avede_tpu_torch.models.yolo import resize_bilinear
+    from avede_tpu_torch.ops.preprocess import clip_preprocess
+
+    with torch.inference_mode():
+        logits, boxes = det.owl_forward(frames, ids)
+        x_cpu = torch.from_numpy(frames)
+        ref_logits, ref_boxes = cpu_owl(
+            clip_preprocess(x_cpu, size=det.owl_cfg.image_size),
+            torch.from_numpy(ids))
+        heads = yolo.raw_outputs(frames)
+        ref_heads = cpu_yolo(resize_bilinear(x_cpu.float() / 255.0,
+                                             yolo.cfg.img_size))
+        cells = det.clip_grid.cell_embeddings(frames).float().cpu()
+        ref_cells = ClipGridDetector(cpu_clip, det.clip_grid.grid
+                                     ).cell_embeddings(frames)
+    crops = np.concatenate([extract_object_embeddings(engine, f, crop_boxes)
+                            for f in frames])
+    ref_crops = np.concatenate([extract_object_embeddings(
+        cpu_clip, f, crop_boxes) for f in frames])
+    checks = {
+        "owl_logits_min_row_cosine": row_cosine(
+            np, logits.float().cpu().reshape(2, -1).numpy(),
+            ref_logits.reshape(2, -1).numpy()),
+        "owl_boxes_min_row_cosine": row_cosine(
+            np, boxes.float().cpu().reshape(2, -1).numpy(),
+            ref_boxes.reshape(2, -1).numpy()),
+        "yolo_head_min_row_cosine": min(
+            row_cosine(np, g.float().cpu().reshape(2, -1).numpy(),
+                       r.reshape(2, -1).numpy())
+            for gh, rh in zip(heads, ref_heads) for g, r in zip(gh, rh)),
+        "clip_grid_cells_min_row_cosine": row_cosine(
+            np, cells.numpy(), ref_cells.numpy()),
+        "clip_crops_min_row_cosine": row_cosine(np, crops, ref_crops),
+    }
+    if min(checks.values()) < 0.99:
+        fail(f"detection card vs CPU: {checks}")
+    del cpu_owl, cpu_yolo, cpu_clip
+
+    # device ms of the pieces on one 16-frame batch (eager calls, CUDA
+    # events, launch cost included)
+    batch = next(video.stream_batches(path, DETECTION_BATCH,
+                                      max_frames=200))[0]
+    text = engine.embed_texts(DETECTION_QUERIES)
+    with torch.inference_mode():
+        owl_ms = call_ms(torch, lambda: det.owl_forward(batch, ids), iters=5)
+        yolo_ms = call_ms(torch, lambda: yolo.raw_outputs(batch), iters=5)
+        grid_ms = call_ms(torch, lambda: det.clip_grid.cell_scores(
+            batch, text), iters=5)
+    return {
+        "build_models_s": build_s,
+        "queries": DETECTION_QUERIES,
+        "hybrid_cold_ms": runs[0][2], "hybrid_warm_ms": runs[1][2],
+        "walls_ms": {m: [r["wall_ms"] for r in v] for m, v in per_mode.items()},
+        "per_mode": per_mode,
+        "frames_processed": 200,
+        "boxes_wholly_inside_share": boxes_inside,
+        "owl_forward_ms_per_batch": owl_ms,
+        "yolo_forward_ms_per_batch": yolo_ms,
+        "clip_grid_ms_per_batch": grid_ms,
+        "batch": DETECTION_BATCH,
+        "top_result": {k: runs[0][1]["results"][0][k] for k in (
+            "query", "bbox", "confidence", "composite_score", "method")},
+        "launches": launches, "flash_l50_launches": flash_l50, **checks,
+    }
+
+
+def decode_capabilities() -> dict:
+    """What this machine could decode video and serve HTTP with, read
+    without installing anything: ``torchvision.io``'s video backends,
+    torchaudio's ffmpeg binding, ``av``, the shared libraries
+    ``ctypes.util.find_library`` finds (``avcodec``, ``avformat``,
+    NVIDIA's ``nvcuvid``), an ``ffmpeg`` binary, ``cv2`` and ``aiohttp``."""
+    import ctypes.util
+    import importlib
+    import shutil
+
+    out = {}
+
+    def probe(name, fn):
+        try:
+            out[name] = fn()
+        except Exception as exc:  # noqa: BLE001 — a report, not a check
+            out[name] = f"unavailable: {type(exc).__name__}: {exc}"[:200]
+
+    def version(mod):
+        return getattr(importlib.import_module(mod), "__version__", "?")
+
+    probe("torchvision", lambda: version("torchvision"))
+    probe("torchvision.video_backend", lambda: importlib.import_module(
+        "torchvision").get_video_backend())
+    probe("torchvision.io.read_video", lambda: callable(
+        importlib.import_module("torchvision.io").read_video))
+    probe("torchaudio", lambda: version("torchaudio"))
+    probe("torchaudio.ffmpeg", lambda: str(importlib.import_module(
+        "torchaudio.utils.ffmpeg_utils").get_versions()))
+    for mod in ("av", "cv2", "aiohttp", "decord"):
+        probe(mod, lambda mod=mod: version(mod))
+    for lib in ("avcodec", "avformat", "nvcuvid", "nvidia-encode"):
+        probe(f"lib{lib}", lambda lib=lib: ctypes.util.find_library(lib))
+    probe("ffmpeg_binary", lambda: shutil.which("ffmpeg"))
+    return out
 
 
 def unit_rows(np, seed: int, n: int, dim: int):
@@ -1403,6 +1774,8 @@ def main() -> None:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "kernels": sorted(built)}), flush=True)
 
+    print(json.dumps({"decode_capabilities": decode_capabilities()}),
+          flush=True)
     video = SyntheticVideo(np, seed=0)
     rows = check_kernels(torch, np, video)
 
@@ -1421,6 +1794,8 @@ def main() -> None:
         # phase 8 runs while the CLIP engine is loaded; phase 7 after it,
         # with the card's memory free again for its peak
         rerank = drive_rerank(torch, np, engine, video, Path(tmp) / "rerank")
+        gc.collect()
+        detection = drive_detection(torch, np, engine, video)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1431,18 +1806,21 @@ def main() -> None:
     # just before it ran; ``launches`` is the count on the row's own path
     paths = {"mvp": main_path["launches"],
              **{m: rerank["launches"][m] for m in ("reranked", "advanced")},
+             "unlimited_detection": detection["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:
         row["path"] = KERNEL_PATH.get(row["name"], "mvp")
-        row["launches"] = paths[row["path"]][row["name"]]
-        row["launches_by_path"] = {p: c.get(row["name"], 0)
+        key = row["launch_key"] = LAUNCH_KEY.get(row["name"], row["name"])
+        row["launches"] = paths[row["path"]][key]
+        row["launches_by_path"] = {p: c.get(key, 0)
                                    for p, c in paths.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"card": card, "reference": reference,
                       "main_path": main_path}), flush=True)
     print(json.dumps({"card": card, "library": library}), flush=True)
     print(json.dumps({"card": card, "rerank": rerank}), flush=True)
+    print(json.dumps({"card": card, "detection": detection}), flush=True)
     print(json.dumps({"card": card, "index": index}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 processor on the CPU over a real mp4, no route mocking."""
 
 import asyncio
+import json
 
 import numpy as np
 import pytest
@@ -214,3 +215,229 @@ def test_library_prewarm_thread_indexes_videos(tmp_path, monkeypatch):
             state._library is not None and state._library._index.has("v1")):
         time.sleep(0.05)
     assert state._library is not None and state._library._index.has("v1")
+
+
+# ---------------------------------------------------------------------------
+# the same requests to the JAX app and the port's
+# ---------------------------------------------------------------------------
+
+class _Recorder:
+    """A processor stand-in answering with the arguments it was given, so
+    two apps' parses of one body can be compared."""
+
+    def resolve_video(self, video_id):
+        if video_id == "missing":
+            raise FileNotFoundError(video_id)
+        return f"videos/{video_id}.mp4"
+
+    def process_query(self, video, query, **kw):
+        return {"status": "completed", "call": "query", "video": video,
+                "query": query, **kw}
+
+    def process_unlimited_detection(self, video, queries, **kw):
+        return {"status": "completed", "call": "detection", "video": video,
+                "object_queries": queries, **kw}
+
+
+class _LibraryRecorder:
+    def search(self, query, **kw):
+        return {"results": [], "query": query, **kw}
+
+
+@pytest.fixture()
+def both_apps(tmp_path, tmp_data_dirs, monkeypatch):
+    """(call, jax_app, port_app): both apps over recorders, sharing one
+    data tree; ``call(app, method, path, ...)`` → (status, body,
+    headers), the body JSON where it is JSON."""
+    from avede_tpu.api.app import create_app as jax_create_app
+
+    from avede_tpu_torch.api.app import create_app
+
+    for attr, sub in [("DATA_DIR", ""), ("VIDEO_DIR", "videos"),
+                      ("CLIP_DIR", "clips"), ("FRAME_DIR", "frames"),
+                      ("EMBEDDING_DIR", "embeddings"), ("IMAGE_DIR", "images"),
+                      ("LOG_DIR", "logs")]:
+        monkeypatch.setattr(settings, attr, str(tmp_data_dirs / sub))
+    apps = [jax_create_app(_Recorder()), create_app(_Recorder())]
+    for app in apps:
+        app["state"]._library = _LibraryRecorder()
+    loop = asyncio.new_event_loop()
+    clients = [TestClient(TestServer(app, loop=loop), loop=loop)
+               for app in apps]
+    for tc in clients:
+        loop.run_until_complete(tc.start_server())
+
+    def call(which, method, path, **kw):
+        async def go():
+            resp = await clients[which].request(method, path, **kw)
+            raw = await resp.read()
+            try:
+                body = json.loads(raw)
+            except ValueError:
+                body = raw
+            return resp.status, body, resp.headers
+        return loop.run_until_complete(go())
+
+    yield call
+    for tc in clients:
+        loop.run_until_complete(tc.close())
+    loop.close()
+
+
+_BODIES = [
+    # /api/query: pydantic 2's lax coercion
+    ("/api/query", {"top_k": "5"}), ("/api/query", {"top_k": 5.0}),
+    ("/api/query", {"top_k": True}), ("/api/query", {"threshold": "0.3"}),
+    ("/api/query", {"top_k": " +7 ", "threshold": 1}),
+    ("/api/query", {"top_k": "1_0", "mode": "reranked", "extra": [1]}),
+    ("/api/query", {"top_k": None, "threshold": None}),
+    ("/api/query", {"threshold": True}), ("/api/query", {"top_k": "5.00"}),
+    ("/api/query", {"threshold": " 1e-1 "}),
+    ("/api/query", {"top_k": "5.5"}), ("/api/query", {"top_k": "true"}),
+    ("/api/query", {"top_k": 5.5}), ("/api/query", {"threshold": "abc"}),
+    ("/api/query", {"mode": 3}), ("/api/query", {"query": None}),
+    ("/api/query", {"video_id": 1}), ("/api/query", {"video_id": "missing"}),
+    # /api/unlimited-detection: UnlimitedDetectionRequest
+    ("/api/unlimited-detection", {}),
+    ("/api/unlimited-detection", {"object_queries": ["a", "b"]}),
+    ("/api/unlimited-detection", {"top_k": "3",
+                                  "confidence_threshold": "0.25"}),
+    ("/api/unlimited-detection", {"debug_mode": "yes", "top_k": None,
+                                  "detection_mode": "clip"}),
+    ("/api/unlimited-detection", {"confidence_threshold": None,
+                                  "matching_precision": "precise"}),
+    ("/api/unlimited-detection", {"object_queries": ["a", 1]}),
+    ("/api/unlimited-detection", {"object_queries": 3}),
+    ("/api/unlimited-detection", {"debug_mode": 2}),
+    ("/api/unlimited-detection", {"detection_mode": None}),
+    ("/api/unlimited-detection", {"video_id": "missing"}),
+    # /api/search-library: the JAX route's int()
+    ("/api/search-library", {"top_k": "5"}),
+    ("/api/search-library", {"top_k": 5.7, "per_video_k": True}),
+    ("/api/search-library", {"per_video_k": " 2 ", "threshold": 0.1}),
+]
+_BASE = {"/api/query": {"video_id": "v", "query": "a dog"},
+         "/api/unlimited-detection": {"video_id": "v",
+                                      "object_queries": "a dog"},
+         "/api/search-library": {"query": "a dog"}}
+
+
+@pytest.mark.parametrize("path,body", _BODIES)
+def test_bodies_parse_as_the_jax_app(both_apps, path, body):
+    """Accepted bodies reach the processor with the same arguments in
+    both apps; refused ones are 422 (or 404) in both."""
+    payload = {**_BASE[path], **body}
+    ref = both_apps(0, "POST", path, json=payload)
+    got = both_apps(1, "POST", path, json=payload)
+    assert got[0] == ref[0]
+    if ref[0] == 200:
+        assert got[1] == ref[1]
+
+
+def test_non_object_body_is_422_in_both(both_apps):
+    for path in ("/api/query", "/api/unlimited-detection"):
+        for which in (0, 1):
+            assert both_apps(which, "POST", path, json=["v", "q"])[0] == 422
+
+
+def test_query_and_detection_tracked_as_the_jax_app(both_apps):
+    """One query and one detection in each app add the same operations,
+    with the same labels, to its metrics monitor."""
+    from avede_tpu.utils.metrics import get_monitor as jax_monitor
+
+    from avede_tpu_torch.utils.metrics import get_monitor
+
+    def ops(which):
+        out = both_apps(which, "GET", "/api/metrics")[1]["operations"]
+        return {k: v["count_total"] for k, v in out.items()}
+
+    before = [ops(0), ops(1)]
+    for which in (0, 1):
+        both_apps(which, "POST", "/api/query", json={
+            "video_id": "v", "query": "q", "mode": "reranked"})
+        both_apps(which, "POST", "/api/unlimited-detection", json={
+            "video_id": "v", "object_queries": "q",
+            "detection_mode": "owlvit"})
+    grown = [{k for k, v in ops(w).items() if v > before[w].get(k, 0)}
+             for w in (0, 1)]
+    assert grown[1] == grown[0] == {"query", "unlimited_detection"}
+
+    def labels(monitor, op):
+        rec = monitor()._records[op][-1]
+        return {k: v for k, v in rec.items() if k not in ("t", "seconds")}
+
+    for op in ("query", "unlimited_detection"):
+        assert labels(get_monitor, op) == labels(jax_monitor, op)
+    assert labels(get_monitor, "query")["mode"] == "reranked"
+
+
+def test_cors_headers_as_the_jax_app(both_apps):
+    cors = ("Access-Control-Allow-Origin", "Access-Control-Allow-Methods",
+            "Access-Control-Allow-Headers")
+    for method, path in (("OPTIONS", "/api/query"),
+                         ("OPTIONS", "/api/unlimited-detection"),
+                         ("GET", "/api/health")):
+        ref, got = (both_apps(w, method, path) for w in (0, 1))
+        assert got[0] == ref[0] == 200
+        assert {h: got[2].get(h) for h in cors} \
+            == {h: ref[2].get(h) for h in cors}
+        assert got[2]["Access-Control-Allow-Origin"] == "*"
+
+
+def test_clip_download_and_listings_as_the_jax_app(both_apps, tmp_data_dirs):
+    clips = tmp_data_dirs / "clips"
+    (clips / "c1.mp4").write_bytes(b"\x00\x01clip")
+    (tmp_data_dirs / "secret.mp4").write_bytes(b"secret")
+    for name in ("c1.mp4", "..%2Fsecret.mp4", "..secret.mp4", "nope.mp4",
+                 "%2E%2E%2Fsecret.mp4"):
+        ref, got = (both_apps(w, "GET", f"/api/download/{name}")
+                    for w in (0, 1))
+        assert got[0] == ref[0] and got[1] == ref[1]
+        if name == "c1.mp4":
+            assert got[0] == 200 and got[1] == b"\x00\x01clip"
+            for h in ("Content-Type", "Content-Disposition"):
+                assert got[2][h] == ref[2][h]
+        else:
+            assert got[0] == 404
+    for path in ("/api/clips", "/api/detection-modes"):
+        ref, got = (both_apps(w, "GET", path) for w in (0, 1))
+        assert got[0] == ref[0] == 200 and got[1] == ref[1]
+
+
+class TestDetectionRoute:
+    def test_unlimited_detection_completes(self, client, tmp_path):
+        """The route over a real mp4 with tiny OWL-ViT and YOLO models."""
+        from avede_tpu_torch.models.owlvit import tiny_owlvit_config
+        from avede_tpu_torch.models.yolo import tiny_yolo_config
+        from avede_tpu_torch.services.detector import YoloService
+        from avede_tpu_torch.services.universal_detector import \
+            UniversalDetector
+
+        proc = client.processor
+        proc._universal_detector = UniversalDetector(
+            proc.engine, owlvit_cfg=tiny_owlvit_config(),
+            yolo=YoloService(cfg=tiny_yolo_config(), device="cpu"))
+        video = make_test_video(tmp_path / "src.mp4", n_frames=20)
+        vid = _upload(client, video)[1]["video_id"]
+
+        def tracked():
+            ops = client("GET", "/api/metrics")[1]["operations"]
+            return ops.get("unlimited_detection", {}).get("count_total", 0)
+
+        before = tracked()
+        for mode in ("hybrid", "yolo_enhanced"):
+            status, out = client("POST", "/api/unlimited-detection", json={
+                "video_id": vid, "object_queries": ["white square", "car"],
+                "detection_mode": mode, "top_k": "4",
+                "confidence_threshold": 0.0})
+            assert status == 200 and out["status"] == "completed"
+            assert out["queries"] == ["white square", "car"]
+            assert out["total_found"] == len(out["results"]) <= 4
+            assert out["metadata"]["frames_processed"] == 20
+            for r in out["results"]:
+                assert np.isfinite(r["composite_score"])
+        status, out = client("POST", "/api/unlimited-detection", json={
+            "video_id": vid, "object_queries": "x",
+            "detection_mode": "bogus"})
+        assert status == 500 and out["status"] == "error"
+        assert tracked() == before + 3

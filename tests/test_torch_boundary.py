@@ -41,7 +41,11 @@ def test_port_imports_no_jax_or_reference_package():
     assert "avede_tpu_torch.api.app" in out["modules"]
     for mod in ("pipelines.phase1", "pipelines.phase2", "pipelines.phase3",
                 "models.blip", "models.univtg", "services.captioner",
-                "utils.trace"):
+                "utils.trace", "ops.boxes", "ops.nms", "ops.hostops",
+                "ops.image_stats", "models.yolo", "models.owlvit",
+                "services.detector", "services.adaptive_threshold",
+                "services.universal_detector",
+                "services.open_vocab_matcher"):
         assert f"avede_tpu_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -78,6 +82,15 @@ class TestEntryPointsNeedACard:
             Phase1Scan()
         with pytest.raises(ConfigurationError):
             VideoProcessor()
+
+    def test_detectors_raise(self):
+        from avede_tpu_torch.services.detector import YoloService
+        from avede_tpu_torch.utils.errors import ConfigurationError
+
+        with pytest.raises(ConfigurationError):
+            YoloService()
+        with pytest.raises(ConfigurationError):
+            YoloService(device="cuda")
 
     def test_app_processor_raises(self, tmp_path, monkeypatch):
         from avede_tpu_torch.api.app import create_app

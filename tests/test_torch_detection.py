@@ -1,0 +1,701 @@
+"""The ported open-vocabulary detection slice against the JAX package:
+NMS, the host box ops, YOLOv8, OWL-ViT, the CLIP grid, the four modes
+of ``UniversalDetector``, ``OpenVocabMatcher`` and the whole
+``VideoProcessor.process_unlimited_detection``, on the same tiny weights
+(carried across with ``params_from_jax``) and the same small inputs.
+
+Tolerances: NMS and the host ops are exact (same kept sets, orders and
+values); model outputs within 1e-4 relative to their largest magnitude;
+detections the same, in the same order wherever neighbouring scores are
+more than 1e-4 apart, boxes within 1e-3 px, confidences and composite
+scores within 1e-4.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avede_tpu_torch.utils.config import settings as tsettings
+from tests.conftest import make_test_video
+
+REL_TOL = 1e-4
+BOX_TOL = 1e-3
+SCORE_TOL = 1e-4
+QUERIES = ["person", "a red ball", "thing"]
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _filled(init_fn, seed: int = 0):
+    """A Flax variable tree of ``init_fn``'s shapes, drawn from ``seed``
+    in numpy (no eager Flax init): kernels normal(0, fan_in^-1/2),
+    embeddings normal(0, 0.02), scales and running variances near 1,
+    biases and running means near 0."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            v = rng.normal(0, np.prod(s.shape[:-1]) ** -0.5, s.shape)
+        elif name in ("scale", "var"):
+            v = rng.uniform(0.8, 1.2, s.shape)
+        elif name in ("bias", "mean"):
+            v = rng.normal(0, 0.05, s.shape)
+        else:
+            v = rng.normal(0, 0.02, s.shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn))
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-12))
+
+
+# ---------------------------------------------------------------------------
+# NMS
+# ---------------------------------------------------------------------------
+
+def _boxes_case(case: str, n: int = 40, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 60, (n, 2))
+    wh = rng.uniform(4, 30, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    if case == "ties":
+        scores = (rng.integers(0, 4, n) / 4).astype(np.float32)
+        boxes[1::2] = boxes[::2][: len(boxes[1::2])]     # duplicate boxes
+    elif case == "chain":
+        # each box overlaps the next above the threshold, not the one after
+        x0 = np.arange(n, dtype=np.float32) * 3.0
+        boxes = np.stack([x0, np.zeros(n), x0 + 10, np.full(n, 10.0)],
+                         1).astype(np.float32)
+        scores = np.linspace(1, 0.1, n).astype(np.float32)
+    elif case == "padding":
+        scores[rng.permutation(n)[: n // 2]] = -np.inf
+    elif case == "all_padding":
+        scores[:] = -np.inf
+    return boxes, scores
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "chain", "padding",
+                                  "all_padding"])
+@pytest.mark.parametrize("max_out", [10, 64])
+def test_nms_padded_matches_jax(case, max_out):
+    from avede_tpu.ops.nms import nms_padded as jnms
+
+    from avede_tpu_torch.ops.nms import nms_padded
+
+    boxes, scores = _boxes_case(case)
+    ref = [np.asarray(t) for t in jnms(jnp.asarray(boxes),
+                                       jnp.asarray(scores), 0.45, max_out,
+                                       return_indices=True)]
+    got = [t.numpy() for t in nms_padded(torch.from_numpy(boxes),
+                                         torch.from_numpy(scores), 0.45,
+                                         max_out, return_indices=True)]
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    # a batch gives each frame's own answer
+    b2, s2 = _boxes_case("random", seed=1)
+    batch = nms_padded(torch.from_numpy(np.stack([boxes, b2])),
+                       torch.from_numpy(np.stack([scores, s2])), 0.45,
+                       max_out, return_indices=True)
+    for g, r in zip(batch, got):
+        np.testing.assert_array_equal(g[0].numpy(), r)
+
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_nms_presorted_and_per_class_match_jax(case):
+    from avede_tpu.ops.nms import nms_padded as jnms
+    from avede_tpu.ops.nms import nms_per_class as jper
+
+    from avede_tpu_torch.ops.nms import nms_padded, nms_per_class
+
+    boxes, scores = _boxes_case(case, n=60)
+    order = np.argsort(-scores, kind="stable")
+    boxes, scores = boxes[order], scores[order]
+    classes = np.random.default_rng(2).integers(0, 3, len(boxes)
+                                                ).astype(np.int32)
+    ref = jnms(jnp.asarray(boxes), jnp.asarray(scores), 0.5, 20,
+               presorted=True)
+    got = nms_padded(torch.from_numpy(boxes), torch.from_numpy(scores),
+                     0.5, 20, presorted=True)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    ref = jper(jnp.asarray(boxes), jnp.asarray(scores),
+               jnp.asarray(classes), 0.5, 20, presorted=True)
+    got = nms_per_class(torch.from_numpy(boxes), torch.from_numpy(scores),
+                        torch.from_numpy(classes), 0.5, 20, presorted=True)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_box_conversions_match_jax():
+    from avede_tpu.ops import boxes as jb
+
+    from avede_tpu_torch.ops import boxes as tb
+
+    b, _ = _boxes_case("random")
+    t = torch.from_numpy(b)
+    for name, args in (("box_area", ()), ("cxcywh_to_xyxy", ()),
+                       ("xyxy_to_cxcywh", ()), ("clip_boxes", (50.0, 40.0))):
+        np.testing.assert_array_equal(
+            getattr(tb, name)(t, *args).numpy(),
+            np.asarray(getattr(jb, name)(jnp.asarray(b), *args)))
+    np.testing.assert_array_equal(
+        tb.pairwise_iou(t, t[:7]).numpy(),
+        np.asarray(jb.pairwise_iou(jnp.asarray(b), jnp.asarray(b[:7]))))
+
+
+# ---------------------------------------------------------------------------
+# host ops
+# ---------------------------------------------------------------------------
+
+def _dedup_case(seed: int, n: int):
+    """Entries built to sit on every comparison's edge: repeated boxes,
+    IoU exactly 0.5, time gaps exactly the window, shared queries."""
+    rng = np.random.default_rng(seed)
+    base = np.array([[0, 0, 10, 10], [0, 0, 10, 20], [5, 0, 15, 10],
+                     [0, 0, 20, 10], [100, 100, 110, 110]], np.float32)
+    boxes = base[rng.integers(0, len(base), n)]
+    boxes = boxes + rng.integers(0, 2, (n, 1)).astype(np.float32) * 0.5
+    times = (rng.integers(0, 12, n) * 0.5).astype(np.float32)
+    qids = rng.integers(0, 3, n).astype(np.int32)
+    return boxes, times, qids
+
+
+@pytest.fixture(params=["native", "numpy"])
+def jax_hostops(request, monkeypatch):
+    """The JAX package's host ops: its C++ library, or its numpy paths."""
+    from avede_tpu.native import hostops as jhost
+
+    if request.param == "numpy":
+        monkeypatch.setattr(jhost, "_load", lambda: None)
+    elif not jhost.available():
+        pytest.skip("the JAX package's C++ host library did not build")
+    return jhost
+
+
+@pytest.mark.parametrize("seed,n", [(0, 50), (1, 300), (2, 4000)])
+def test_temporal_dedup_matches_hostops(jax_hostops, seed, n):
+    from avede_tpu_torch.ops import hostops
+
+    if n > 300 and jax_hostops._load() is None:
+        n = 300            # the numpy path's double loop is quadratic
+    boxes, times, qids = _dedup_case(seed, n)
+    got = hostops.temporal_dedup(boxes, times, qids, 2.0, 0.5)
+    ref = jax_hostops.temporal_dedup(boxes, times, qids, 2.0, 0.5)
+    np.testing.assert_array_equal(got, ref)
+    assert 0 < len(got) < n
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "padding"])
+def test_host_nms_and_iou_match_hostops(jax_hostops, case):
+    """Equal to the numpy path; against the C++ library (an unstable
+    sort, and a multiply-add it may fuse): the same kept indices where
+    no scores tie, the same kept scores where they do, IoU within 1e-6."""
+    from avede_tpu_torch.ops import hostops
+
+    boxes, scores = _boxes_case(case, n=80)
+    scores = np.where(np.isfinite(scores), scores, -1e31).astype(np.float32)
+    got = hostops.nms(boxes, scores, 0.45)
+    ref = jax_hostops.nms(boxes, scores, 0.45)
+    if jax_hostops._load() is None or case != "ties":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_array_equal(scores[got], scores[ref])
+    got = hostops.pairwise_iou(boxes, boxes[:9])
+    ref = jax_hostops.pairwise_iou(boxes, boxes[:9])
+    if jax_hostops._load() is None:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# YOLOv8
+# ---------------------------------------------------------------------------
+
+def _yolo_variables(cfg, seed: int = 0):
+    """A JAX YOLO and its variables, running statistics away from the
+    identity so the BatchNorm mapping and epsilon matter."""
+    from avede_tpu.models.yolo import YoloV8
+
+    model = YoloV8(cfg)
+    x = jnp.zeros((1, cfg.img_size, cfg.img_size, 3))
+    return model, _filled(lambda: model.init(jax.random.PRNGKey(0), x),
+                          seed)
+
+
+@pytest.mark.parametrize("scale", ["tiny", "yolov8n"])
+def test_yolo_forward_and_decode_match_jax(scale):
+    """Tiny input, and YOLOv8n whole at 640 px on one frame."""
+    from avede_tpu.models import yolo as jyolo
+
+    from avede_tpu_torch.models import yolo
+    from avede_tpu_torch.models.convert import params_from_jax
+
+    jcfg, cfg = ((jyolo.tiny_yolo_config(), yolo.tiny_yolo_config())
+                 if scale == "tiny" else (jyolo.yolov8n(), yolo.yolov8n()))
+    jm, variables = _yolo_variables(jcfg)
+    model = yolo.YoloV8(cfg)
+    model.load_state_dict(params_from_jax(variables))
+    x = np.random.default_rng(0).uniform(
+        0, 1, (1, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    ref = jax.jit(jm.apply)(variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(x))
+    for (jb, jc), (tb, tc) in zip(ref, got):
+        assert _rel_err(tb, jb) <= REL_TOL and _rel_err(tc, jc) <= REL_TOL
+    rb, rc = jyolo.decode_predictions(ref, jcfg)
+    gb, gc = yolo.decode_predictions(got, cfg)
+    assert _rel_err(gb, rb) <= REL_TOL and _rel_err(gc, rc) <= REL_TOL
+
+
+@pytest.mark.parametrize("shape", [(288, 512), (720, 1280)])
+def test_bilinear_resize_matches_jax(shape):
+    """YOLO's input resize to 640: an upscale and an antialiased
+    downscale, within 1e-4 of ``jax.image.resize`` on [0, 1] pixels."""
+    from avede_tpu_torch.models.yolo import resize_bilinear
+
+    x = np.random.default_rng(0).uniform(0, 1, (1, *shape, 3)
+                                         ).astype(np.float32)
+    ref = jax.image.resize(jnp.asarray(x), (1, 640, 640, 3), "bilinear")
+    got = resize_bilinear(torch.from_numpy(x), 640)
+    assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# OWL-ViT
+# ---------------------------------------------------------------------------
+
+def _owl_params(jcfg, seed: int = 0):
+    from avede_tpu.models.owlvit import OwlViTDetector as JOwl
+
+    px = jnp.zeros((1, jcfg.image_size, jcfg.image_size, 3))
+    ids = jnp.zeros((1, jcfg.max_text_len), jnp.int32)
+    return _filled(lambda: JOwl(jcfg).init(jax.random.PRNGKey(0), px,
+                                           ids)["params"], seed)
+
+
+def _owl_pair(jcfg, cfg, seed: int = 0):
+    from avede_tpu.models.owlvit import OwlViTDetector as JOwl
+
+    from avede_tpu_torch.models.convert import params_from_jax
+    from avede_tpu_torch.models.owlvit import OwlViTDetector
+
+    params = _owl_params(jcfg, seed)
+    model = OwlViTDetector(cfg)
+    model.load_state_dict(params_from_jax(params))
+    return JOwl(jcfg), params, model.eval()
+
+
+def _owl_ids(cfg, n: int = 2):
+    rng = np.random.default_rng(3)
+    ids = np.zeros((n, cfg.max_text_len), np.int32)
+    for i in range(n):
+        k = 2 + i
+        ids[i, :k] = rng.integers(1, cfg.vocab_size - 1, k)
+        ids[i, k] = cfg.vocab_size - 1                   # EOT, the max id
+    return ids
+
+
+@pytest.mark.parametrize("jax_flash", [False, True])
+def test_owlvit_tiny_matches_jax(jax_flash):
+    """Logits and boxes at the tiny config; the JAX side plain or through
+    its Pallas flash kernel (interpret mode on the CPU)."""
+    from avede_tpu.models.owlvit import OwlViTDetector as JOwl
+    from avede_tpu.models.owlvit import tiny_owlvit_config as jtiny
+
+    from avede_tpu_torch.models.owlvit import tiny_owlvit_config
+
+    jm, params, model = _owl_pair(jtiny(), dataclasses.replace(
+        tiny_owlvit_config(), use_flash=True))
+    px = np.random.default_rng(0).normal(size=(3, 32, 32, 3)
+                                         ).astype(np.float32)
+    ids = _owl_ids(jtiny())
+    ref = jax.jit(JOwl(dataclasses.replace(jtiny(), use_flash=jax_flash)
+                       ).apply)({"params": params}, jnp.asarray(px),
+                                jnp.asarray(ids))
+    with torch.no_grad():
+        got = model(torch.from_numpy(px), torch.from_numpy(ids))
+    assert _rel_err(got[0], ref[0]) <= REL_TOL
+    assert _rel_err(got[1], ref[1]) <= REL_TOL
+
+
+def test_owlvit_b32_widths_depth1_matches_jax():
+    """OWL-ViT B/32 widths (768 px, vision 768 with 12 heads, text 512
+    with 8 heads, vocab 49408, 16-token queries) at depth 1, one frame."""
+    from avede_tpu.models.owlvit import owlvit_base_patch32 as jb32
+
+    from avede_tpu_torch.models.owlvit import owlvit_base_patch32
+
+    depth = dict(vision_depth=1, text_depth=1)
+    jcfg = dataclasses.replace(jb32(), **depth)
+    cfg = dataclasses.replace(owlvit_base_patch32(), use_flash=True, **depth)
+    jm, params, model = _owl_pair(jcfg, cfg)
+    px = np.random.default_rng(0).normal(size=(1, 768, 768, 3)
+                                         ).astype(np.float32)
+    ids = _owl_ids(jcfg)
+    ref = jax.jit(jm.apply)({"params": params}, jnp.asarray(px),
+                            jnp.asarray(ids))
+    with torch.no_grad():
+        got = model(torch.from_numpy(px), torch.from_numpy(ids))
+    assert got[0].shape == (1, 576, 2) and got[1].shape == (1, 576, 4)
+    assert _rel_err(got[0], ref[0]) <= REL_TOL
+    assert _rel_err(got[1], ref[1]) <= REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# services, through both packages on the same tiny weights
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def weights():
+    from avede_tpu.models.clip import init_clip, tiny_test_config
+    from avede_tpu.models.owlvit import tiny_owlvit_config
+    from avede_tpu.models.yolo import tiny_yolo_config
+
+    from avede_tpu_torch.models.convert import params_from_jax
+
+    clip = _filled(lambda: init_clip(tiny_test_config(), seed=0)[1])
+    owl = _owl_params(tiny_owlvit_config())
+    _, yolo = _yolo_variables(tiny_yolo_config())
+    return {name: (tree, params_from_jax(_np(tree)))
+            for name, tree in (("clip", clip), ("owl", owl),
+                               ("yolo", yolo))}
+
+
+def _detectors(weights):
+    """(JAX, port) ``UniversalDetector``s on the tiny models."""
+    from avede_tpu.models.clip import tiny_test_config as jclip
+    from avede_tpu.models.owlvit import tiny_owlvit_config as jowl
+    from avede_tpu.models.yolo import tiny_yolo_config as jyolo
+    from avede_tpu.parallel.embed import ClipEngine as JEngine
+    from avede_tpu.parallel.mesh import build_mesh
+    from avede_tpu.services.detector import YoloService as JYolo
+    from avede_tpu.services.universal_detector import \
+        UniversalDetector as JDetector
+
+    from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.models.owlvit import tiny_owlvit_config
+    from avede_tpu_torch.models.yolo import tiny_yolo_config
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services.detector import YoloService
+    from avede_tpu_torch.services.universal_detector import \
+        UniversalDetector
+
+    jeng = JEngine(cfg=jclip(), params=weights["clip"][0],
+                   mesh=build_mesh(jax.devices()[:1]))
+    jdet = JDetector(jeng, owlvit_cfg=jowl(),
+                     owlvit_params=weights["owl"][0],
+                     yolo=JYolo(cfg=jyolo(), variables=weights["yolo"][0]))
+    teng = ClipEngine(cfg=tiny_test_config(), state_dict=weights["clip"][1],
+                      device="cpu")
+    tdet = UniversalDetector(
+        teng, owlvit_cfg=tiny_owlvit_config(),
+        owlvit_state_dict=weights["owl"][1],
+        yolo=YoloService(cfg=tiny_yolo_config(),
+                         state_dict=weights["yolo"][1], device="cpu"))
+    return jdet, tdet
+
+
+@pytest.fixture(scope="module")
+def detectors(weights):
+    return _detectors(weights)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return np.random.default_rng(0).integers(0, 255, (4, 64, 96, 3),
+                                             dtype=np.uint8)
+
+
+def _tie_groups(dets):
+    """Runs of neighbours whose confidences lie within SCORE_TOL."""
+    groups, cur = [], []
+    for d in dets:
+        if cur and abs(cur[-1]["confidence"] - d["confidence"]) > SCORE_TOL:
+            groups.append(cur)
+            cur = []
+        cur.append(d)
+    return groups + ([cur] if cur else [])
+
+
+def _same_entry(got, want) -> bool:
+    if set(got) != set(want):
+        return False
+    for key, w in want.items():
+        g = got[key]
+        if key == "bbox":
+            if max(abs(a - b) for a, b in zip(g, w)) > BOX_TOL:
+                return False
+        elif isinstance(w, float):
+            if abs(g - w) > SCORE_TOL:
+                return False
+        elif g != w:
+            return False
+    return True
+
+
+def assert_same_detections(got, ref):
+    """Same entries in the same order, except that entries whose
+    confidences lie within SCORE_TOL of a neighbour may swap."""
+    assert len(got) == len(ref)
+    pos = 0
+    for group in _tie_groups(ref):
+        mine = list(got[pos: pos + len(group)])
+        for want in group:
+            hit = next((i for i, g in enumerate(mine)
+                        if _same_entry(g, want)), None)
+            assert hit is not None, f"no match for {want} in {mine}"
+            mine.pop(hit)
+        pos += len(group)
+
+
+@pytest.mark.parametrize("mode,thr", [("owlvit", 0.0), ("clip", -1.0),
+                                      ("yolo_enhanced", 0.0),
+                                      ("hybrid", 0.0)])
+def test_detect_unlimited_objects_matches_jax(detectors, frames, mode, thr):
+    from avede_tpu.services.adaptive_threshold import \
+        DetectionContext as JContext
+
+    from avede_tpu_torch.services.adaptive_threshold import DetectionContext
+
+    jdet, tdet = detectors
+    batch = np.concatenate([frames, frames[-1:]])   # one duplicate frame
+    jctx = [JContext.from_frame(f, p) for f, p in zip(batch, [None, *batch])]
+    tctx = [DetectionContext.from_frame(f, p)
+            for f, p in zip(batch, [None, *batch])]
+    assert [dataclasses.asdict(c) for c in tctx] \
+        == [dataclasses.asdict(c) for c in jctx]
+    for adaptive in (False, True):
+        ref = jdet.detect_unlimited_objects(
+            batch, QUERIES, detection_mode=mode, conf_threshold=thr,
+            contexts=jctx, adaptive=adaptive)
+        got = tdet.detect_unlimited_objects(
+            batch, QUERIES, detection_mode=mode, conf_threshold=thr,
+            contexts=tctx, adaptive=adaptive)
+        assert len(got) == len(ref) == len(batch)
+        assert sum(map(len, got)) > 0
+        for g, r in zip(got, ref):
+            assert_same_detections(g, r)
+
+
+def test_yolo_service_matches_jax(detectors, frames):
+    jdet, tdet = detectors
+    ref = jdet.yolo.detect(frames, 0.0)
+    got = tdet.yolo.detect(frames, 0.0)
+    assert sum(map(len, got)) > 0
+    for g, r in zip(got, ref):
+        assert_same_detections(g, r)
+
+
+def test_embed_images_matches_jax(detectors, frames):
+    """Crops of different sizes, each preprocessed on its own (the 1, 4
+    and 16 buckets)."""
+    jdet, tdet = detectors
+    crops = [frames[0], frames[1, :20, :9], frames[2, 5:40, 3:61],
+             np.zeros((8, 8, 3), np.uint8), frames[3, :2, :2]]
+    for n in (1, 4, 5):
+        ref = jdet.engine.embed_images(crops[:n])
+        got = tdet.engine.embed_images(crops[:n])
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= REL_TOL
+
+
+def test_detection_edges(detectors, frames):
+    from avede_tpu.services.universal_detector import \
+        merge_detections as jmerge
+
+    from avede_tpu_torch.services.universal_detector import merge_detections
+
+    _, tdet = detectors
+    with pytest.raises(ValueError, match="unknown detection mode"):
+        tdet.detect_unlimited_objects(frames, ["x"], detection_mode="bogus")
+    assert tdet.detect_unlimited_objects(frames[:0], ["x"]) == []
+    dets = [{"bbox": [0, 0, 10, 10], "confidence": 0.9, "query": "a"},
+            {"bbox": [1, 1, 11, 11], "confidence": 0.5, "query": "a"},
+            {"bbox": [1, 1, 11, 11], "confidence": 0.5, "query": "b"},
+            {"bbox": [0, 0, 10, 10], "confidence": 0.7, "query": "b"}]
+    assert merge_detections(dets) == jmerge(dets)
+
+
+def test_adaptive_thresholds_match_jax():
+    from avede_tpu.services.adaptive_threshold import \
+        AdaptiveThresholdSystem as JAts
+    from avede_tpu.services.adaptive_threshold import \
+        DetectionContext as JContext
+
+    from avede_tpu_torch.services.adaptive_threshold import (
+        AdaptiveThresholdSystem, DetectionContext)
+
+    jats, ats = JAts(), AdaptiveThresholdSystem()
+    for ctx in (None, dict(noise_level=0.9, brightness=0.1),
+                dict(motion_level=0.8, edge_density=0.4, sharpness=0.1)):
+        for bbox in ([0, 0, 8, 8], [0, 0, 20, 20], [0, 0, 300, 300]):
+            for scale in (None, 256, 1024):
+                want = jats.calculate_threshold(
+                    bbox=bbox, scale=scale,
+                    context=JContext(**ctx) if ctx else None)
+                got = ats.calculate_threshold(
+                    bbox=bbox, scale=scale,
+                    context=DetectionContext(**ctx) if ctx else None)
+                assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    rng = np.random.default_rng(0)
+    for _ in range(150):
+        conf = float(rng.uniform(0, 1))
+        cat = ("small", "large")[int(rng.integers(0, 2))]
+        jats.record_outcome(cat, conf, was_correct=conf > 0.4)
+        ats.record_outcome(cat, conf, was_correct=conf > 0.4)
+    assert ats.optimize(min_samples=100) == jats.optimize(min_samples=100)
+    dets = [{"bbox": [0, 0, 8, 8], "confidence": 0.08},
+            {"bbox": [0, 0, 8, 8], "confidence": 0.02},
+            {"bbox": [0, 0, 300, 300], "confidence": 0.45}]
+    assert ats.apply(dets) == jats.apply(dets)
+
+
+# ---------------------------------------------------------------------------
+# the whole slice over a real mp4
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def whole_batches(monkeypatch):
+    """Both packages without the near-duplicate gate, so a video runs the
+    same two batch shapes through both (and the JAX package compiles
+    only those); ``test_detect_unlimited_objects_matches_jax`` holds the
+    gate."""
+    from avede_tpu.utils.config import settings as jsettings
+
+    monkeypatch.setattr(jsettings, "SCAN_DEDUP_EPS", 0.0)
+    monkeypatch.setattr(tsettings, "SCAN_DEDUP_EPS", 0.0)
+
+
+@pytest.fixture()
+def port_dirs(tmp_path, monkeypatch):
+    root = tmp_path / "port"
+    for attr, sub in [("DATA_DIR", ""), ("VIDEO_DIR", "videos"),
+                      ("CLIP_DIR", "clips"), ("FRAME_DIR", "frames"),
+                      ("EMBEDDING_DIR", "embeddings"), ("IMAGE_DIR", "images"),
+                      ("LOG_DIR", "logs")]:
+        p = root / sub if sub else root
+        p.mkdir(parents=True, exist_ok=True)
+        monkeypatch.setattr(tsettings, attr, str(p))
+    return root
+
+
+@pytest.mark.parametrize("batch,rate", [(16, 1), (16, 7), (5, 3)])
+def test_stream_batches_matches_jax(tmp_path, batch, rate):
+    from avede_tpu.io.video_reader import VideoReader as JReader
+
+    from avede_tpu_torch.io.video_reader import VideoReader
+
+    video = make_test_video(tmp_path / "s.mp4", n_frames=75)
+    ref = list(JReader().stream_batches(video, batch, sample_rate=rate,
+                                        max_frames=40))
+    got = list(VideoReader().stream_batches(video, batch, sample_rate=rate,
+                                            max_frames=40))
+    assert [len(f) for f, _ in got] == [len(f) for f, _ in ref]
+    for (gf, gt), (rf, rt) in zip(got, ref):
+        np.testing.assert_array_equal(gf, rf)
+        assert gt == rt
+
+
+def _match_results(got, ref):
+    assert got["total_found"] == ref["total_found"] == len(got["results"])
+    meta, want = dict(got["metadata"]), dict(ref["metadata"])
+    meta.pop("processing_time"), want.pop("processing_time")
+    assert meta == want
+    assert got["results"], "no detections to compare"
+    key = {"semantic": "semantic_relevance", "visual": "visual_quality",
+           "precise": "confidence"}.get(meta["matching_precision"],
+                                        "composite_score")
+    for res in (got, ref):
+        ranks = [r[key] for r in res["results"]]
+        assert ranks == sorted(ranks, reverse=True)
+    by_rank = [dict(r, confidence=r[key]) for r in ref["results"]]
+    mine = [dict(r, confidence=r[key]) for r in got["results"]]
+    assert_same_detections(mine, by_rank)
+
+
+@pytest.mark.parametrize("mode,precision", [
+    ("owlvit", "balanced"), ("clip", "comprehensive"),
+    ("yolo_enhanced", "visual"), ("hybrid", "semantic")])
+def test_match_unlimited_objects_matches_jax(detectors, whole_batches,
+                                             tmp_path, mode, precision):
+    from avede_tpu.services.open_vocab_matcher import \
+        OpenVocabMatcher as JMatcher
+
+    from avede_tpu_torch.services.open_vocab_matcher import OpenVocabMatcher
+
+    jdet, tdet = detectors
+    video = make_test_video(tmp_path / "m.mp4", n_frames=20)
+    kw = dict(detection_mode=mode, matching_precision=precision, top_k=25,
+              confidence_threshold=0.0)
+    ref = JMatcher(jdet.engine, detector=jdet).match_unlimited_objects(
+        video, QUERIES, **kw)
+    got = OpenVocabMatcher(tdet.engine, detector=tdet
+                           ).match_unlimited_objects(video, QUERIES, **kw)
+    assert got["metadata"]["frames_processed"] == 20
+    _match_results(got, ref)
+
+
+def test_process_unlimited_detection_matches_jax(detectors, whole_batches,
+                                                 tmp_data_dirs, port_dirs):
+    """The facade: ``hybrid`` (the default) with a list of queries,
+    ``clip`` with one string query, and the error envelope. (The video
+    and thresholds are the matcher test's, so the JAX package reuses its
+    compiled programs.)"""
+    from avede_tpu.services.video_processor import VideoProcessor as JProc
+
+    from avede_tpu_torch.services.video_processor import VideoProcessor
+
+    jdet, tdet = detectors
+    jproc, tproc = JProc(engine=jdet.engine), VideoProcessor(
+        engine=tdet.engine)
+    jproc._universal_detector, tproc._universal_detector = jdet, tdet
+    video = make_test_video(tmp_data_dirs / "videos" / "p.mp4", n_frames=20)
+    for queries, mode in ((QUERIES, "hybrid"), ("a white square", "clip")):
+        kw = dict(top_k=12, confidence_threshold=0.0, video_id="p")
+        if mode != "hybrid":
+            kw["detection_mode"] = mode
+        ref = jproc.process_unlimited_detection(video, queries, **kw)
+        got = tproc.process_unlimited_detection(video, queries, **kw)
+        assert got["status"] == ref["status"] == "completed"
+        for key in ("queries", "detection_mode", "matching_precision"):
+            assert got[key] == ref[key]
+        assert got["metadata"]["frames_processed"] == 20
+        _match_results(got, ref)
+    ref = jproc.process_unlimited_detection(video, "x",
+                                            detection_mode="bogus")
+    got = tproc.process_unlimited_detection(video, "x",
+                                            detection_mode="bogus")
+    for env in (ref, got):
+        env.pop("task_id"), env.pop("timestamp", None)
+    assert got == ref and got["status"] == "error"
+
+
+def test_dedup_and_suggestions_match_jax(detectors):
+    from avede_tpu.services.open_vocab_matcher import \
+        OpenVocabMatcher as JMatcher
+
+    from avede_tpu_torch.services.open_vocab_matcher import OpenVocabMatcher
+
+    boxes, times, qids = _dedup_case(5, 400)
+    results = [{"bbox": b.tolist(), "timestamp": float(t),
+                "query": QUERIES[q], "composite_score": float(s)}
+               for b, t, q, s in zip(boxes, times, qids, np.random.default_rng(
+                   5).integers(0, 50, len(boxes)) / 50)]
+    assert OpenVocabMatcher._deduplicate(results) \
+        == JMatcher._deduplicate(results)
+    jdet, tdet = detectors
+    jm, tm = JMatcher(jdet.engine, jdet), OpenVocabMatcher(tdet.engine, tdet)
+    for partial in ("", "car", "zzz"):
+        assert tm.suggest_queries(partial) == jm.suggest_queries(partial)

@@ -117,6 +117,87 @@ def test_blip_vision_layer_launches_flash(cuda):
     assert float(cos.min()) >= 0.99
 
 
+def test_flash_blhd_kernel_at_owlvit_shape(cuda):
+    """OWL-ViT B/32's vision attention: a 16-frame batch of 577 tokens,
+    q, k, v each a projection's own [B, L, 768] output viewed per head
+    (contiguous heads, row stride 768)."""
+    g = torch.Generator(device="cuda").manual_seed(577)
+    q, k, v = (torch.randn(16, 577, 768, device=cuda, generator=g
+                           ).to(torch.bfloat16).view(16, 577, 12, 64)
+               for _ in range(3))
+    before = tattn.flash_attention_blhd.launches_by_length[577]
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[577] == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("bsz", [1024, 256, 4])
+def test_flash_blhd_kernel_at_clip_detection_shapes(cuda, bsz):
+    """CLIP's vision attention on the detection path: the 8 × 8 grid of
+    a 16-frame batch (1024 cells) and crop buckets of ``embed_pixels``,
+    50 tokens each, contiguous heads."""
+    g = torch.Generator(device="cuda").manual_seed(bsz)
+    q, k, v = (torch.randn(bsz, 50, 768, device=cuda, generator=g
+                           ).to(torch.bfloat16).view(bsz, 50, 12, 64)
+               for _ in range(3))
+    before = tattn.flash_attention_blhd.launches_by_length[50]
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[50] == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+def test_owlvit_tower_launches_flash_per_layer(cuda):
+    """OWL-ViT B/32 on the card (bf16, depth 2): one flash launch at
+    L = 577 per vision layer, logits and boxes against the CPU's f32
+    plain path on the same weights (row cosine >= 0.99)."""
+    import dataclasses
+
+    from avede_tpu_torch.models.owlvit import (init_owlvit,
+                                               owlvit_base_patch32)
+
+    cfg = dataclasses.replace(owlvit_base_patch32(), vision_depth=2,
+                              text_depth=2, use_flash=True)
+    cpu = init_owlvit(cfg, seed=0).eval()
+    card = init_owlvit(dataclasses.replace(cfg, dtype="bfloat16"), seed=0
+                       ).to(cuda, torch.bfloat16).eval()
+    px = torch.randn(2, 768, 768, 3, generator=torch.Generator().manual_seed(0))
+    ids = torch.tensor([[1, 5, 9, 49407] + [0] * 12,
+                        [1, 7, 49407] + [0] * 13])
+    before = tattn.flash_attention_blhd.launches_by_length[577]
+    with torch.inference_mode():
+        logits, boxes = card(px.to(cuda), ids.to(cuda))
+        ref_logits, ref_boxes = cpu(px, ids)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[577] == before + 2
+    for got, ref in ((logits, ref_logits), (boxes, ref_boxes)):
+        cos = torch.nn.functional.cosine_similarity(
+            got.float().cpu().flatten(1), ref.flatten(1), -1)
+        assert float(cos.min()) >= 0.99
+    with pytest.raises(ValueError, match="bfloat16"):
+        init_owlvit(cfg, seed=0).to(cuda).eval()(px[:1].to(cuda), ids[:1].to(cuda))
+
+
+def test_yolo_forward_on_card_matches_cpu(cuda):
+    """YOLOv8n at 640 px in bf16 on the card (``F.conv2d``) against the
+    CPU's f32 forward on the same weights."""
+    from avede_tpu_torch.models.yolo import init_yolo, yolov8n
+
+    cpu = init_yolo(yolov8n(), seed=0).eval()
+    card = init_yolo(yolov8n(), seed=0).to(cuda, torch.bfloat16).eval()
+    x = torch.rand(1, 640, 640, 3, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        got, ref = card(x.to(cuda)), cpu(x)
+    for (gb, gc), (rb, rc) in zip(got, ref):
+        for a, b in ((gb, rb), (gc, rc)):
+            cos = torch.nn.functional.cosine_similarity(
+                a.cpu().flatten(), b.flatten(), 0)
+            assert float(cos) >= 0.99
+
+
 def test_attention_layer_launches_bf16_entry_only(cuda):
     from avede_tpu_torch.models.layers import MultiHeadAttention
 

@@ -27,6 +27,12 @@ with ``torch.profiler`` (CPU + CUDA activities):
   grounding head over the whole table), after one unprofiled
   ``advanced`` call that captions its extra candidates and backfills
   the table;
+- ``detection_hybrid``: one warm ``hybrid``
+  ``VideoProcessor.process_unlimited_detection`` call (OWL-ViT B/32 +
+  the CLIP grid, 200 frames of ``chip_smoke.py``'s source, as its phase
+  9), after one unprofiled call; the row adds the host seconds of its
+  stages (frame statistics, the two detectors, crop embeddings, crop
+  scores, temporal dedup), timed by wrappers around them;
 - ``vision_bucket``: the vision tower alone on one 128-frame bucket of
   packed I420 frames (``ClipEngine._embed_device``), over five buckets,
   reported per bucket as well;
@@ -38,7 +44,7 @@ with ``torch.profiler`` (CPU + CUDA activities):
 For each window it prints one JSON line: host wall ms, device busy ms
 (union of device kernel and copy intervals) and their count, device
 idle share (1 − busy / wall), the wall of the ``phase1.*``,
-``phase2.*`` and ``phase3.*`` spans, and
+``phase2.*``, ``phase3.*``, ``owlvit.*`` and ``yolo.*`` spans, and
 the top device kernels by total time. It writes a Chrome trace per window
 under ``--out``. A last line times the host stages of one dense scan
 outside the profiler: frame synthesis, the I420 pack, the dedup
@@ -61,9 +67,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 WINDOWS = ("vision_bucket", "cold", "warm", "rerank_cold", "rerank_warm",
-           "advanced_warm", "library_cold", "library_warm",
-           "dense_scan_stages", "index_search")
-SPANS = ("phase1.", "phase2.", "phase3.")
+           "advanced_warm", "detection_hybrid", "library_cold",
+           "library_warm", "dense_scan_stages", "index_search")
+SPANS = ("phase1.", "phase2.", "phase3.", "owlvit.", "yolo.")
 
 
 def _device_work(events, cuda_type) -> list:
@@ -184,6 +190,8 @@ def main() -> None:
         if windows & {"rerank_cold", "rerank_warm", "advanced_warm"}:
             _rerank_windows(torch, np, engine, video, acts, card, out,
                             Path(tmp) / "rerank", windows)
+        if "detection_hybrid" in windows:
+            _detection_window(torch, engine, video, acts, card, out)
 
         # library search, default (bfloat16) tier
         if not windows & {"library_cold", "library_warm",
@@ -275,6 +283,62 @@ def _rerank_windows(torch, np, engine, video, acts, card, out, cache_dir,
         if name in windows:
             _report(torch, prof, wall_ms, name, card, calls, out,
                     decode_steps=cap.model.decode_steps)
+
+
+def _detection_window(torch, engine, video, acts, card, out) -> None:
+    """One warm ``hybrid`` detection call under the profiler, with the
+    host seconds of its stages."""
+    from torch.profiler import profile
+
+    import chip_smoke
+    from avede_tpu_torch.services import (adaptive_threshold, detector,
+                                          open_vocab_matcher,
+                                          universal_detector,
+                                          video_processor)
+
+    video_processor.validate_video = lambda path: None
+    proc = video_processor.VideoProcessor(engine=engine)
+    proc.open_vocab.reader = video
+    stages = {}
+
+    def timed(owner, name, label):
+        fn = getattr(owner, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stages[label] = stages.get(label, 0.0) \
+                    + time.perf_counter() - t0
+        setattr(owner, name, wrapper)
+
+    timed(adaptive_threshold.DetectionContext, "from_frame",
+          "frame_statistics")
+    timed(universal_detector.UniversalDetector, "_owl_run", "owlvit")
+    timed(detector.ClipGridDetector, "cell_scores", "clip_grid")
+    timed(detector.ClipEngine, "embed_images", "crop_embeddings")
+    timed(open_vocab_matcher.OpenVocabMatcher, "_enhance", "crop_scores")
+    timed(open_vocab_matcher.hostops, "temporal_dedup", "temporal_dedup")
+
+    def call():
+        res = proc.process_unlimited_detection(
+            "memory://detection-street", chip_smoke.DETECTION_QUERIES,
+            matching_precision="comprehensive", top_k=25,
+            confidence_threshold=0.1, video_id="detection-street")
+        if res["status"] != "completed":
+            sys.exit(f"profile_torch_mvp: detection: {res}")
+
+    call()                                       # unprofiled warm-up
+    stages.clear()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _report(torch, prof, wall_ms, "detection_hybrid", card, 1, out,
+            host_stages_s=stages)
 
 
 def _vision_bucket(torch, np, engine, video, acts, card, out,
