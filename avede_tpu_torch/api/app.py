@@ -10,15 +10,28 @@ routes of the ported slices, answering as the JAX routes do.
 - ``POST /api/unlimited-detection`` — ``{video_id, object_queries,
   detection_mode, matching_precision, top_k, confidence_threshold,
   debug_mode}``: open-vocabulary detection over the video;
+- ``POST /api/small-object-detection`` — ``{video_id, object_queries,
+  enable_background_independence, enable_adaptive_thresholds,
+  enable_rpn, min_object_size, max_object_size, confidence_threshold,
+  top_k, detection_mode, debug_mode}``: tiled small-object detection;
+- ``POST /api/background-independence`` — ``{video_id, object_queries,
+  background_removal_strength, contrastive_learning_enabled,
+  shape_descriptor_enabled, confidence_threshold, top_k, debug_mode}``:
+  background-independent matching;
+- ``POST /api/upload-image`` — multipart ``file`` →
+  ``data/images/<id>.<ext>``;
 - ``GET  /api/download/{clip_filename}`` — a cut clip (no path
   separators or ``..`` in the name);
-- ``GET  /api/videos``, ``GET /api/clips`` — uploaded videos, cut clips;
-- ``GET  /api/detection-modes`` — detection modes and precisions.
+- ``GET  /api/videos``, ``GET /api/clips``, ``GET /api/images`` —
+  uploaded videos, cut clips, uploaded images;
+- ``GET  /api/detection-modes`` — detection modes and precisions;
+- ``GET  /api/small-object-capabilities`` — the small-object path's
+  settings.
 
 Request bodies are coerced as the JAX package's pydantic 2 models do in
 their lax mode (``"5"``, ``5.0`` and ``true`` are the int 5, 5 and 1;
-``"0.3"`` is the float 0.3), by hand: the machine with the card has no
-pydantic. Every answer carries the ``Access-Control-Allow-*`` headers of
+``"0.3"`` is the float 0.3; ``"yes"`` and ``1`` are True, ``2`` is
+refused), by hand: the machine with the card has no pydantic. Every answer carries the ``Access-Control-Allow-*`` headers of
 ``settings.CORS_ORIGINS``, and OPTIONS is answered for every path.
 
 aiohttp is imported inside ``create_app`` and the handlers, so importing
@@ -171,7 +184,7 @@ def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
                 isinstance(x, str) for x in v)) else _INVALID
         elif kind == "int?":
             v = _lax_int(v)
-        elif kind == "float?":
+        elif kind in ("float", "float?"):
             v = _lax_float(v)
         elif kind == "bool":
             v = _lax_bool(v)
@@ -181,7 +194,8 @@ def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
     return out
 
 
-# the fields of the JAX package's QueryRequest and UnlimitedDetectionRequest
+# the fields of the JAX package's QueryRequest, UnlimitedDetectionRequest,
+# SmallObjectDetectionRequest and BackgroundIndependenceRequest
 _QUERY_FIELDS = (("video_id", "str", _INVALID), ("query", "str", _INVALID),
                  ("mode", "str", "mvp"), ("top_k", "int?", None),
                  ("threshold", "float?", None))
@@ -192,6 +206,40 @@ _DETECTION_FIELDS = (("video_id", "str", _INVALID),
                      ("top_k", "int?", 10),
                      ("confidence_threshold", "float?", 0.3),
                      ("debug_mode", "bool", False))
+_SMALL_OBJECT_FIELDS = (("video_id", "str", _INVALID),
+                        ("object_queries", "str|list[str]", _INVALID),
+                        ("enable_background_independence", "bool", True),
+                        ("enable_adaptive_thresholds", "bool", True),
+                        ("enable_rpn", "bool", True),
+                        ("min_object_size", "int?", 16),
+                        ("max_object_size", "int?", 128),
+                        ("confidence_threshold", "float?", 0.2),
+                        ("top_k", "int?", 20),
+                        ("detection_mode", "str", "clip"),
+                        ("debug_mode", "bool", False))
+_BACKGROUND_FIELDS = (("video_id", "str", _INVALID),
+                      ("object_queries", "str|list[str]", _INVALID),
+                      ("background_removal_strength", "float", 0.8),
+                      ("contrastive_learning_enabled", "bool", True),
+                      ("shape_descriptor_enabled", "bool", True),
+                      ("confidence_threshold", "float?", 0.3),
+                      ("top_k", "int?", 15),
+                      ("debug_mode", "bool", False))
+_QUERIES_DETAIL = ("body needs string video_id and object_queries (a "
+                   "string or a list of strings)")
+
+
+async def _parse(request, fields, detail: str):
+    """(the body's fields, None), or (None, a 422 answer) where the body
+    is not JSON or not valid for ``fields``."""
+    try:
+        body = await request.json()
+    except ValueError:
+        return None, _json({"detail": "invalid JSON body"}, 422)
+    req = _lax_fields(body, fields)
+    if req is None:
+        return None, _json({"detail": detail}, 422)
+    return req, None
 
 
 async def health(request):
@@ -306,15 +354,11 @@ def _resolve_or_none(state: ApiState, video_id: str) -> Optional[str]:
 
 async def query(request):
     state: ApiState = request.app["state"]
-    try:
-        body = await request.json()
-    except ValueError:
-        return _json({"detail": "invalid JSON body"}, 422)
-    req = _lax_fields(body, _QUERY_FIELDS)
-    if req is None:
-        return _json({"detail": "body needs string video_id and query; "
-                                "optional string mode, integer top_k, "
-                                "number threshold"}, 422)
+    req, refused = await _parse(
+        request, _QUERY_FIELDS, "body needs string video_id and query; "
+        "optional string mode, integer top_k, number threshold")
+    if refused is not None:
+        return refused
     video = _resolve_or_none(state, req["video_id"])
     if video is None:
         return _json({"detail": f"video not found: {req['video_id']}"}, 404)
@@ -329,18 +373,12 @@ async def query(request):
 async def unlimited_detection(request):
     """Open-vocabulary detection of ``object_queries`` over a video."""
     state: ApiState = request.app["state"]
-    try:
-        body = await request.json()
-    except ValueError:
-        return _json({"detail": "invalid JSON body"}, 422)
-    req = _lax_fields(body, _DETECTION_FIELDS)
-    if req is None:
-        return _json({"detail": "body needs string video_id and "
-                                "object_queries (a string or a list of "
-                                "strings); optional string detection_mode "
-                                "and matching_precision, integer top_k, "
-                                "number confidence_threshold, boolean "
-                                "debug_mode"}, 422)
+    req, refused = await _parse(
+        request, _DETECTION_FIELDS, _QUERIES_DETAIL + "; optional string "
+        "detection_mode and matching_precision, integer top_k, number "
+        "confidence_threshold, boolean debug_mode")
+    if refused is not None:
+        return refused
     video = _resolve_or_none(state, req["video_id"])
     if video is None:
         return _json({"detail": f"video not found: {req['video_id']}"}, 404)
@@ -354,6 +392,88 @@ async def unlimited_detection(request):
             confidence_threshold=req["confidence_threshold"],
             video_id=req["video_id"])
     return _json(out, 200 if out.get("status") != "error" else 500)
+
+
+async def small_object_detection(request):
+    """Tiled small-object detection of ``object_queries`` over a video."""
+    state: ApiState = request.app["state"]
+    req, refused = await _parse(
+        request, _SMALL_OBJECT_FIELDS, _QUERIES_DETAIL + "; optional "
+        "booleans enable_background_independence, "
+        "enable_adaptive_thresholds, enable_rpn and debug_mode, integers "
+        "min_object_size, max_object_size and top_k, number "
+        "confidence_threshold, string detection_mode")
+    if refused is not None:
+        return refused
+    video = _resolve_or_none(state, req["video_id"])
+    if video is None:
+        return _json({"detail": f"video not found: {req['video_id']}"}, 404)
+    with get_monitor().track("small_object_detection"):
+        out = await _run_blocking(
+            state.processor.process_small_object_detection, video,
+            req["object_queries"], video_id=req["video_id"],
+            min_object_size=req["min_object_size"],
+            max_object_size=req["max_object_size"],
+            confidence_threshold=req["confidence_threshold"],
+            top_k=req["top_k"],
+            enable_background_independence=req[
+                "enable_background_independence"],
+            enable_adaptive_thresholds=req["enable_adaptive_thresholds"],
+            enable_rpn=req["enable_rpn"],
+            detection_mode=req["detection_mode"])
+    return _json(out, 200 if out.get("status") != "error" else 500)
+
+
+async def background_independence(request):
+    """Background-independent matching of ``object_queries`` over a
+    video."""
+    state: ApiState = request.app["state"]
+    req, refused = await _parse(
+        request, _BACKGROUND_FIELDS, _QUERIES_DETAIL + "; optional numbers "
+        "background_removal_strength and confidence_threshold, integer "
+        "top_k, booleans contrastive_learning_enabled, "
+        "shape_descriptor_enabled and debug_mode")
+    if refused is not None:
+        return refused
+    video = _resolve_or_none(state, req["video_id"])
+    if video is None:
+        return _json({"detail": f"video not found: {req['video_id']}"}, 404)
+    with get_monitor().track("background_independence"):
+        out = await _run_blocking(
+            state.processor.process_background_independence, video,
+            req["object_queries"], video_id=req["video_id"],
+            background_removal_strength=req["background_removal_strength"],
+            confidence_threshold=req["confidence_threshold"],
+            top_k=req["top_k"])
+    return _json(out, 200 if out.get("status") != "error" else 500)
+
+
+async def upload_image(request):
+    reader = await request.multipart()
+    field = None
+    async for part in reader:
+        if part.name == "file":
+            field = part
+            break
+    if field is None:
+        return _json({"detail": "missing 'file' field"}, 422)
+    filename = field.filename or "image.jpg"
+    ext = Path(filename).suffix.lstrip(".").lower()
+    if ext not in ("jpg", "jpeg", "png", "bmp", "webp"):
+        return _json({"detail": f"unsupported image format '{ext}'"}, 400)
+    image_id = uuid.uuid4().hex
+    dest = Path(settings.IMAGE_DIR)
+    dest.mkdir(parents=True, exist_ok=True)
+    path = dest / f"{image_id}.{ext}"
+    data = bytearray()
+    while True:
+        chunk = await field.read_chunk(1 << 20)
+        if not chunk:
+            break
+        data.extend(chunk)
+    path.write_bytes(data)
+    return _json({"image_id": image_id, "status": "uploaded",
+                  "filename": filename, "path": str(path), "size": len(data)})
 
 
 async def download_clip(request):
@@ -394,6 +514,18 @@ async def list_clips(request):
     return _json({"clips": clips})
 
 
+async def list_images(request):
+    base = Path(settings.IMAGE_DIR)
+    images = []
+    if base.exists():
+        for p in sorted(base.glob("*")):
+            if p.is_file():
+                st = p.stat()
+                images.append({"image_id": p.stem, "filename": p.name,
+                               "size": st.st_size, "created": st.st_ctime})
+    return _json({"images": images})
+
+
 async def detection_modes(request):
     descriptions = {
         "hybrid": "OWL-ViT ∥ CLIP-grid fusion (best coverage)",
@@ -408,6 +540,38 @@ async def detection_modes(request):
         "matching_precisions": [
             {"precision": k, "confidence_threshold": v}
             for k, v in settings.MATCHING_PRECISIONS.items()],
+    })
+
+
+async def small_object_capabilities(request):
+    return _json({
+        "capabilities": {
+            "tiled_inference": {
+                "description": "Fixed-grid tiling of high-resolution frames "
+                               "with overlap, batched through the detector "
+                               "on-device, merged by padded NMS",
+                "tile_size": settings.TILE_SIZE,
+                "tile_overlap": settings.TILE_OVERLAP,
+            },
+            "adaptive_thresholds": {
+                "description": "Size-category and context-aware confidence "
+                               "thresholds",
+                "size_categories": settings.SMALL_OBJECT_SIZES,
+                "base_thresholds": settings.SMALL_OBJECT_BASE_THRESHOLDS,
+                "confidence_boosts": settings.SMALL_OBJECT_BOOSTS,
+            },
+            "region_proposals": {
+                "description": "Saliency + motion region proposals for "
+                               "focused small-object scanning",
+                "max_proposals": settings.RPN_MAX_PROPOSALS,
+            },
+            "background_independence": {
+                "description": "Segmentation-based background removal with "
+                               "shape descriptors + multi-colorspace "
+                               "embeddings",
+            },
+        },
+        "multi_scale_weights": settings.MULTI_SCALE_WEIGHTS,
     })
 
 
@@ -460,10 +624,15 @@ def create_app(processor=None, device: Optional[str] = None):
         web.post("/api/query", query),
         web.post("/api/search-library", search_library),
         web.post("/api/unlimited-detection", unlimited_detection),
+        web.post("/api/small-object-detection", small_object_detection),
+        web.post("/api/background-independence", background_independence),
+        web.post("/api/upload-image", upload_image),
         web.get("/api/download/{clip_filename}", download_clip),
         web.get("/api/videos", list_videos),
         web.get("/api/clips", list_clips),
+        web.get("/api/images", list_images),
         web.get("/api/detection-modes", detection_modes),
+        web.get("/api/small-object-capabilities", small_object_capabilities),
     ])
     return app
 
@@ -478,9 +647,16 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     from aiohttp import web
 
+    from ..utils.system import ResourceMonitor, optimized_context
+
     logger.info("Starting API on %s:%d", args.host, args.port)
-    web.run_app(create_app(device=args.device), host=args.host,
-                port=args.port, print=lambda *a: None)
+    monitor = ResourceMonitor().start()
+    try:
+        with optimized_context():
+            web.run_app(create_app(device=args.device), host=args.host,
+                        port=args.port, print=lambda *a: None)
+    finally:
+        monitor.stop()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ that decode, so importing this module needs no cv2).
   container reports garbage;
 - RGB uint8 output (decoder-native BGR through a ``finish`` hook);
 - ``stream_batches`` coalesces the stream into exact ``batch``-sized
-  (frames, timestamps) pairs for the detection path;
+  (frames, timestamps) pairs for the detection path, and
+  ``extract_frames`` gives the whole stream at once (small-object
+  detection);
 - seeks to single frames by timestamp (``read_frames_at``) for the
   phase-2 candidates that scan retention does not hold.
 """
@@ -103,6 +105,19 @@ class VideoReader:
         self.sample_rate = sample_rate or settings.FRAME_SAMPLE_RATE
         self.max_frames = max_frames or settings.MAX_FRAMES
         self.max_side = max_side or settings.FRAME_MAX_SIZE
+
+    def extract_frames(self, path: str,
+                       sample_rate: Optional[int] = None,
+                       max_frames: Optional[int] = None
+                       ) -> Tuple[np.ndarray, List[float]]:
+        """→ (uint8 [N, H, W, 3] RGB, timestamps seconds): the whole
+        sampled stream at once."""
+        chunks = list(self.stream_frames(path, sample_rate=sample_rate,
+                                         max_frames=max_frames,
+                                         chunk=1 << 30))
+        frames = np.concatenate([c for c, _ in chunks], axis=0)
+        timestamps = [t for _, ts in chunks for t in ts]
+        return frames, timestamps
 
     def stream_frames(self, path: str, chunk: int = 256,
                       sample_rate: Optional[int] = None,

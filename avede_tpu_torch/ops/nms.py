@@ -86,20 +86,24 @@ def nms_per_class(boxes: torch.Tensor, scores: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """Per-class NMS by the coordinate-offset trick: each frame's boxes
-    of class c move by c × (its largest coordinate + 1), so one
+    move by −lo + c × span, with lo the frame's least coordinate (0 when
+    none is negative) and span its coordinate range + 1, so one
     class-agnostic pass suppresses only within a class; the class and
     the coordinates come back from the shift → (boxes, scores, classes,
     valid)."""
-    span = boxes.amax(dim=(-2, -1), keepdim=True) + 1.0     # per frame
-    shifted = boxes + classes.float()[..., None] * span
+    lo = boxes.amin(dim=(-2, -1), keepdim=True).clamp(max=0.0)
+    span = boxes.amax(dim=(-2, -1), keepdim=True) - lo + 1.0  # per frame
+    shifted = boxes - lo + classes.float()[..., None] * span
     ob, os_, valid = nms_padded(shifted, scores, iou_threshold, max_out,
                                 presorted=presorted)
-    # with 0 <= coord < span, floor(x0 / span) is exactly the class id.
-    # A box with x0 < 0 (YOLO's decoded boxes are not clipped) breaks
-    # that: a class c >= 1 box comes back as class c - 1 with x0 shifted
-    # by +span, and may overlap the neighbouring class's region. The JAX
-    # package's nms_per_class does the same; this copy keeps its answers.
+    # a kept box's x0 − lo lies in [0, span), so floor(x0 / span) of the
+    # shifted x0 is its class. Boxes with x0 < 0 (YOLO's decoded boxes
+    # are not clipped) are why lo is subtracted: the JAX package's
+    # nms_per_class shifts by c × (max + 1) alone and returns such a
+    # class c >= 1 box as class c − 1 with every coordinate moved. With
+    # every coordinate >= 0, lo is 0 and the arithmetic is the JAX
+    # package's.
     span_out = span[..., 0]
     cls_out = torch.floor(ob[..., 0] / span_out).clamp(min=0)
-    boxes_out = ob - cls_out[..., None] * span
+    boxes_out = ob - cls_out[..., None] * span + lo
     return boxes_out, os_, cls_out.to(classes.dtype), valid

@@ -2,8 +2,10 @@
 
 Device side (torch, NHWC like the JAX package): central square crop,
 antialiased bicubic resize and CLIP normalisation (``clip_preprocess``),
-BLIP's straight resize + normalisation (``blip_preprocess``), and the
-I420 unpack of the compact transfer codec (``clip_preprocess_i420``).
+BLIP's straight resize + normalisation (``blip_preprocess``), the same
+crop and resize with ImageNet's normalisation (``imagenet_preprocess``,
+EfficientNet's input), and the I420 unpack of the compact transfer
+codec (``clip_preprocess_i420``).
 
 Host side (numpy, no cv2): ``pack_frames_rgb`` and ``pack_frames_i420``
 shrink decoded frames to the model geometry before the host→device
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 # OpenAI CLIP normalization constants.
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -54,9 +58,10 @@ def resize_frames(frames: torch.Tensor, size: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _normalize(x: torch.Tensor) -> torch.Tensor:
-    mean = torch.as_tensor(CLIP_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.as_tensor(CLIP_STD, dtype=x.dtype, device=x.device)
+def _normalize(x: torch.Tensor, mean: np.ndarray = CLIP_MEAN,
+               std: np.ndarray = CLIP_STD) -> torch.Tensor:
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
     return (x - mean) / std
 
 
@@ -77,6 +82,15 @@ def blip_preprocess(frames: torch.Tensor, size: int = 384) -> torch.Tensor:
     /255, then the CLIP constants (HF ``BlipImageProcessor``)."""
     x = resize_frames(frames.float() / 255.0, size)
     return _normalize(x)
+
+
+def imagenet_preprocess(frames: torch.Tensor, size: int = 224
+                        ) -> torch.Tensor:
+    """uint8 [N, H, W, 3] → float32 [N, size, size, 3]: central square
+    crop, /255, bicubic resize, ImageNet normalisation (EfficientNet's
+    input)."""
+    x = central_square_crop(frames).float() / 255.0
+    return _normalize(resize_frames(x, size), IMAGENET_MEAN, IMAGENET_STD)
 
 
 def clip_preprocess_i420(packed: torch.Tensor, normalize: bool = True,

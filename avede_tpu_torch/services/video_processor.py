@@ -7,8 +7,11 @@ BLIP caption rerank, ``advanced`` → phase 3's temporal grounding),
 threshold filtering, per-result clip extraction and typed error
 envelopes; and open-vocabulary detection over a whole video
 (``process_unlimited_detection``: OWL-ViT, the CLIP grid and YOLO
-through ``OpenVocabMatcher``). The heavier pipelines and detectors are
-built at first use over the one shared CLIP engine.
+through ``OpenVocabMatcher``), tiled small-object detection
+(``process_small_object_detection``) and background-independent matching
+(``process_background_independence``). The heavier pipelines and
+detectors are built at first use over the one shared CLIP engine, and
+the detection services share one ``UniversalDetector``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ class VideoProcessor:
         self._phase3 = None
         self._universal_detector = None
         self._open_vocab = None
+        self._small_object = None
+        self._background = None
 
     # -- lazy pipelines (BLIP and the grounding head load on first use) --
     @property
@@ -80,6 +85,24 @@ class VideoProcessor:
             self._open_vocab = OpenVocabMatcher(
                 self.engine, detector=self.universal_detector)
         return self._open_vocab
+
+    @property
+    def small_object(self):
+        if self._small_object is None:
+            from .small_object import SmallObjectService
+
+            self._small_object = SmallObjectService(
+                self.engine, detector=self.universal_detector)
+        return self._small_object
+
+    @property
+    def background(self):
+        if self._background is None:
+            from .background_independent import BackgroundIndependentService
+
+            self._background = BackgroundIndependentService(
+                self.engine, detector=self.universal_detector)
+        return self._background
 
     def resolve_video(self, video_id: str) -> str:
         """``data/videos/<id>.<ext>`` lookup over the supported
@@ -188,4 +211,52 @@ class VideoProcessor:
                         "detection_mode": detection_mode,
                         "matching_precision": matching_precision,
                         "metadata": {}})
+            return env
+
+    def process_small_object_detection(self, video_path: str, object_queries,
+                                       video_id: Optional[str] = None,
+                                       **kwargs) -> Dict[str, Any]:
+        """Tiled small-object detection of ``object_queries`` (a string
+        or a list of strings); ``kwargs`` go to
+        ``SmallObjectService.detect_in_video``."""
+        task_id = uuid.uuid4().hex
+        try:
+            validate_video(video_path)
+            queries = ([object_queries] if isinstance(object_queries, str)
+                       else list(object_queries))
+            out = self.small_object.detect_in_video(
+                video_path, queries, video_id=video_id, **kwargs)
+            return {"task_id": task_id, "status": "completed",
+                    "queries": queries, **out}
+        except Exception as exc:  # noqa: BLE001 — typed error envelope
+            error_log.record(exc, component="small_object_detection")
+            env = error_envelope(task_id, exc)
+            env.update({"queries": object_queries
+                        if isinstance(object_queries, list)
+                        else [object_queries],
+                        "small_objects_found": 0, "enhancement_stats": {},
+                        "metadata": {}})
+            return env
+
+    def process_background_independence(self, video_path: str, object_queries,
+                                        video_id: Optional[str] = None,
+                                        **kwargs) -> Dict[str, Any]:
+        """Background-independent matching of ``object_queries``;
+        ``kwargs`` go to ``BackgroundIndependentService.match_in_video``."""
+        task_id = uuid.uuid4().hex
+        try:
+            validate_video(video_path)
+            queries = ([object_queries] if isinstance(object_queries, str)
+                       else list(object_queries))
+            out = self.background.match_in_video(
+                video_path, queries, video_id=video_id, **kwargs)
+            return {"task_id": task_id, "status": "completed",
+                    "queries": queries, **out}
+        except Exception as exc:  # noqa: BLE001 — typed error envelope
+            error_log.record(exc, component="background_independence")
+            env = error_envelope(task_id, exc)
+            env.update({"queries": object_queries
+                        if isinstance(object_queries, list)
+                        else [object_queries],
+                        "background_independence_stats": {}, "metadata": {}})
             return env

@@ -5,7 +5,8 @@ package's settings that this port reads, and the same environment
 overrides: every field can be set by an environment variable of its
 name; numbers, booleans, lists and dicts parse as JSON. Only the
 settings the ported paths (the ``mvp``, ``reranked`` and ``advanced``
-queries, library search, open-vocabulary detection) read are here.
+queries, library search, open-vocabulary, small-object and
+background-independent detection) read are here.
 """
 
 import dataclasses
@@ -53,6 +54,7 @@ class Settings:
     UNIVTG_WEIGHTS: Optional[str] = None
     YOLO_WEIGHTS: Optional[str] = None
     OWLVIT_WEIGHTS: Optional[str] = None
+    FEATURE_EXTRACTOR_WEIGHTS: Optional[str] = None   # EfficientNet-B0 .npz
     TOKENIZER_VOCAB: Optional[str] = dataclasses.field(
         default_factory=lambda: _bundled_asset("clip_bpe_merges.txt.gz"))
     BLIP_VOCAB: Optional[str] = dataclasses.field(    # BERT WordPiece
@@ -109,6 +111,11 @@ class Settings:
                                  "large": 1.0})
     MULTI_SCALE_WEIGHTS: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {"256": 1.2, "512": 1.0, "1024": 0.8})
+
+    # --- Small-object detection ---
+    TILE_SIZE: int = 640                # tiled inference on large frames
+    TILE_OVERLAP: int = 128
+    RPN_MAX_PROPOSALS: int = 128
 
     # --- Device execution ---
     COMPUTE_DTYPE: str = "bfloat16"     # on CUDA; the CPU computes in f32

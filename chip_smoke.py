@@ -122,13 +122,43 @@ and the script exits non-zero without printing a result:
    and after the temporal dedup, and the device ms (CUDA events around
    eager calls) of the OWL-ViT forward, the YOLO forward and the CLIP
    grid per 16-frame batch.
+10. (run after phase 9, while the CLIP engine and phase 9's OWL-ViT are
+   loaded) drive small-object detection and background independence
+   through ``VideoProcessor`` on an in-memory 1080p source (60 seeded
+   1920×1080 frames, six squares and discs of 16-64 px moving over a
+   textured background; 8 tiles of 640 px at overlap 128 a frame): the
+   route's default ``process_small_object_detection`` (``clip`` mode,
+   RPN, adaptive thresholds, background independence, top 20) cold and
+   warm, one ``owlvit`` call at top 5 on the first 8 frames, two
+   ``clip`` calls at threshold -1 without the adaptive thresholds on the
+   first 2 frames (top 2), one ``process_background_independence`` with
+   its defaults and one at threshold -1 on the first 4 frames; cv2 is
+   required (GrabCut, Farnebäck flow, contours) and its RNG is seeded
+   before each call and each GrabCut. The bf16 flash entry must launch
+   at L = 50 in every call and at L = 577 in the ``owlvit`` call only,
+   no other kernel at all; results finite, sorted by confidence, sizes
+   in [16, 128], boxes overlapping the frame, the two default calls and
+   the two ``clip`` calls at -1 identical, and the ``owlvit``, ``clip``
+   and background calls that keep every candidate must return results
+   and segment some. ``extract_features`` on four boxes around planted
+   objects runs on the card (CLIP bf16, an EfficientNet-B0 of seeded
+   random weights in f32) and on the CPU's f32 plain path on the same
+   weights: CLIP and EfficientNet row cosines >= 0.99, GrabCut masks and
+   shape descriptors equal. The CLIP grid's cell embeddings of one
+   frame's 8 tiles (flash at [512, 50, 12, 64]) and OWL-ViT's logits and
+   boxes on them ([8, 577, 12, 64]) are held to the CPU's f32 path too,
+   row cosine >= 0.99. Prints each call's wall, host seconds by stage,
+   ``enhancement_stats``, flash launches at L = 50 and 577, the CLIP
+   grid's device ms over one frame's 8 tiles and EfficientNet-B0's ms
+   at batch 1 and 16, cuDNN's TF32 off and on.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
 ``launches``, those on its own path: ``mvp`` for the first slice's
 kernels, the library search of its tier for the library's, the cold
 ``reranked`` call for the flash entry at BLIP's L = 577, and phase 9's
-five detection calls for it at OWL-ViT's.
+five detection calls for it at OWL-ViT's; phase 10's seven calls are
+the ``small_object`` path.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -183,6 +213,16 @@ OWL_FLASH = "flash_attention_blhd[owl]"
 GRID_FLASH = "flash_attention_blhd[grid]"
 CROP_FLASH = "flash_attention_blhd[crop]"
 DETECTION_BATCH = 16
+# phase 10: a 1080p source of 60 frames with six planted objects
+# (kind, side px, x, y, px per frame in x and y, RGB)
+SMALL_W, SMALL_H, SMALL_FRAMES = 1920, 1080, 60
+SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
+                 ("disc", 24, 700, 300, -6, 4, (40, 220, 60)),
+                 ("square", 32, 1200, 500, 5, -3, (30, 60, 230)),
+                 ("disc", 40, 300, 800, 12, -5, (230, 220, 40)),
+                 ("square", 48, 1500, 900, -10, -6, (220, 40, 220)),
+                 ("disc", 64, 900, 700, 4, 5, (40, 220, 220))]
+SMALL_QUERIES = ["a small red square", "a green ball", "a tiny object"]
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
 # the largest crop bucket of ``ClipEngine.embed_pixels``
 CROP_BUCKET = 256
@@ -1576,7 +1616,7 @@ def drive_detection(torch, np, engine, video):
         yolo_ms = call_ms(torch, lambda: yolo.raw_outputs(batch), iters=5)
         grid_ms = call_ms(torch, lambda: det.clip_grid.cell_scores(
             batch, text), iters=5)
-    return {
+    return det, {
         "build_models_s": build_s,
         "queries": DETECTION_QUERIES,
         "hybrid_cold_ms": runs[0][2], "hybrid_warm_ms": runs[1][2],
@@ -1591,6 +1631,376 @@ def drive_detection(torch, np, engine, video):
         "top_result": {k: runs[0][1]["results"][0][k] for k in (
             "query", "bbox", "confidence", "composite_score", "method")},
         "launches": launches, "flash_l50_launches": flash_l50, **checks,
+    }
+
+
+class SmallObjectVideo:
+    """An in-memory 1080p source for the small-object path: seeded RGB
+    frames of 1920×1080, a textured background and six squares and
+    discs of 16-64 px moving at different speeds. It serves
+    ``extract_frames`` (the small-object reader, 4096 px a side) and
+    ``stream_batches`` (the background service's reader, whose frames
+    ``VideoReader`` fits to ``max_side`` with cv2's area resize), at the
+    reader's sampled indices."""
+
+    sample_rate = 1
+
+    def __init__(self, np, n_frames: int = SMALL_FRAMES,
+                 max_side: int = 4096) -> None:
+        self.np, self.n_frames, self.max_side = np, n_frames, max_side
+        rng = np.random.default_rng(7)
+        yy, xx = np.mgrid[0:SMALL_H, 0:SMALL_W]
+        base = np.stack([90 + 40 * np.sin(xx / 37.0),
+                         110 + 45 * np.cos(yy / 29.0),
+                         100 + 30 * np.sin((xx + yy) / 53.0)], -1)
+        self.background = np.clip(base + rng.normal(0, 10, base.shape),
+                                  0, 255).astype(np.uint8)
+
+    def box(self, obj: int, i: int):
+        """xyxy of object ``obj`` in frame ``i``."""
+        _, size, x, y, vx, vy, _ = SMALL_OBJECTS[obj]
+        x0, y0 = x + vx * i, y + vy * i
+        return [x0, y0, x0 + size, y0 + size]
+
+    def frame(self, i: int):
+        np = self.np
+        f = self.background.copy()
+        yy, xx = np.ogrid[0:SMALL_H, 0:SMALL_W]
+        for obj, (kind, size, *_, rgb) in enumerate(SMALL_OBJECTS):
+            x0, y0, x1, y1 = self.box(obj, i)
+            if kind == "square":
+                f[y0:y1, x0:x1] = rgb
+            else:
+                r = size / 2
+                inside = ((yy - y0 - r + 0.5) ** 2
+                          + (xx - x0 - r + 0.5) ** 2) <= r * r
+                f[inside] = rgb
+        return f
+
+    def _indices(self, sample_rate, max_frames):
+        from avede_tpu_torch.io.video_reader import sample_indices
+
+        return sample_indices(self.n_frames, sample_rate or 1,
+                              max_frames or self.n_frames)
+
+    def extract_frames(self, path: str, sample_rate=None, max_frames=None):
+        idx = self._indices(sample_rate, max_frames)
+        return (self.np.stack([self.frame(i) for i in idx]),
+                [i / FPS for i in idx])
+
+    def stream_batches(self, path: str, batch: int, sample_rate=None,
+                       max_frames=None):
+        import cv2
+
+        from avede_tpu_torch.io.video_reader import _fit_size
+
+        np = self.np
+        idx = self._indices(sample_rate, max_frames)
+        size = _fit_size(SMALL_W, SMALL_H, self.max_side)
+        for lo in range(0, len(idx), batch):
+            part = idx[lo: lo + batch]
+            frames = [self.frame(i) for i in part]
+            if size != (SMALL_W, SMALL_H):
+                frames = [cv2.resize(f, size, interpolation=cv2.INTER_AREA)
+                          for f in frames]
+            yield np.stack(frames), [i / FPS for i in part]
+
+
+def timed_stage(stages: dict, owner, name: str, label: str):
+    """Wrap ``owner.name`` so that each call adds its wall to
+    ``stages[label]`` → a function that undoes the wrap."""
+    fn = getattr(owner, name)
+    own = vars(owner)
+    had, raw = name in own, own.get(name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stages[label] = stages.get(label, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+    return (lambda: setattr(owner, name, raw)) if had \
+        else (lambda: delattr(owner, name))
+
+
+def drive_small_objects(torch, np, engine, det):
+    """Phase 10: small-object detection and background independence at
+    full width on the card, while the CLIP engine (ViT-B/32) and phase
+    9's ``UniversalDetector`` (OWL-ViT B/32) are loaded, on a 1080p
+    source of 60 frames (8 tiles of 640 px at overlap 128 a frame):
+    the route's default ``process_small_object_detection`` (``clip``
+    mode, RPN, adaptive thresholds and background independence, top 20)
+    cold and warm; one ``owlvit`` call at top 5 on the first 8 frames;
+    two ``clip`` calls on the first 2 frames that keep every cell (top
+    2); one ``process_background_independence`` with its defaults and
+    one at threshold -1 on the first 4 frames (frames fitted to 512 px
+    by its reader); then ``extract_features`` on four
+    boxes around planted objects, on the card (CLIP bf16 and an
+    EfficientNet-B0 of seeded random weights, f32) and on the CPU (f32
+    plain path, the same weights), cv2's RNG seeded before each GrabCut
+    (its GMM initialisation draws from it; it is also seeded before each
+    call, so the cold and warm calls can be compared)."""
+    try:
+        import cv2
+    except ImportError:
+        fail("cv2 is missing: the small-object path needs cv2.grabCut, "
+             "calcOpticalFlowFarneback, findContours, HuMoments and "
+             "approxPolyDP")
+    import dataclasses
+
+    from avede_tpu_torch.io.video_reader import _fit_size
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.models.owlvit import init_owlvit
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.ops.preprocess import clip_preprocess
+    from avede_tpu_torch.ops.tiling import tile_frame
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services import (adaptive_threshold,
+                                          background_independent,
+                                          small_object, video_processor)
+    from avede_tpu_torch.services.background_independent import (
+        BackgroundIndependentService, EffNetExtractor, grabcut_mask)
+    from avede_tpu_torch.services.detector import ClipGridDetector
+    from avede_tpu_torch.ops.preprocess import imagenet_preprocess
+
+    video_processor.validate_video = lambda path: None
+    proc = video_processor.VideoProcessor(engine=engine)
+    proc._universal_detector = det
+    so, bg = proc.small_object, proc.background
+    counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
+               kernels.cosine_window_topk, kernels.cosine_topk_f32,
+               kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
+               quant.quantize_rows, kernels.fused_patch_embed,
+               attention.flash_attention, kernels.cosine_scores,
+               kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
+               quant.quantize_per_channel)
+    by_len = attention.flash_attention_blhd.launches_by_length
+    stages: dict = {}
+    undo = [timed_stage(stages, det, "detect_unlimited_objects", "detect"),
+            timed_stage(stages, so.proposals, "generate_proposals",
+                        "proposals"),
+            timed_stage(stages, adaptive_threshold.DetectionContext,
+                        "from_frame", "frame_statistics"),
+            timed_stage(stages, so.thresholds, "apply",
+                        "thresholds_and_merge"),
+            timed_stage(stages, small_object, "merge_detections",
+                        "thresholds_and_merge"),
+            timed_stage(stages, BackgroundIndependentService,
+                        "extract_features", "grabcut_and_features")]
+    path = "memory://small-objects"
+    # random CLIP scores every cell below 0.1 (phase 9's `clip` call
+    # keeps none at 0.1), so the default calls rightly find nothing; the
+    # `_all` calls keep every cell (threshold -1, and the small-object
+    # call without the adaptive thresholds, whose floors lie at 0.05 and
+    # above) so that merge, GrabCut and the re-scoring run on detections
+    all_cells = dict(confidence_threshold=-1.0,
+                     enable_adaptive_thresholds=False, top_k=2)
+    calls = (("default_cold", "small_object", SMALL_FRAMES, {}),
+             ("default_warm", "small_object", SMALL_FRAMES, {}),
+             ("owlvit", "small_object", 8, dict(detection_mode="owlvit",
+                                                 top_k=5)),
+             ("clip_all", "small_object", 2, all_cells),
+             ("clip_all_again", "small_object", 2, all_cells),
+             ("background", "background", SMALL_FRAMES, {}),
+             ("background_all", "background", 4,
+              dict(confidence_threshold=-1.0)))
+    runs = []
+    reset_launches(counted)
+    t_phase = time.perf_counter()
+    for name, kind, n_frames, kw in calls:
+        so.reader = SmallObjectVideo(np, n_frames=n_frames)
+        bg.reader = SmallObjectVideo(np, n_frames=n_frames, max_side=512)
+        stages.clear()
+        l50, l577 = by_len[CLIP_TOKENS], by_len[OWL_TOKENS]
+        cv2.setRNGSeed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "small_object":
+            out = proc.process_small_object_detection(
+                path, SMALL_QUERIES, video_id="small-objects", **kw)
+        else:
+            out = proc.process_background_independence(
+                path, SMALL_QUERIES, video_id="small-objects", **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if out["status"] != "completed":
+            fail(f"small objects ({name}): {out}")
+        runs.append((name, out, {
+            "wall_ms": wall_ms,
+            "host_stages_s": dict(stages),
+            "flash_launches_l50": by_len[CLIP_TOKENS] - l50,
+            "flash_launches_l577": by_len[OWL_TOKENS] - l577}))
+    launches = read_launches(counted)
+    calls_s = time.perf_counter() - t_phase
+    for u in undo:
+        u()
+    if any(n for name, n in launches.items()
+           if not name.startswith("flash_attention_blhd")):
+        fail(f"small objects: a kernel off this path ran: {launches}")
+    per_call = {}
+    for name, out, rep in runs:
+        if rep["flash_launches_l50"] <= 0 or (
+                (rep["flash_launches_l577"] > 0) != (name == "owlvit")):
+            fail(f"small objects ({name}): flash launches at L = "
+                 f"{CLIP_TOKENS} / {OWL_TOKENS}: {rep}")
+        res = out["results"]
+        conf = [r["confidence"] for r in res]
+        on_bg = name.startswith("background")
+        ok, share = detection_box_report(
+            np, res, *(_fit_size(SMALL_W, SMALL_H, 512) if on_bg
+                       else (SMALL_W, SMALL_H)))
+        if not ok or not np.all(np.isfinite(conf)) \
+                or conf != sorted(conf, reverse=True):
+            fail(f"small objects ({name}): results not finite, sorted and "
+                 f"in the frame: {res[:3]}")
+        if not on_bg and not all(
+                16 <= r["object_size"] <= 128 for r in res):
+            fail(f"small objects ({name}): a size outside [16, 128]")
+        stats = out.get("enhancement_stats",
+                        out.get("background_independence_stats"))
+        per_call[name] = {**rep, "results": len(res),
+                          "boxes_wholly_inside_share": share,
+                          "frames_processed":
+                              out["metadata"]["frames_processed"],
+                          "stats": {k: v for k, v in stats.items()
+                                    if k != "processing_time"}}
+    outs = {name: out for name, out, _ in runs}
+    for a, b in (("default_cold", "default_warm"),
+                 ("clip_all", "clip_all_again")):
+        if outs[a]["results"] != outs[b]["results"]:
+            fail(f"small objects: the {a} and {b} calls differ")
+    for name, key in (("owlvit", "bg_features"), ("clip_all", "bg_features"),
+                      ("background_all", "segmented")):
+        if per_call[name]["results"] == 0 \
+                or per_call[name]["stats"][key] == 0:
+            fail(f"small objects: the {name} call found nothing to "
+                 f"segment: {per_call[name]}")
+    if not per_call["clip_all"]["host_stages_s"].get("thresholds_and_merge"):
+        fail("small objects: the clip_all call merged nothing")
+
+    # extract_features on boxes around four planted objects, on the card
+    # and on the CPU (f32 plain path, the same seeded weights)
+    src = SmallObjectVideo(np)
+    frame = src.frame(10)
+    boxes = []
+    for obj in (0, 1, 3, 5):
+        x0, y0, x1, y1 = src.box(obj, 10)
+        pad = (x1 - x0) // 4
+        boxes.append([x0 - pad, y0 - pad, x1 + pad, y1 + pad])
+    card_eff = EffNetExtractor(device="cuda")
+    cpu_eff = EffNetExtractor(device="cpu")
+    cpu_clip = ClipEngine(cfg=vit_b32(), device="cpu", seed=0)
+    card_bg = BackgroundIndependentService(engine, effnet=card_eff)
+    cpu_bg = BackgroundIndependentService(cpu_clip, effnet=cpu_eff)
+    masks = []
+
+    def recorded_mask(*args, **kwargs):
+        masks.append(grabcut_mask(*args, **kwargs))
+        return masks[-1]
+
+    background_independent.grabcut_mask = recorded_mask
+    feats, masks_equal = [], True
+    t0 = time.perf_counter()
+    for b in boxes:
+        pair = []
+        for svc in (card_bg, cpu_bg):
+            cv2.setRNGSeed(0)
+            pair.append(svc.extract_features(frame, b))
+        m_card, m_cpu = masks[-2:]
+        masks_equal &= m_card is not None and bool(np.array_equal(m_card,
+                                                                  m_cpu))
+        feats.append(pair)
+    features_s = time.perf_counter() - t0
+    background_independent.grabcut_mask = grabcut_mask
+    if any(f is None for pair in feats for f in pair):
+        fail("small objects: extract_features gave no features")
+    shapes_equal = all(np.array_equal(c["shape"], p["shape"])
+                       and c["mask_coverage"] == p["mask_coverage"]
+                       for c, p in feats)
+    checks = {
+        "bg_clip_min_row_cosine": row_cosine(
+            np, np.stack([c["embedding"] for c, _ in feats]),
+            np.stack([p["embedding"] for _, p in feats])),
+        "effnet_min_row_cosine": row_cosine(
+            np, np.stack([c["effnet"] for c, _ in feats]),
+            np.stack([p["effnet"] for _, p in feats])),
+    }
+    if min(checks.values()) < 0.99 or not masks_equal or not shapes_equal:
+        fail(f"small objects card vs CPU: {checks}, masks equal "
+             f"{masks_equal}, shape descriptors equal {shapes_equal}")
+
+    # the flash entry at this path's own shapes, card bf16 against the
+    # CPU's f32 plain path on the same weights: the CLIP grid's cells of
+    # one frame's 8 tiles ([512, 50, 12, 64]) and OWL-ViT B/32 on the
+    # same tiles ([8, 577, 12, 64])
+    tiles, _ = tile_frame(frame, so.tile, so.overlap)
+    ids = det.owl_tokenizer(SMALL_QUERIES)
+    t0 = time.perf_counter()
+    cpu_owl = init_owlvit(dataclasses.replace(det.owl_cfg, dtype="float32"),
+                          seed=0).eval()
+    with torch.inference_mode():
+        cells = det.clip_grid.cell_embeddings(tiles).float().cpu()
+        ref_cells = ClipGridDetector(cpu_clip, det.clip_grid.grid
+                                     ).cell_embeddings(tiles)
+        logits, owl_boxes = det.owl_forward(tiles, ids)
+        ref_logits, ref_boxes = cpu_owl(
+            clip_preprocess(torch.from_numpy(tiles),
+                            size=det.owl_cfg.image_size),
+            torch.from_numpy(ids))
+    n = len(tiles)
+    tile_checks = {
+        "tile_grid_cells": list(cells.shape),
+        "tile_grid_cells_min_row_cosine": row_cosine(
+            np, cells.numpy(), ref_cells.numpy()),
+        "tile_owl_logits_min_row_cosine": row_cosine(
+            np, logits.float().cpu().reshape(n, -1).numpy(),
+            ref_logits.reshape(n, -1).numpy()),
+        "tile_owl_boxes_min_row_cosine": row_cosine(
+            np, owl_boxes.float().cpu().reshape(n, -1).numpy(),
+            ref_boxes.reshape(n, -1).numpy()),
+        "tiles_card_and_cpu_s": time.perf_counter() - t0,
+    }
+    if min(v for k, v in tile_checks.items() if k.endswith("cosine")) \
+            < 0.99:
+        fail(f"small objects card vs CPU on one frame's tiles: "
+             f"{tile_checks}")
+    del cpu_clip, cpu_eff, cpu_bg, cpu_owl
+
+    # device ms (eager calls, CUDA events, launch cost included): the
+    # CLIP grid over one frame's 8 tiles (512 cells), and EfficientNet-B0
+    # at batch 1 and 16 with cuDNN's TF32 as this process has it (off
+    # since phase 3) and on (PyTorch's default in a server process)
+    text = engine.embed_texts(SMALL_QUERIES)
+    tf32 = torch.backends.cudnn.allow_tf32
+    eff_ms = {}
+    with torch.inference_mode():
+        grid_ms = call_ms(torch, lambda: det.clip_grid.cell_scores(
+            tiles, text), iters=5)
+        for allow in (False, True):
+            torch.backends.cudnn.allow_tf32 = allow
+            for n in (1, 16):
+                x = imagenet_preprocess(torch.from_numpy(np.repeat(
+                    frame[None, :224, :224], n, 0)).cuda())
+                eff_ms[f"batch_{n}_tf32_{'on' if allow else 'off'}"] = \
+                    call_ms(torch, lambda: card_eff.model(x), iters=10)
+    torch.backends.cudnn.allow_tf32 = tf32
+    return {
+        "source": {"frames": SMALL_FRAMES, "width": SMALL_W,
+                   "height": SMALL_H, "tile": so.tile,
+                   "overlap": so.overlap, "tiles_per_frame": len(tiles),
+                   "queries": SMALL_QUERIES},
+        "calls": per_call,
+        "calls_s": calls_s,
+        "launches": launches,
+        "features_card_and_cpu_s": features_s,
+        "grabcut_masks_equal": masks_equal,
+        "shape_descriptors_equal": shapes_equal, **checks, **tile_checks,
+        "clip_grid_ms_per_frame_8_tiles": grid_ms,
+        "effnet_b0_ms": eff_ms,
+        "cudnn_allow_tf32_in_phase": tf32,
+        "effnet_dtype": card_eff.cfg.dtype,
     }
 
 
@@ -1795,7 +2205,11 @@ def main() -> None:
         # with the card's memory free again for its peak
         rerank = drive_rerank(torch, np, engine, video, Path(tmp) / "rerank")
         gc.collect()
-        detection = drive_detection(torch, np, engine, video)
+        det, detection = drive_detection(torch, np, engine, video)
+        t0 = time.perf_counter()
+        small = drive_small_objects(torch, np, engine, det)
+        small["phase_s"] = time.perf_counter() - t0
+        del det
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1807,6 +2221,7 @@ def main() -> None:
     paths = {"mvp": main_path["launches"],
              **{m: rerank["launches"][m] for m in ("reranked", "advanced")},
              "unlimited_detection": detection["launches"],
+             "small_object": small["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:
@@ -1821,6 +2236,7 @@ def main() -> None:
     print(json.dumps({"card": card, "library": library}), flush=True)
     print(json.dumps({"card": card, "rerank": rerank}), flush=True)
     print(json.dumps({"card": card, "detection": detection}), flush=True)
+    print(json.dumps({"card": card, "small_objects": small}), flush=True)
     print(json.dumps({"card": card, "index": index}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -238,6 +238,14 @@ class _Recorder:
         return {"status": "completed", "call": "detection", "video": video,
                 "object_queries": queries, **kw}
 
+    def process_small_object_detection(self, video, queries, **kw):
+        return {"status": "completed", "call": "small_object",
+                "video": video, "object_queries": queries, **kw}
+
+    def process_background_independence(self, video, queries, **kw):
+        return {"status": "completed", "call": "background",
+                "video": video, "object_queries": queries, **kw}
+
 
 class _LibraryRecorder:
     def search(self, query, **kw):
@@ -311,6 +319,41 @@ _BODIES = [
     ("/api/unlimited-detection", {"debug_mode": 2}),
     ("/api/unlimited-detection", {"detection_mode": None}),
     ("/api/unlimited-detection", {"video_id": "missing"}),
+    # /api/small-object-detection: SmallObjectDetectionRequest
+    ("/api/small-object-detection", {}),
+    ("/api/small-object-detection", {"object_queries": ["a", "b"],
+                                     "enable_rpn": "true", "top_k": "3"}),
+    ("/api/small-object-detection", {"enable_background_independence": "yes",
+                                     "min_object_size": "8",
+                                     "max_object_size": 64.0}),
+    ("/api/small-object-detection", {"enable_adaptive_thresholds": 1,
+                                     "confidence_threshold": "0.1",
+                                     "detection_mode": "owlvit"}),
+    ("/api/small-object-detection", {"min_object_size": None, "top_k": None,
+                                     "debug_mode": "off"}),
+    ("/api/small-object-detection", {"enable_rpn": 0.0,
+                                     "confidence_threshold": None}),
+    ("/api/small-object-detection", {"enable_rpn": 2}),
+    ("/api/small-object-detection", {"enable_rpn": "maybe"}),
+    ("/api/small-object-detection", {"enable_rpn": None}),
+    ("/api/small-object-detection", {"max_object_size": "64.5"}),
+    ("/api/small-object-detection", {"object_queries": None}),
+    ("/api/small-object-detection", {"video_id": "missing"}),
+    # /api/background-independence: BackgroundIndependenceRequest
+    ("/api/background-independence", {}),
+    ("/api/background-independence", {"background_removal_strength": "0.5",
+                                      "top_k": "4"}),
+    ("/api/background-independence", {"contrastive_learning_enabled": "no",
+                                      "shape_descriptor_enabled": 0,
+                                      "confidence_threshold": None,
+                                      "top_k": 7.0}),
+    ("/api/background-independence", {"background_removal_strength": True}),
+    ("/api/background-independence", {"background_removal_strength": 1}),
+    ("/api/background-independence", {"background_removal_strength": None}),
+    ("/api/background-independence", {"background_removal_strength": "x"}),
+    ("/api/background-independence", {"shape_descriptor_enabled": "2"}),
+    ("/api/background-independence", {"object_queries": 3}),
+    ("/api/background-independence", {"video_id": "missing"}),
     # /api/search-library: the JAX route's int()
     ("/api/search-library", {"top_k": "5"}),
     ("/api/search-library", {"top_k": 5.7, "per_video_k": True}),
@@ -319,6 +362,10 @@ _BODIES = [
 _BASE = {"/api/query": {"video_id": "v", "query": "a dog"},
          "/api/unlimited-detection": {"video_id": "v",
                                       "object_queries": "a dog"},
+         "/api/small-object-detection": {"video_id": "v",
+                                         "object_queries": "a dog"},
+         "/api/background-independence": {"video_id": "v",
+                                          "object_queries": "a dog"},
          "/api/search-library": {"query": "a dog"}}
 
 
@@ -335,7 +382,9 @@ def test_bodies_parse_as_the_jax_app(both_apps, path, body):
 
 
 def test_non_object_body_is_422_in_both(both_apps):
-    for path in ("/api/query", "/api/unlimited-detection"):
+    for path in ("/api/query", "/api/unlimited-detection",
+                 "/api/small-object-detection",
+                 "/api/background-independence"):
         for which in (0, 1):
             assert both_apps(which, "POST", path, json=["v", "q"])[0] == 422
 
@@ -369,6 +418,53 @@ def test_query_and_detection_tracked_as_the_jax_app(both_apps):
     for op in ("query", "unlimited_detection"):
         assert labels(get_monitor, op) == labels(jax_monitor, op)
     assert labels(get_monitor, "query")["mode"] == "reranked"
+
+
+def test_small_object_routes_tracked_as_the_jax_app(both_apps):
+    """One small-object and one background-independence call in each app
+    add the same operations to its metrics monitor."""
+    def ops(which):
+        out = both_apps(which, "GET", "/api/metrics")[1]["operations"]
+        return {k: v["count_total"] for k, v in out.items()}
+
+    before = [ops(0), ops(1)]
+    for which in (0, 1):
+        for path in ("/api/small-object-detection",
+                     "/api/background-independence"):
+            assert both_apps(which, "POST", path, json={
+                "video_id": "v", "object_queries": "q"})[0] == 200
+    grown = [{k for k, v in ops(w).items() if v > before[w].get(k, 0)}
+             for w in (0, 1)]
+    assert grown[1] == grown[0] == {"small_object_detection",
+                                    "background_independence"}
+
+
+def test_image_upload_listing_and_capabilities_as_the_jax_app(
+        both_apps, tmp_data_dirs):
+    """``POST /api/upload-image`` (accepted and refused files) into the
+    shared images directory, then ``GET /api/images`` and
+    ``GET /api/small-object-capabilities`` answer alike."""
+    def upload(which, name, data=b"\x89PNG fake", field="file"):
+        form = FormData()
+        form.add_field(field, data, filename=name,
+                       content_type="application/octet-stream")
+        return both_apps(which, "POST", "/api/upload-image", data=form)
+
+    for name, field in (("a.png", "file"), ("b.JPG", "file"),
+                        ("c.gif", "file"), ("d.png", "other")):
+        ref, got = upload(0, name, field=field), upload(1, name, field=field)
+        assert got[0] == ref[0]
+        if ref[0] == 200:
+            for key in ("status", "filename", "size"):
+                assert got[1][key] == ref[1][key]
+            assert got[1]["path"].startswith(str(tmp_data_dirs / "images"))
+        else:
+            assert got[1] == ref[1]
+    for path in ("/api/images", "/api/small-object-capabilities"):
+        ref, got = (both_apps(w, "GET", path) for w in (0, 1))
+        assert got[0] == ref[0] == 200 and got[1] == ref[1]
+    assert len(ref[1]) and len(both_apps(1, "GET", "/api/images")[1][
+        "images"]) == 4
 
 
 def test_cors_headers_as_the_jax_app(both_apps):
@@ -441,3 +537,43 @@ class TestDetectionRoute:
             "detection_mode": "bogus"})
         assert status == 500 and out["status"] == "error"
         assert tracked() == before + 3
+
+    def test_small_object_and_background_routes_complete(self, client,
+                                                         tmp_path):
+        """Both routes over a real mp4 with tiny CLIP and OWL-ViT models,
+        64 px tiles; the route defaults (``clip`` mode, RPN, adaptive
+        thresholds, background independence) and an ``owlvit`` body."""
+        from avede_tpu_torch.models.owlvit import tiny_owlvit_config
+        from avede_tpu_torch.services.small_object import SmallObjectService
+        from avede_tpu_torch.services.universal_detector import \
+            UniversalDetector
+
+        proc = client.processor
+        proc._universal_detector = UniversalDetector(
+            proc.engine, owlvit_cfg=tiny_owlvit_config())
+        proc._small_object = SmallObjectService(
+            proc.engine, detector=proc._universal_detector, tile=64,
+            overlap=16)
+        video = make_test_video(tmp_path / "src.mp4", n_frames=6,
+                                size=(160, 96))
+        vid = _upload(client, video)[1]["video_id"]
+        for body in ({}, {"detection_mode": "owlvit", "min_object_size": 4,
+                          "confidence_threshold": "0.5", "top_k": 5}):
+            status, out = client("POST", "/api/small-object-detection",
+                                 json={"video_id": vid,
+                                       "object_queries": "white square",
+                                       **body})
+            assert status == 200 and out["status"] == "completed"
+            assert out["queries"] == ["white square"]
+            assert out["enhancement_stats"]["tiles_processed"] == 6 * 6
+            assert out["total_found"] == len(out["results"])
+            assert out["metadata"]["frames_processed"] == 6
+        assert out["total_found"] > 0 \
+            and out["enhancement_stats"]["bg_features"] > 0
+        status, out = client("POST", "/api/background-independence", json={
+            "video_id": vid, "object_queries": ["white square", "car"],
+            "confidence_threshold": -1.0, "top_k": 3})
+        assert status == 200 and out["status"] == "completed"
+        assert out["total_found"] == len(out["results"]) <= 3
+        assert out["background_independence_stats"]["candidates"] > 0
+        assert proc.background._detector is proc.universal_detector

@@ -198,6 +198,54 @@ def test_yolo_forward_on_card_matches_cpu(cuda):
             assert float(cos) >= 0.99
 
 
+def test_effnet_b0_on_card_matches_cpu(cuda):
+    """EfficientNet-B0 (f32, cuDNN's TF32 off) through the extractor on
+    the card against its CPU run on the same seeded weights and crops."""
+    from avede_tpu_torch.services.background_independent import \
+        EffNetExtractor
+
+    rng = np.random.default_rng(0)
+    crops = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+             for h, w in ((224, 224), (90, 150), (40, 33))]
+    got = EffNetExtractor(device="cuda").embed_crops(crops)
+    ref = EffNetExtractor(device="cpu").embed_crops(crops)
+    assert got.shape == ref.shape == (3, 1280)
+    assert np.abs(got - ref).max() <= 1e-4
+    # random weights leave the features far below 1 before the norm's
+    # 1e-9 guard, so the rows are not unit: compare directions
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                * np.linalg.norm(ref, axis=1))
+    assert float(cos.min()) >= 0.99999
+
+
+def test_detect_in_frame_launches_flash_at_l50(cuda):
+    """``SmallObjectService.detect_in_frame`` on a 1080p frame in the
+    route's default ``clip`` mode: 8 tiles of 640 px at overlap 128, all
+    CLIP grid cells (8 × 64) in one tower call, so one flash launch at
+    L = 50 per vision layer and none at L = 577."""
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services.small_object import SmallObjectService
+    from avede_tpu_torch.services.universal_detector import \
+        UniversalDetector
+
+    engine = ClipEngine(device="cuda", seed=0)
+    so = SmallObjectService(engine, detector=UniversalDetector(engine))
+    frame = np.random.default_rng(0).integers(0, 255, (1080, 1920, 3),
+                                              dtype=np.uint8)
+    frame[500:532, 900:932] = (220, 30, 30)
+    by_len = tattn.flash_attention_blhd.launches_by_length
+    l50, l577 = by_len[50], by_len[577]
+    dets = so.detect_in_frame(frame, ["a red square"], conf_threshold=-1.0,
+                              enable_adaptive_thresholds=False)
+    torch.cuda.synchronize()
+    assert by_len[50] - l50 == engine.cfg.vision_depth
+    assert by_len[577] == l577
+    assert dets and all(np.isfinite(d["confidence"]) for d in dets)
+    for d in dets:
+        x0, y0, x1, y1 = d["bbox"]
+        assert 0 <= x0 < x1 <= 1920 and 0 <= y0 < y1 <= 1080
+
+
 def test_attention_layer_launches_bf16_entry_only(cuda):
     from avede_tpu_torch.models.layers import MultiHeadAttention
 

@@ -8,7 +8,7 @@ search on one NVIDIA GPU.
 Same configuration as ``chip_smoke.py``'s main path and library phase
 (CLIP ViT-B/32, random weights from seed 0, bf16; its in-memory
 sources of 600 seeded 288×512 frames; default settings, so the
-library index is in its default bfloat16 tier). Profiles four windows
+library index is in its default bfloat16 tier). Profiles these windows
 with ``torch.profiler`` (CPU + CUDA activities):
 
 - ``cold``: one cold ``Phase1Scan.process_video``;
@@ -33,6 +33,14 @@ with ``torch.profiler`` (CPU + CUDA activities):
   9), after one unprofiled call; the row adds the host seconds of its
   stages (frame statistics, the two detectors, crop embeddings, crop
   scores, temporal dedup), timed by wrappers around them;
+- ``small_object``: one warm default
+  ``VideoProcessor.process_small_object_detection`` call (``clip``
+  mode, RPN, adaptive thresholds and background independence, top 20)
+  on ``chip_smoke.py``'s phase-10 source (60 frames of 1920×1080, 8
+  tiles a frame), after one unprofiled call; the row adds the host
+  seconds of its stages (detect, proposals and their saliency, motion,
+  edge, suppression and temporal parts, frame statistics, thresholds
+  and merge, GrabCut and features) and its ``enhancement_stats``;
 - ``vision_bucket``: the vision tower alone on one 128-frame bucket of
   packed I420 frames (``ClipEngine._embed_device``), over five buckets,
   reported per bucket as well;
@@ -67,7 +75,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 WINDOWS = ("vision_bucket", "cold", "warm", "rerank_cold", "rerank_warm",
-           "advanced_warm", "detection_hybrid", "library_cold",
+           "advanced_warm", "detection_hybrid", "small_object",
+           "library_cold",
            "library_warm", "dense_scan_stages", "index_search")
 SPANS = ("phase1.", "phase2.", "phase3.", "owlvit.", "yolo.")
 
@@ -192,6 +201,8 @@ def main() -> None:
                             Path(tmp) / "rerank", windows)
         if "detection_hybrid" in windows:
             _detection_window(torch, engine, video, acts, card, out)
+        if "small_object" in windows:
+            _small_object_window(torch, np, engine, acts, card, out)
 
         # library search, default (bfloat16) tier
         if not windows & {"library_cold", "library_warm",
@@ -300,26 +311,17 @@ def _detection_window(torch, engine, video, acts, card, out) -> None:
     proc = video_processor.VideoProcessor(engine=engine)
     proc.open_vocab.reader = video
     stages = {}
-
-    def timed(owner, name, label):
-        fn = getattr(owner, name)
-
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                stages[label] = stages.get(label, 0.0) \
-                    + time.perf_counter() - t0
-        setattr(owner, name, wrapper)
-
-    timed(adaptive_threshold.DetectionContext, "from_frame",
-          "frame_statistics")
-    timed(universal_detector.UniversalDetector, "_owl_run", "owlvit")
-    timed(detector.ClipGridDetector, "cell_scores", "clip_grid")
-    timed(detector.ClipEngine, "embed_images", "crop_embeddings")
-    timed(open_vocab_matcher.OpenVocabMatcher, "_enhance", "crop_scores")
-    timed(open_vocab_matcher.hostops, "temporal_dedup", "temporal_dedup")
+    undo = [chip_smoke.timed_stage(stages, owner, name, label)
+            for owner, name, label in (
+                (adaptive_threshold.DetectionContext, "from_frame",
+                 "frame_statistics"),
+                (universal_detector.UniversalDetector, "_owl_run", "owlvit"),
+                (detector.ClipGridDetector, "cell_scores", "clip_grid"),
+                (detector.ClipEngine, "embed_images", "crop_embeddings"),
+                (open_vocab_matcher.OpenVocabMatcher, "_enhance",
+                 "crop_scores"),
+                (open_vocab_matcher.hostops, "temporal_dedup",
+                 "temporal_dedup"))]
 
     def call():
         res = proc.process_unlimited_detection(
@@ -337,8 +339,68 @@ def _detection_window(torch, engine, video, acts, card, out) -> None:
         call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    for u in undo:
+        u()
     _report(torch, prof, wall_ms, "detection_hybrid", card, 1, out,
             host_stages_s=stages)
+
+
+def _small_object_window(torch, np, engine, acts, card, out) -> None:
+    """One warm default small-object call under the profiler, with the
+    host seconds of its stages."""
+    import cv2
+    from torch.profiler import profile
+
+    import chip_smoke
+    from avede_tpu_torch.services import (adaptive_threshold,
+                                          background_independent,
+                                          small_object, video_processor)
+
+    video_processor.validate_video = lambda path: None
+    proc = video_processor.VideoProcessor(engine=engine)
+    so = proc.small_object
+    so.reader = chip_smoke.SmallObjectVideo(np)
+    stages = {}
+    undo = [chip_smoke.timed_stage(stages, owner, name, label)
+            for owner, name, label in (
+                (so.detector, "detect_unlimited_objects", "detect"),
+                (so.proposals, "generate_proposals", "proposals"),
+                (so.proposals, "saliency_proposals", "proposals.saliency"),
+                (so.proposals, "motion_proposals", "proposals.motion"),
+                (so.proposals, "edge_proposals", "proposals.edge"),
+                (so.proposals, "_nms", "proposals.nms"),
+                (so.proposals, "_temporal_boost", "proposals.temporal"),
+                (adaptive_threshold.DetectionContext, "from_frame",
+                 "frame_statistics"),
+                (so.thresholds, "apply", "thresholds_and_merge"),
+                (small_object, "merge_detections", "thresholds_and_merge"),
+                (background_independent.BackgroundIndependentService,
+                 "extract_features", "grabcut_and_features"))]
+
+    def call():
+        cv2.setRNGSeed(0)
+        res = proc.process_small_object_detection(
+            "memory://small-objects", chip_smoke.SMALL_QUERIES,
+            video_id="small-objects")
+        if res["status"] != "completed":
+            sys.exit(f"profile_torch_mvp: small objects: {res}")
+        return res
+
+    call()                                       # unprofiled warm-up
+    stages.clear()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    for u in undo:
+        u()
+    stats = {k: v for k, v in res["enhancement_stats"].items()
+             if k != "processing_time"}
+    _report(torch, prof, wall_ms, "small_object", card, 1, out,
+            host_stages_s=stages, results=len(res["results"]),
+            enhancement_stats=stats)
 
 
 def _vision_bucket(torch, np, engine, video, acts, card, out,
