@@ -18,12 +18,20 @@ routes of the ported slices, answering as the JAX routes do.
   background_removal_strength, contrastive_learning_enabled,
   shape_descriptor_enabled, confidence_threshold, top_k, debug_mode}``:
   background-independent matching;
+- ``POST /api/image-matching`` — multipart: a ``reference_image`` file
+  and the fields ``video_id, matching_mode, target_class, top_k,
+  similarity_threshold, debug_mode``: the reference image's matches in
+  the video;
+- ``POST /api/image-matching-by-id`` — ``{video_id, matching_mode, ...}``
+  with ``image_id`` (an uploaded image) in the body or the query string;
 - ``POST /api/upload-image`` — multipart ``file`` →
   ``data/images/<id>.<ext>``;
 - ``GET  /api/download/{clip_filename}`` — a cut clip (no path
   separators or ``..`` in the name);
 - ``GET  /api/videos``, ``GET /api/clips``, ``GET /api/images`` —
   uploaded videos, cut clips, uploaded images;
+- ``GET  /api/matching-modes`` — image-matching modes and their default
+  thresholds;
 - ``GET  /api/detection-modes`` — detection modes and precisions;
 - ``GET  /api/small-object-capabilities`` — the small-object path's
   settings.
@@ -31,7 +39,9 @@ routes of the ported slices, answering as the JAX routes do.
 Request bodies are coerced as the JAX package's pydantic 2 models do in
 their lax mode (``"5"``, ``5.0`` and ``true`` are the int 5, 5 and 1;
 ``"0.3"`` is the float 0.3; ``"yes"`` and ``1`` are True, ``2`` is
-refused), by hand: the machine with the card has no pydantic. Every answer carries the ``Access-Control-Allow-*`` headers of
+refused), by hand: the machine with the card has no pydantic; multipart
+fields arrive as strings and go through the same coercion. Every answer
+carries the ``Access-Control-Allow-*`` headers of
 ``settings.CORS_ORIGINS``, and OPTIONS is answered for every path.
 
 aiohttp is imported inside ``create_app`` and the handlers, so importing
@@ -162,7 +172,8 @@ def _lax_bool(v: Any) -> Any:
 def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
     """Validate a JSON body against ``(name, kind, default)`` fields as a
     pydantic 2 model in lax mode would (``default`` ``_INVALID`` marks a
-    required field; an explicit null is kept for ``int?`` / ``float?``);
+    required field; an explicit null is kept for ``str?``, ``int?`` and
+    ``float?``);
     None when invalid. Unknown keys are ignored."""
     if not isinstance(body, dict):
         return None
@@ -174,10 +185,10 @@ def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
             out[name] = default
             continue
         v = body[name]
-        if kind in ("int?", "float?") and v is None:
+        if kind in ("str?", "int?", "float?") and v is None:
             out[name] = None
             continue
-        if kind == "str":
+        if kind in ("str", "str?"):
             v = v if isinstance(v, str) else _INVALID
         elif kind == "str|list[str]":
             v = v if isinstance(v, str) or (isinstance(v, list) and all(
@@ -195,7 +206,8 @@ def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
 
 
 # the fields of the JAX package's QueryRequest, UnlimitedDetectionRequest,
-# SmallObjectDetectionRequest and BackgroundIndependenceRequest
+# SmallObjectDetectionRequest, BackgroundIndependenceRequest and
+# ImageMatchingRequest
 _QUERY_FIELDS = (("video_id", "str", _INVALID), ("query", "str", _INVALID),
                  ("mode", "str", "mvp"), ("top_k", "int?", None),
                  ("threshold", "float?", None))
@@ -225,6 +237,15 @@ _BACKGROUND_FIELDS = (("video_id", "str", _INVALID),
                       ("confidence_threshold", "float?", 0.3),
                       ("top_k", "int?", 15),
                       ("debug_mode", "bool", False))
+_IMAGE_MATCHING_FIELDS = (("video_id", "str", _INVALID),
+                          ("matching_mode", "str", "traditional"),
+                          ("target_class", "str?", None),
+                          ("top_k", "int?", None),
+                          ("similarity_threshold", "float?", None),
+                          ("debug_mode", "bool", False))
+_IMAGE_MATCHING_DETAIL = ("fields need string video_id; optional strings "
+                          "matching_mode and target_class, integer top_k, "
+                          "number similarity_threshold, boolean debug_mode")
 _QUERIES_DETAIL = ("body needs string video_id and object_queries (a "
                    "string or a list of strings)")
 
@@ -448,6 +469,94 @@ async def background_independence(request):
     return _json(out, 200 if out.get("status") != "error" else 500)
 
 
+def _decode_image(data: bytes):
+    """Encoded image bytes → uint8 RGB, or None where cv2 cannot decode
+    them."""
+    import cv2
+    import numpy as np
+
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _load_image(path: str):
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _find_image(image_id: str) -> Optional[str]:
+    for p in Path(settings.IMAGE_DIR).glob(f"{image_id}.*"):
+        return str(p)
+    return None
+
+
+async def _match_image(state: ApiState, req: Dict[str, Any], image):
+    """Run image matching for validated fields → the answer (404 for an
+    unknown video, 500 for an error envelope)."""
+    video = _resolve_or_none(state, req["video_id"])
+    if video is None:
+        return _json({"detail": f"video not found: {req['video_id']}"}, 404)
+    with get_monitor().track("image_matching", mode=req["matching_mode"]):
+        out = await _run_blocking(
+            state.processor.process_image_matching, video, image,
+            matching_mode=req["matching_mode"],
+            target_class=req["target_class"], top_k=req["top_k"],
+            similarity_threshold=req["similarity_threshold"],
+            video_id=req["video_id"])
+    return _json(out, 200 if out.get("status") != "error" else 500)
+
+
+async def image_matching(request):
+    """Multipart: the fields and a ``reference_image`` file."""
+    state: ApiState = request.app["state"]
+    reader = await request.multipart()
+    fields: Dict[str, Any] = {}
+    image = None
+    async for part in reader:
+        if part.name == "reference_image":
+            data = bytearray()
+            while True:
+                chunk = await part.read_chunk(1 << 20)
+                if not chunk:
+                    break
+                data.extend(chunk)
+            image = _decode_image(bytes(data))
+        else:
+            fields[part.name] = (await part.read()).decode()
+    if image is None:
+        return _json({"detail": "missing or undecodable reference_image"}, 422)
+    req = _lax_fields(fields, _IMAGE_MATCHING_FIELDS)
+    if req is None:
+        return _json({"detail": _IMAGE_MATCHING_DETAIL}, 422)
+    return await _match_image(state, req, image)
+
+
+async def image_matching_by_id(request):
+    """JSON fields; ``image_id`` of an uploaded image in the body or the
+    query string."""
+    state: ApiState = request.app["state"]
+    try:
+        body = await request.json()
+    except ValueError:
+        return _json({"detail": "invalid JSON body"}, 422)
+    image_id = (body.pop("image_id", None) if isinstance(body, dict)
+                else None) or request.query.get("image_id")
+    if not image_id:
+        return _json({"detail": "missing image_id"}, 422)
+    req = _lax_fields(body, _IMAGE_MATCHING_FIELDS)
+    if req is None:
+        return _json({"detail": _IMAGE_MATCHING_DETAIL}, 422)
+    img_path = _find_image(image_id)
+    if img_path is None:
+        return _json({"detail": f"image not found: {image_id}"}, 404)
+    image = _load_image(img_path)
+    if image is None:
+        return _json({"detail": f"cannot decode image: {image_id}"}, 400)
+    return await _match_image(state, req, image)
+
+
 async def upload_image(request):
     reader = await request.multipart()
     field = None
@@ -524,6 +633,21 @@ async def list_images(request):
                 images.append({"image_id": p.stem, "filename": p.name,
                                "size": st.st_size, "created": st.st_ctime})
     return _json({"images": images})
+
+
+async def matching_modes(request):
+    descriptions = {
+        "traditional": "Multi-stage pHash → CLIP → SSIM → features pipeline",
+        "object_focused": "Detector-guided: match objects, ignore background",
+        "cross_domain": "Color↔grayscale / lighting-invariant features",
+        "hybrid": "Object + cross-domain + traditional ensemble",
+        "smart_match": "Image-analysis-driven adaptive ensemble",
+        "fast_match": "Single-stage CLIP-only (fastest)",
+    }
+    return _json({"matching_modes": [
+        {"mode": m, "description": descriptions.get(m, ""),
+         "default_threshold": settings.MATCHING_THRESHOLDS.get(m)}
+        for m in settings.MATCHING_MODES]})
 
 
 async def detection_modes(request):
@@ -626,11 +750,14 @@ def create_app(processor=None, device: Optional[str] = None):
         web.post("/api/unlimited-detection", unlimited_detection),
         web.post("/api/small-object-detection", small_object_detection),
         web.post("/api/background-independence", background_independence),
+        web.post("/api/image-matching", image_matching),
+        web.post("/api/image-matching-by-id", image_matching_by_id),
         web.post("/api/upload-image", upload_image),
         web.get("/api/download/{clip_filename}", download_clip),
         web.get("/api/videos", list_videos),
         web.get("/api/clips", list_clips),
         web.get("/api/images", list_images),
+        web.get("/api/matching-modes", matching_modes),
         web.get("/api/detection-modes", detection_modes),
         web.get("/api/small-object-capabilities", small_object_capabilities),
     ])

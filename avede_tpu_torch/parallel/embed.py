@@ -22,9 +22,9 @@ Crops and reference images of any size go through ``embed_images``: each
 is cropped and resized on its own (``clip_preprocess``, bicubic), then
 the batch is padded to a bucket of ``[1, 4, 16, 64, 256]`` and runs the
 tower from pixels (``embed_pixels``; flash attention in every layer).
-The JAX package's batching executor, which coalesces such calls across
-concurrent requests, is not ported: this engine embeds each call as it
-comes.
+With ``BATCHING_EXECUTOR_ENABLED`` the preprocessed pixels go through a
+``BatchingExecutor`` (``parallel/scheduler.py``) over ``embed_pixels``,
+which coalesces the calls of concurrent requests into one tower call.
 """
 
 from __future__ import annotations
@@ -176,6 +176,7 @@ class ClipEngine:
         self._table_lru: "OrderedDict[int, tuple]" = OrderedDict()
         self._table_seq = 0
         self._query_topk_fn = make_query_window_topk(self.model)
+        self._batcher = None
 
     @property
     def model_tag(self) -> str:
@@ -281,7 +282,9 @@ class ClipEngine:
     def embed_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
         """uint8 [H_i, W_i, 3] images of any sizes → unit-norm float32
         [N, D]: each is center-cropped and resized to the model square on
-        its own (on the engine's device), then one tower call."""
+        its own (on the engine's device), then one tower call, shared
+        with concurrent callers through the batching executor when
+        ``BATCHING_EXECUTOR_ENABLED`` is set."""
         if len(images) == 0:
             return self._empty()
         size = self.cfg.image_size
@@ -289,6 +292,8 @@ class ClipEngine:
             clip_preprocess(torch.from_numpy(np.ascontiguousarray(
                 img, np.uint8)[None]).to(self.device), size=size)
             for img in images])
+        if settings.BATCHING_EXECUTOR_ENABLED:
+            return self._pixel_batcher()(batch)
         return self.embed_pixels(batch)
 
     @torch.inference_mode()
@@ -307,6 +312,20 @@ class ClipEngine:
         padded[:n] = torch.as_tensor(batch, device=self.device)
         out = self.model.encode_image(padded.to(self.cfg.torch_dtype))
         return out[:n].float().cpu().numpy()
+
+    def _pixel_batcher(self):
+        """The request coalescer over ``embed_pixels``, built at first
+        use."""
+        if self._batcher is None:
+            with self._lock:
+                if self._batcher is None:
+                    from .scheduler import BatchingExecutor
+
+                    self._batcher = BatchingExecutor(
+                        self.embed_pixels,
+                        max_batch=settings.EMBED_BATCH_PER_DEVICE,
+                        max_wait_ms=settings.BATCHING_MAX_WAIT_MS)
+        return self._batcher
 
     # ------------------------------------------------------------------
     def _remember_text(self, text: str, emb: np.ndarray) -> None:

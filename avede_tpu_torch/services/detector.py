@@ -2,9 +2,11 @@
 the YOLO service, the CLIP-grid open-vocabulary detector and the CLIP
 crop embeddings.
 
-- ``YoloService`` runs a whole frame batch through one forward, decode
-  and padded per-class NMS on the device (a top-400 pre-selection by
-  score first, so NMS never builds an 8400 × 8400 IoU matrix).
+- ``YoloService`` runs frames through forward, decode and padded
+  per-class NMS on the device, ``YOLO_CHUNK`` frames a call (a long video
+  goes to the card in chunks, not in one allocation), with a top-400
+  pre-selection by score first, so NMS never builds an 8400 × 8400 IoU
+  matrix.
 - ``ClipGridDetector`` encodes all G × G cells of all frames of a batch
   in one CLIP tower call (flash attention at L = 50 in every layer).
 - ``extract_object_embeddings`` embeds box crops with the shared CLIP
@@ -32,6 +34,11 @@ from ..utils.platform import resolve_device, with_compute_dtype
 from ..utils.trace import trace
 
 logger = get_logger(__name__)
+
+# frames a YOLO call takes to the card at once (image query's
+# ``object_focused`` passes every sampled frame of a video; one batch
+# would hold the activations of all of them at 640 px)
+YOLO_CHUNK = 64
 
 
 class YoloService:
@@ -97,23 +104,26 @@ class YoloService:
         confidence, class_id, class_name)."""
         if len(frames) == 0:
             return []
+        conf = float(np.float32(conf_threshold))
         with trace("yolo.detect"):
-            ob, os_, oc, valid = (t.cpu().numpy() for t in self._run(
-                frames, float(np.float32(conf_threshold))))
+            chunks = [[t.cpu().numpy() for t in self._run(
+                frames[lo: lo + YOLO_CHUNK], conf)]
+                for lo in range(0, len(frames), YOLO_CHUNK)]
         out: List[List[Dict]] = []
-        for b in range(len(frames)):
-            dets = []
-            for i in np.nonzero(valid[b])[0]:
-                cid = int(oc[b, i])
-                dets.append({
-                    "bbox": [float(v) for v in ob[b, i]],
-                    "confidence": float(os_[b, i]),
-                    "class_id": cid,
-                    "class_name": self.class_names[cid]
-                    if cid < len(self.class_names) else str(cid),
-                    "method": "yolo",
-                })
-            out.append(dets)
+        for ob, os_, oc, valid in chunks:
+            for b in range(len(valid)):
+                dets = []
+                for i in np.nonzero(valid[b])[0]:
+                    cid = int(oc[b, i])
+                    dets.append({
+                        "bbox": [float(v) for v in ob[b, i]],
+                        "confidence": float(os_[b, i]),
+                        "class_id": cid,
+                        "class_name": self.class_names[cid]
+                        if cid < len(self.class_names) else str(cid),
+                        "method": "yolo",
+                    })
+                out.append(dets)
         return out
 
 

@@ -8,10 +8,11 @@ threshold filtering, per-result clip extraction and typed error
 envelopes; and open-vocabulary detection over a whole video
 (``process_unlimited_detection``: OWL-ViT, the CLIP grid and YOLO
 through ``OpenVocabMatcher``), tiled small-object detection
-(``process_small_object_detection``) and background-independent matching
-(``process_background_independence``). The heavier pipelines and
-detectors are built at first use over the one shared CLIP engine, and
-the detection services share one ``UniversalDetector``.
+(``process_small_object_detection``), background-independent matching
+(``process_background_independence``) and image query
+(``process_image_matching``: phase 4's six matching modes). The heavier
+pipelines and detectors are built at first use over the one shared CLIP
+engine, and the detection services share one ``UniversalDetector``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ class VideoProcessor:
         self._phase2 = None
         self._phase3 = None
         self._universal_detector = None
+        self._image_matching = None
         self._open_vocab = None
         self._small_object = None
         self._background = None
@@ -66,6 +68,15 @@ class VideoProcessor:
 
             self._phase3 = Phase3Temporal(self.phase2)
         return self._phase3
+
+    @property
+    def image_matching(self):
+        if self._image_matching is None:
+            from ..pipelines.phase4 import Phase4ImageMatching
+
+            self._image_matching = Phase4ImageMatching(
+                self.engine, cache=self.phase1.cache)
+        return self._image_matching
 
     @property
     def universal_detector(self):
@@ -211,6 +222,31 @@ class VideoProcessor:
                         "detection_mode": detection_mode,
                         "matching_precision": matching_precision,
                         "metadata": {}})
+            return env
+
+    def process_image_matching(self, video_path: str, image,
+                               matching_mode: str = "smart_match",
+                               target_class: Optional[str] = None,
+                               top_k: Optional[int] = None,
+                               similarity_threshold: Optional[float] = None,
+                               extract_clips: bool = True,
+                               video_id: Optional[str] = None
+                               ) -> Dict[str, Any]:
+        """Matches of the reference ``image`` (uint8 RGB) in the video,
+        in ``matching_mode``, with clips cut around them."""
+        task_id = uuid.uuid4().hex
+        try:
+            validate_video(video_path)
+            return {"task_id": task_id, "status": "completed",
+                    **self.image_matching.process_image_query(
+                        video_path, image, matching_mode=matching_mode,
+                        target_class=target_class, top_k=top_k,
+                        similarity_threshold=similarity_threshold,
+                        extract_clips=extract_clips, video_id=video_id)}
+        except Exception as exc:  # noqa: BLE001 — typed error envelope
+            error_log.record(exc, component="image_matching")
+            env = error_envelope(task_id, exc)
+            env.update({"clips": [], "metadata": {}, "performance": {}})
             return env
 
     def process_small_object_detection(self, video_path: str, object_queries,

@@ -6,7 +6,7 @@ overrides: every field can be set by an environment variable of its
 name; numbers, booleans, lists and dicts parse as JSON. Only the
 settings the ported paths (the ``mvp``, ``reranked`` and ``advanced``
 queries, library search, open-vocabulary, small-object and
-background-independent detection) read are here.
+background-independent detection, image query) read are here.
 """
 
 import dataclasses
@@ -86,6 +86,22 @@ class Settings:
     CONFIDENCE_THRESHOLD: float = 0.25
     CLIP_DURATION: float = 30.0         # seconds per extracted clip
 
+    # --- Image matching ---
+    MATCHING_MODES: List[str] = dataclasses.field(
+        default_factory=lambda: [
+            "traditional", "object_focused", "cross_domain", "hybrid",
+            "smart_match", "fast_match",
+        ])
+    MATCHING_THRESHOLDS: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {
+            "traditional": 0.70,
+            "object_focused": 0.60,
+            "cross_domain": 0.50,
+            "hybrid": 0.60,
+            "smart_match": 0.55,
+            "fast_match": 0.75,
+        })
+
     # --- Open-vocabulary detection ---
     DETECTION_MODES: List[str] = dataclasses.field(
         default_factory=lambda: ["hybrid", "owlvit", "clip", "yolo_enhanced"])
@@ -122,6 +138,8 @@ class Settings:
     FRAME_BUCKETS: List[int] = dataclasses.field(
         default_factory=lambda: [32, 64, 128, 256, 512, 1024])
     EMBED_BATCH_PER_DEVICE: int = 128
+    BATCHING_EXECUTOR_ENABLED: bool = True  # coalesce concurrent crop embeds
+    BATCHING_MAX_WAIT_MS: float = 4.0
 
     # --- API ---
     API_HOST: str = "0.0.0.0"

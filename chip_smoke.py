@@ -35,7 +35,9 @@ and the script exits non-zero without printing a result:
    path's shapes, contiguous heads at a row stride of 768: OWL-ViT
    B/32's (row ``[owl]``: a 16-frame batch x 577 tokens), the CLIP
    grid's (row ``[grid]``: 16 frames x 8 x 8 cells = 1024 images x 50
-   tokens) and the largest crop bucket's (row ``[crop]``: 256 x 50).
+   tokens) and the largest crop bucket's (row ``[crop]``: 256 x 50), and
+   at image query's small buckets: a reference image alone (row
+   ``[ref]``: 1 x 50) and a frame's crops (row ``[crops16]``: 16 x 50).
    The entry counts launches by L only, so the detection rows' counts
    are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
@@ -151,6 +153,31 @@ and the script exits non-zero without printing a result:
    ``enhancement_stats``, flash launches at L = 50 and 577, the CLIP
    grid's device ms over one frame's 8 tiles and EfficientNet-B0's ms
    at batch 1 and 16, cuDNN's TF32 off and on.
+11. (run after phase 10, while the CLIP engine is loaded) drive image
+   query through ``VideoProcessor.process_image_matching`` at full
+   width (CLIP ViT-B/32 bf16, YOLOv8n at 640 px, random weights from
+   seed 0) on a real video file: 300 seeded frames of 1280×720 at 30 fps
+   (a textured background, four objects of 64-200 px moving) written by
+   ``cv2.VideoWriter`` as ``mp4v`` in ``.mp4`` and decoded by the port's
+   ``VideoReader`` (fails, printing cv2's Video I/O build information,
+   where cv2 cannot write or read it). References from the decoded
+   frames: A the middle frame, B a 160 × 160 crop around an object in
+   it, C A in grayscale. Calls, top 5: ``traditional`` with A cold
+   (fresh caches; clips cut, each read back by cv2; the top match must be
+   A's frame ± 15) and again (the result cache: the same list, no
+   launch), ``fast_match`` with B at -1, ``cross_domain`` with C,
+   ``object_focused`` with B at -1, ``hybrid`` with B, ``smart_match``
+   with A and with C. The cold call must launch the I420 patch embed and
+   flash at L = 50, the later calls no patch embed (the table is warm),
+   the YOLO-crop calls flash at L = 50, and no other kernel may run;
+   results finite, sorted, inside the video, quality in [0, 1]. Then
+   eight threads embed 3-20 crops each at once through the engine's
+   batching executor (fewer batches than requests; rows against direct
+   ``embed_pixels``, cosine >= 0.999), and the card's bf16 against the
+   CPU's f32 plain path (8 frames, reference B, 16 YOLO crops: row
+   cosine >= 0.99; the cold call's top frame kept when the CLIP part of
+   the 40 survivors' composite is recomputed on the CPU). Prints each
+   call's wall, host seconds by stage and launches.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -158,7 +185,8 @@ Every kernel's row reports its launches on each path
 kernels, the library search of its tier for the library's, the cold
 ``reranked`` call for the flash entry at BLIP's L = 577, and phase 9's
 five detection calls for it at OWL-ViT's; phase 10's seven calls are
-the ``small_object`` path.
+the ``small_object`` path, phase 11's eight the ``image_query`` path
+(the ``[ref]`` and ``[crops16]`` rows read its L = 50 launches).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -212,6 +240,9 @@ BLIP_FLASH = "flash_attention_blhd[blip]"
 OWL_FLASH = "flash_attention_blhd[owl]"
 GRID_FLASH = "flash_attention_blhd[grid]"
 CROP_FLASH = "flash_attention_blhd[crop]"
+# image query's small buckets: a reference image alone, a frame's crops
+REF_FLASH = "flash_attention_blhd[ref]"
+CROPS16_FLASH = "flash_attention_blhd[crops16]"
 DETECTION_BATCH = 16
 # phase 10: a 1080p source of 60 frames with six planted objects
 # (kind, side px, x, y, px per frame in x and y, RGB)
@@ -223,6 +254,20 @@ SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
                  ("square", 48, 1500, 900, -10, -6, (220, 40, 220)),
                  ("disc", 64, 900, 700, 4, 5, (40, 220, 220))]
 SMALL_QUERIES = ["a small red square", "a green ball", "a tiny object"]
+# phase 11: a phone/CCTV clip written as a real mp4 (1280×720, 30 fps),
+# a textured background and four moving objects (kind, side px, x, y,
+# px per frame in x and y, BGR); every call keeps the top 5. 300 frames
+# (10 s), cut from 600 (20 s): at 600 the phase took 152 s on an NVIDIA
+# H100 80GB HBM3 at 700 W, over its 90 s aim; the reference is the
+# middle frame
+IMAGE_W, IMAGE_H, IMAGE_FRAMES = 1280, 720, 300
+IMAGE_REF = IMAGE_FRAMES // 2
+IMAGE_OBJECTS = [("square", 200, 120, 90, 1.1, 0.4, (40, 40, 220)),
+                 ("disc", 140, 900, 140, -0.9, 0.7, (60, 200, 40)),
+                 ("square", 64, 520, 520, 1.5, -0.6, (230, 60, 40)),
+                 ("disc", 100, 300, 420, 0.6, -0.5, (40, 220, 230))]
+IMAGE_TOP_K = 5
+IMAGE_VIDEO_ID = "image-query"
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
 # the largest crop bucket of ``ClipEngine.embed_pixels``
 CROP_BUCKET = 256
@@ -238,9 +283,11 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                "cosine_topk_int8": "library_int8",
                "quantize_rows": "library_int8",
                "quantize_per_channel": "library_int8",
-               BLIP_FLASH: "reranked"}
+               BLIP_FLASH: "reranked",
+               REF_FLASH: "image_query", CROPS16_FLASH: "image_query"}
 LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, OWL_FLASH: FLASH_L577,
-              GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50}
+              GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
+              REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
@@ -577,6 +624,11 @@ def check_kernels(torch, np, video):
                                  DETECTION_BATCH * 8 * 8, CLIP_TOKENS))
     rows.append(check_blhd_flash(torch, F, dev, gen, CROP_FLASH,
                                  CROP_BUCKET, CLIP_TOKENS))
+    # image query: the reference image alone and one frame's crops
+    rows.append(check_blhd_flash(torch, F, dev, gen, REF_FLASH, 1,
+                                 CLIP_TOKENS))
+    rows.append(check_blhd_flash(torch, F, dev, gen, CROPS16_FLASH, 16,
+                                 CLIP_TOKENS))
 
     # 3. cosine scores: the 1024-row bucket of a 600-frame table
     nb, dim, n_valid = 1024, 512, N_FRAMES
@@ -2004,6 +2056,369 @@ def drive_small_objects(torch, np, engine, det):
     }
 
 
+def _bounce(p: float, hi: float) -> int:
+    """``p`` reflected into [0, hi] (a triangle wave)."""
+    p = abs(p) % (2 * hi)
+    return int(2 * hi - p if p > hi else p)
+
+
+def image_query_frame(np, cv2, background, i: int):
+    """Frame ``i`` of phase 11's source, BGR uint8 [720, 1280, 3]."""
+    frame = background.copy()
+    for kind, side, x, y, vx, vy, color in IMAGE_OBJECTS:
+        x0 = _bounce(x + vx * i, IMAGE_W - side)
+        y0 = _bounce(y + vy * i, IMAGE_H - side)
+        if kind == "square":
+            cv2.rectangle(frame, (x0, y0), (x0 + side - 1, y0 + side - 1),
+                          color, -1)
+            cv2.rectangle(frame, (x0 + side // 4, y0 + side // 4),
+                          (x0 + side // 2, y0 + side // 2), (250, 250, 250),
+                          -1)
+        else:
+            r = side // 2
+            cv2.circle(frame, (x0 + r, y0 + r), r, color, -1)
+            cv2.circle(frame, (x0 + r, y0 + r), r // 3, (20, 20, 20), -1)
+    return frame
+
+
+def video_io_info(cv2) -> str:
+    """The "Video I/O" part of ``cv2.getBuildInformation()``."""
+    out, inside = [], False
+    for line in cv2.getBuildInformation().splitlines():
+        if line.strip().startswith("Video I/O"):
+            inside = True
+        elif inside and line and not line.startswith("    "):
+            break
+        if inside:
+            out.append(line)
+    return "\n".join(out)
+
+
+def write_image_query_video(np, path) -> dict:
+    """Phase 11's source as a real mp4 (``mp4v``, as the repo's tests
+    write theirs): 300 frames of 1280×720 at 30 fps, a seeded textured
+    background (coarse colour noise upscaled, plus fine grain) and four
+    objects of 64-200 px moving and bouncing off the edges. Fails, with
+    cv2's Video I/O build information, where cv2 cannot write it."""
+    import cv2
+
+    rng = np.random.default_rng(11)
+    coarse = rng.integers(40, 200, (18, 32, 3), dtype=np.uint8)
+    background = np.clip(cv2.resize(coarse, (IMAGE_W, IMAGE_H),
+                                    interpolation=cv2.INTER_CUBIC
+                                    ).astype(np.int16)
+                         + rng.integers(-14, 15, (IMAGE_H, IMAGE_W, 3)),
+                         0, 255).astype(np.uint8)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"),
+                             FPS, (IMAGE_W, IMAGE_H))
+    if not writer.isOpened():
+        print(video_io_info(cv2), file=sys.stderr)
+        fail(f"cv2 cannot write {path} (mp4v)")
+    t0 = time.perf_counter()
+    for i in range(IMAGE_FRAMES):
+        writer.write(image_query_frame(np, cv2, background, i))
+    backend = writer.getBackendName()
+    writer.release()
+    return {"container": Path(path).suffix.lstrip("."), "fourcc": "mp4v",
+            "writer_backend": backend, "write_s": time.perf_counter() - t0,
+            "bytes": Path(path).stat().st_size,
+            "cv2": cv2.__version__, "video_io": video_io_info(cv2)}
+
+
+def image_query_refs(np, frames) -> dict:
+    """Phase 11's references, from the decoded frames: A, the middle
+    frame whole; B, a 160 × 160 crop around the largest object in it;
+    C, A in grayscale (RGB → gray → RGB)."""
+    import cv2
+
+    a = np.ascontiguousarray(frames[IMAGE_REF])
+    h, w = a.shape[:2]
+    _, side, x, y, vx, vy, _ = IMAGE_OBJECTS[0]
+    cx = (_bounce(x + vx * IMAGE_REF, IMAGE_W - side) + side / 2) * w \
+        / IMAGE_W
+    cy = (_bounce(y + vy * IMAGE_REF, IMAGE_H - side) + side / 2) * h \
+        / IMAGE_H
+    x0 = int(min(max(cx - 80, 0), w - 160))
+    y0 = int(min(max(cy - 80, 0), h - 160))
+    b = np.ascontiguousarray(a[y0: y0 + 160, x0: x0 + 160])
+    c = cv2.cvtColor(cv2.cvtColor(a, cv2.COLOR_RGB2GRAY), cv2.COLOR_GRAY2RGB)
+    return {"A": a, "B": b, "C": c}
+
+
+def image_query_stages(stages: dict, proc) -> list:
+    """Wrap the image-query path's host stages (``timed_stage``) →
+    functions that undo the wraps. ``traditional`` holds the pHash;
+    SSIM, histograms and ORB are the rest of it."""
+    from avede_tpu_torch.services import detector, image_matcher
+
+    matcher = proc.image_matching.matcher
+    return [timed_stage(stages, *w) for w in (
+        (matcher.reader, "extract_frames", "decode"),
+        (proc.engine, "embed_frames", "pack_embed"),
+        (image_matcher, "_phash_distances", "phash"),
+        (matcher, "_traditional", "traditional"),
+        (matcher.cross_domain, "match_against_frames",
+         "cross_domain_features"),
+        (matcher.yolo, "detect", "yolo"),
+        (detector, "extract_object_embeddings", "crop_embeddings"),
+        (proc.image_matching.clip_writer, "extract_clip_with_padding",
+         "clip_cuts"))]
+
+
+def host_stage_report(stages: dict) -> dict:
+    out = dict(stages)
+    if "traditional" in out:
+        out["ssim_hist_orb"] = out.pop("traditional") - out.get("phash", 0.0)
+    return out
+
+
+def drive_image_query(torch, np, engine, tmp: Path):
+    """Phase 11: image query through ``VideoProcessor.process_image_matching``
+    at full width (CLIP ViT-B/32 bf16, YOLOv8n at 640 px, random weights
+    from seed 0) on a real 1280×720 mp4 of 300 frames decoded by the
+    port's ``VideoReader`` (sample rate 1, frames fitted to 512 px):
+    ``traditional`` cold and again (the result cache), ``fast_match``,
+    ``cross_domain``, ``object_focused``, ``hybrid`` and ``smart_match``
+    twice, top 5, clips cut in the first call only; launch counts zeroed
+    before the first call. Then eight threads through the batching
+    executor, and the card against the CPU's f32 plain path."""
+    import copy
+    import threading
+
+    try:
+        import cv2
+    except ImportError:
+        fail("cv2 is missing: image query decodes, hashes and cuts clips "
+             "with cv2")
+    from avede_tpu_torch.io import video_reader
+    from avede_tpu_torch.io.embedding_cache import table_tag
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.ops.preprocess import clip_preprocess
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services import video_processor
+    from avede_tpu_torch.services.detector import extract_object_embeddings
+    from avede_tpu_torch.services.image_matcher import COMPOSITE
+
+    video_processor.validate_video = video_reader.validate_video
+    path = tmp / f"{IMAGE_VIDEO_ID}.mp4"
+    source = write_image_query_video(np, path)
+    cap = cv2.VideoCapture(str(path))
+    fourcc = int(cap.get(cv2.CAP_PROP_FOURCC))
+    source.update(reader_backend=cap.getBackendName(),
+                  read_fourcc="".join(chr((fourcc >> 8 * k) & 255)
+                                      for k in range(4)),
+                  frames_reported=int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+    cap.release()
+    t0 = time.perf_counter()
+    frames, ts = video_reader.VideoReader(sample_rate=1).extract_frames(
+        str(path))
+    source["decode_s"] = time.perf_counter() - t0
+    source["decoded_shape"] = list(frames.shape)
+    if len(frames) != IMAGE_FRAMES:
+        print(video_io_info(cv2), file=sys.stderr)
+        fail(f"image query: the port's reader decoded {len(frames)} of "
+             f"{IMAGE_FRAMES} frames of {path}")
+    refs = image_query_refs(np, frames)
+
+    proc = video_processor.VideoProcessor(engine=engine)
+    phase4 = proc.image_matching
+    matcher = phase4.matcher
+    t0 = time.perf_counter()
+    yolo = matcher.yolo                                  # YOLOv8n
+    build_s = time.perf_counter() - t0
+    stages: dict = {}
+    undo = image_query_stages(stages, proc)
+    counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
+               kernels.cosine_window_topk, kernels.cosine_topk_f32,
+               kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
+               quant.quantize_rows, kernels.fused_patch_embed,
+               attention.flash_attention, kernels.cosine_scores,
+               kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
+               quant.quantize_per_channel)
+    calls = (("traditional_cold", "traditional", "A", None, True),
+             ("traditional_again", "traditional", "A", None, False),
+             ("fast_match", "fast_match", "B", -1.0, False),
+             ("cross_domain", "cross_domain", "C", None, False),
+             ("object_focused", "object_focused", "B", -1.0, False),
+             ("hybrid", "hybrid", "B", None, False),
+             ("smart_match_A", "smart_match", "A", None, False),
+             ("smart_match_C", "smart_match", "C", None, False))
+    runs, first = {}, None
+    reset_launches(counted)
+    before = read_launches(counted)
+    t_phase = time.perf_counter()
+    for name, mode, ref, thr, clips in calls:
+        stages.clear()
+        runs_before = matcher.stats["matches_run"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = proc.process_image_matching(
+            str(path), refs[ref], matching_mode=mode, top_k=IMAGE_TOP_K,
+            similarity_threshold=thr, extract_clips=clips,
+            video_id=IMAGE_VIDEO_ID)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        now = read_launches(counted)
+        if out["status"] != "completed":
+            fail(f"image query ({name}): {out}")
+        res = out["results"]
+        sims = [r["similarity"] for r in res]
+        if not np.all(np.isfinite(sims)) or sims != sorted(sims,
+                                                           reverse=True) \
+                or not all(0.0 <= r["timestamp"] < IMAGE_FRAMES / FPS
+                           and 0.0 <= r["quality_score"] <= 1.0
+                           for r in res):
+            fail(f"image query ({name}): results not finite, sorted, "
+                 f"inside the video and of quality in [0, 1]: {res[:3]}")
+        runs[name] = {
+            "mode": mode, "reference": ref, "threshold": thr,
+            "wall_s": wall_s, "results": len(res),
+            "top": [(r["frame_index"], round(r["similarity"], 6))
+                    for r in res],
+            "matched": runs_before != matcher.stats["matches_run"],
+            "host_stages_s": host_stage_report(stages),
+            "launches": {k: now[k] - before[k] for k in now if now[k]
+                         - before[k]}}
+        before = now
+        if name == "traditional_cold":
+            first = copy.deepcopy(res)
+            if not res or abs(res[0]["frame_index"] - IMAGE_REF) > 15 \
+                    or set(res[0]["breakdown"]) != set(COMPOSITE) \
+                    or len(out["clips"]) != len(res):
+                fail(f"image query: traditional found {runs[name]['top']} "
+                     f"with {len(out['clips'])} clips, not frame "
+                     f"{IMAGE_REF} ± 15 with its parts and clips")
+            for clip in out["clips"]:
+                cap = cv2.VideoCapture(clip["clip_path"])
+                ok = cap.read()[0]
+                cap.release()
+                if not ok:
+                    fail(f"image query: cv2 reads no frame of {clip}")
+            runs[name]["clips"] = [(c["start_time"], c["end_time"])
+                                   for c in out["clips"]]
+        elif name == "traditional_again":
+            if res != first or runs[name]["matched"] \
+                    or runs[name]["launches"]:
+                fail("image query: the repeated call missed the result "
+                     "cache or answered differently")
+        elif name in ("fast_match", "object_focused") \
+                and len(res) != IMAGE_TOP_K:
+            fail(f"image query ({name}) at threshold -1: {len(res)} "
+                 f"results")
+    calls_s = time.perf_counter() - t_phase
+    launches = read_launches(counted)
+    for u in undo:
+        u()
+    patch, l50 = "fused_patch_embed_i420", FLASH_L50
+    per = {n: r["launches"] for n, r in runs.items()}
+    if not (per["traditional_cold"].get(patch, 0) > 0
+            and per["traditional_cold"].get(l50, 0) > 0):
+        fail(f"image query: the cold call launched no patch embed or "
+             f"flash at L = {CLIP_TOKENS}: {per['traditional_cold']}")
+    for name in list(runs)[2:]:
+        if per[name].get(patch, 0):
+            fail(f"image query ({name}): the warm table re-embedded")
+    for name in ("object_focused", "hybrid", "smart_match_A",
+                 "smart_match_C"):
+        if per[name].get(l50, 0) <= 0:
+            fail(f"image query ({name}): no flash launch for the crops")
+    if launches[FLASH_L577] or any(
+            n for k, n in launches.items()
+            if not k.startswith("flash_attention_blhd") and k != patch):
+        fail(f"image query: a kernel off this path ran: {launches}")
+
+    # eight threads through the batching executor at once, each with 3-20
+    # crops of the decoded frames, against direct embed_pixels calls
+    rng = np.random.default_rng(8)
+    crops = []
+    for n in rng.integers(3, 21, 8):
+        mine = []
+        for _ in range(int(n)):
+            f = frames[int(rng.integers(0, IMAGE_FRAMES))]
+            y0, x0 = int(rng.integers(0, 200)), int(rng.integers(0, 400))
+            hh, ww = rng.integers(16, 88, 2)
+            mine.append(np.ascontiguousarray(f[y0: y0 + hh, x0: x0 + ww]))
+        crops.append(mine)
+    batcher = engine._pixel_batcher()
+    stats0 = batcher.stats
+    outs, start = [None] * 8, threading.Barrier(8)
+
+    def work(i):
+        start.wait()
+        outs[i] = engine.embed_images(crops[i])
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    stats = {k: v - stats0[k] for k, v in batcher.stats.items()}
+    direct = [engine.embed_pixels(torch.cat([clip_preprocess(
+        torch.from_numpy(c[None]).cuda(), size=engine.cfg.image_size)
+        for c in mine])) for mine in crops]
+    executor = {"stats": stats, "min_row_cosine": min(
+        row_cosine(np, o, d) for o, d in zip(outs, direct))}
+    if any(t.is_alive() for t in threads) or stats["requests"] != 8 \
+            or stats["batches"] >= stats["requests"] \
+            or executor["min_row_cosine"] < 0.999:
+        fail(f"image query: the batching executor on the card: {executor}")
+
+    # the card's bf16 against the CPU's f32 plain path on the same seeded
+    # weights: frames, reference B, 16 YOLO crops of frame A, and the
+    # traditional composite of the 40 CLIP survivors with its CLIP part
+    # recomputed from the CPU's embeddings
+    t0 = time.perf_counter()
+    cpu_clip = ClipEngine(cfg=vit_b32(), device="cpu", seed=0)
+    eight = frames[:: IMAGE_FRAMES // 8][:8]
+    boxes = [d["bbox"] for d in yolo.detect(frames[IMAGE_REF: IMAGE_REF + 1]
+                                             )[0][:16]]
+    checks = {
+        "frames_min_row_cosine": row_cosine(
+            np, engine.embed_frames(eight), cpu_clip.embed_frames(eight)),
+        "reference_B_row_cosine": row_cosine(
+            np, engine.embed_images([refs["B"]]),
+            cpu_clip.embed_images([refs["B"]])),
+        "yolo_crops": len(boxes),
+        "yolo_crops_min_row_cosine": row_cosine(
+            np, extract_object_embeddings(engine, refs["A"], boxes),
+            extract_object_embeddings(cpu_clip, refs["A"], boxes)),
+    }
+    table = matcher.cache.get_entry(IMAGE_VIDEO_ID,
+                                    table_tag(engine.model_tag), 1)[0]
+    clip_sims = table @ engine.embed_images([refs["A"]])[0]
+    survivors = matcher._traditional(refs["A"], frames, ts, clip_sims, -1.0)
+    idx = [m["frame_index"] for m in survivors]
+    cpu_sims = cpu_clip.embed_frames(frames[idx]) \
+        @ cpu_clip.embed_images([refs["A"]])[0]
+    card_score = [m["similarity"] for m in survivors]
+    cpu_score = [m["similarity"] + COMPOSITE["clip"] * (
+        max(float(c), 0.0) - max(m["breakdown"]["clip"], 0.0))
+        for m, c in zip(survivors, cpu_sims)]
+    checks.update(
+        traditional_survivors=len(idx),
+        traditional_top_card=idx[int(np.argmax(card_score))],
+        traditional_top_cpu_clip=idx[int(np.argmax(cpu_score))],
+        survivor_clip_max_abs_diff=float(np.abs(
+            cpu_sims - np.array([m["breakdown"]["clip"]
+                                 for m in survivors])).max()),
+        card_and_cpu_s=time.perf_counter() - t0)
+    if min(v for k, v in checks.items() if k.endswith("cosine")) < 0.99 \
+            or not boxes or checks["traditional_top_card"] \
+            != checks["traditional_top_cpu_clip"]:
+        fail(f"image query card vs CPU: {checks}")
+    del cpu_clip
+    return {
+        "source": {**source, "width": IMAGE_W, "height": IMAGE_H,
+                   "frames": IMAGE_FRAMES, "fps": FPS,
+                   "reference_frame": IMAGE_REF,
+                   "reference_shapes": {k: list(v.shape)
+                                        for k, v in refs.items()}},
+        "yolo_build_s": build_s, "calls": runs, "calls_s": calls_s,
+        "launches": launches, "executor": executor, **checks,
+    }
+
+
 def decode_capabilities() -> dict:
     """What this machine could decode video and serve HTTP with, read
     without installing anything: ``torchvision.io``'s video backends,
@@ -2210,6 +2625,10 @@ def main() -> None:
         small = drive_small_objects(torch, np, engine, det)
         small["phase_s"] = time.perf_counter() - t0
         del det
+        gc.collect()
+        t0 = time.perf_counter()
+        image_query = drive_image_query(torch, np, engine, Path(tmp))
+        image_query["phase_s"] = time.perf_counter() - t0
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2222,6 +2641,7 @@ def main() -> None:
              **{m: rerank["launches"][m] for m in ("reranked", "advanced")},
              "unlimited_detection": detection["launches"],
              "small_object": small["launches"],
+             "image_query": image_query["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:
@@ -2237,6 +2657,7 @@ def main() -> None:
     print(json.dumps({"card": card, "rerank": rerank}), flush=True)
     print(json.dumps({"card": card, "detection": detection}), flush=True)
     print(json.dumps({"card": card, "small_objects": small}), flush=True)
+    print(json.dumps({"card": card, "image_query": image_query}), flush=True)
     print(json.dumps({"card": card, "index": index}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -246,6 +246,12 @@ class _Recorder:
         return {"status": "completed", "call": "background",
                 "video": video, "object_queries": queries, **kw}
 
+    def process_image_matching(self, video, image, **kw):
+        return {"status": "error" if kw["matching_mode"] == "bogus"
+                else "completed", "call": "image_matching", "video": video,
+                "image": [list(image.shape), int(image.astype(int).sum())],
+                **kw}
+
 
 class _LibraryRecorder:
     def search(self, query, **kw):
@@ -577,3 +583,190 @@ class TestDetectionRoute:
         assert out["total_found"] == len(out["results"]) <= 3
         assert out["background_independence_stats"]["candidates"] > 0
         assert proc.background._detector is proc.universal_detector
+
+
+# ---------------------------------------------------------------------------
+# image query: POST /api/image-matching, /api/image-matching-by-id and
+# GET /api/matching-modes in both apps
+# ---------------------------------------------------------------------------
+
+def _png(seed: int = 0) -> bytes:
+    import cv2
+
+    img = np.random.default_rng(seed).integers(0, 255, (24, 32, 3),
+                                               dtype=np.uint8)
+    return cv2.imencode(".png", img)[1].tobytes()
+
+
+def _image_form(fields, image=b"png"):
+    """A multipart form of string ``fields`` and a ``reference_image``
+    (a PNG by default; None leaves it out and adds another file, so the
+    body stays multipart)."""
+    form = FormData()
+    for k, v in fields.items():
+        form.add_field(k, v)
+    if image is None:
+        form.add_field("notes", b"no image here", filename="notes.txt")
+    else:
+        form.add_field("reference_image", _png() if image == b"png"
+                       else image, filename="ref.png",
+                       content_type="image/png")
+    return form
+
+
+_IMAGE_FIELDS = [
+    ({}, 200), ({"top_k": "5"}, 200), ({"top_k": "5.0"}, 200),
+    ({"top_k": " +7 "}, 200), ({"top_k": "5.5"}, 422), ({"top_k": ""}, 422),
+    ({"top_k": "five"}, 422), ({"similarity_threshold": "0.3"}, 200),
+    ({"similarity_threshold": "1e-1"}, 200),
+    ({"similarity_threshold": "abc"}, 422), ({"debug_mode": "true"}, 200),
+    ({"debug_mode": "1"}, 200), ({"debug_mode": "off"}, 200),
+    ({"debug_mode": "maybe"}, 422),
+    ({"matching_mode": "smart_match", "target_class": "person"}, 200),
+    ({"matching_mode": "bogus"}, 500), ({"extra": "ignored"}, 200),
+    ({"video_id": "missing"}, 404), ({"video_id": None}, 422),
+]
+
+
+@pytest.mark.parametrize("fields,status", _IMAGE_FIELDS)
+def test_image_matching_fields_parse_as_the_jax_app(both_apps, fields,
+                                                    status):
+    """Multipart fields arrive as strings: both apps coerce them as
+    pydantic 2's lax mode does and answer with the same status (422 for
+    a field that does not coerce, 404 for an unknown video, 500 for an
+    error envelope); accepted ones reach the processor alike."""
+    body = {k: v for k, v in {"video_id": "v", **fields}.items()
+            if v is not None}
+    ref = both_apps(0, "POST", "/api/image-matching",
+                    data=_image_form(body))
+    got = both_apps(1, "POST", "/api/image-matching",
+                    data=_image_form(body))
+    assert got[0] == ref[0] == status
+    if status in (200, 500):
+        assert got[1] == ref[1]
+
+
+@pytest.mark.parametrize("image", [None, b"not an image"])
+def test_image_matching_without_a_decodable_image_is_422(both_apps, image):
+    for which in (0, 1):
+        status, body, _ = both_apps(which, "POST", "/api/image-matching",
+                                    data=_image_form({"video_id": "v"},
+                                                     image))
+        assert status == 422 and "reference_image" in body["detail"]
+
+
+def test_image_matching_by_id_as_the_jax_app(both_apps, tmp_data_dirs):
+    """``image_id`` in the body or the query string; 404 for an unknown
+    image or video, 400 for an image that does not decode, 422 without
+    an ``image_id`` or valid fields."""
+    images = tmp_data_dirs / "images"
+    images.mkdir(exist_ok=True)
+    (images / "img1.png").write_bytes(_png(1))
+    (images / "bad.png").write_bytes(b"not an image")
+    path = "/api/image-matching-by-id"
+    cases = [
+        ({"video_id": "v", "image_id": "img1"}, ""),
+        ({"video_id": "v", "matching_mode": "fast_match", "top_k": "3",
+          "similarity_threshold": "0.25", "debug_mode": "yes"},
+         "?image_id=img1"),
+        ({"video_id": "v", "image_id": "img1", "target_class": "car"},
+         "?image_id=ignored"),
+        ({"video_id": "v", "image_id": "nope"}, ""),
+        ({"video_id": "v", "image_id": "bad"}, ""),
+        ({"video_id": "v"}, ""),
+        ({"image_id": "img1"}, ""),
+        ({"video_id": "v", "image_id": "img1", "top_k": "5.5"}, ""),
+        ({"video_id": "missing", "image_id": "img1"}, ""),
+        ({"video_id": "v", "image_id": "img1", "matching_mode": "bogus"},
+         ""),
+    ]
+    statuses = []
+    for body, query in cases:
+        ref = both_apps(0, "POST", path + query, json=body)
+        got = both_apps(1, "POST", path + query, json=body)
+        assert got[0] == ref[0], (body, query)
+        if ref[0] in (200, 500):
+            assert got[1] == ref[1]
+        statuses.append(got[0])
+    assert statuses == [200, 200, 200, 404, 400, 422, 422, 422, 404, 500]
+    for which in (0, 1):
+        assert both_apps(which, "POST", path, data=b"{x", headers={
+            "Content-Type": "application/json"})[0] == 422
+
+
+def test_image_matching_tracked_as_the_jax_app(both_apps, tmp_data_dirs):
+    from avede_tpu.utils.metrics import get_monitor as jax_monitor
+
+    from avede_tpu_torch.utils.metrics import get_monitor
+
+    images = tmp_data_dirs / "images"
+    images.mkdir(exist_ok=True)
+    (images / "img1.png").write_bytes(_png(1))
+
+    def count(which):
+        ops = both_apps(which, "GET", "/api/metrics")[1]["operations"]
+        return ops.get("image_matching", {}).get("count_total", 0)
+
+    before = [count(0), count(1)]
+    for which in (0, 1):
+        assert both_apps(which, "POST", "/api/image-matching",
+                         data=_image_form({"video_id": "v"}))[0] == 200
+        assert both_apps(which, "POST", "/api/image-matching-by-id", json={
+            "video_id": "v", "image_id": "img1",
+            "matching_mode": "hybrid"})[0] == 200
+    assert [count(0) - before[0], count(1) - before[1]] == [2, 2]
+    for monitor in (jax_monitor, get_monitor):
+        recs = list(monitor()._records["image_matching"])[-2:]
+        assert [r["mode"] for r in recs] == ["traditional", "hybrid"]
+
+
+def test_matching_modes_as_the_jax_app(both_apps, monkeypatch):
+    """Each app reads ``MATCHING_THRESHOLDS`` when it answers."""
+    from avede_tpu.utils.config import settings as jsettings
+
+    ref, got = (both_apps(w, "GET", "/api/matching-modes") for w in (0, 1))
+    assert got[0] == ref[0] == 200 and got[1] == ref[1]
+    assert [m["mode"] for m in got[1]["matching_modes"]] \
+        == settings.MATCHING_MODES
+    for s in (jsettings, settings):
+        monkeypatch.setitem(s.MATCHING_THRESHOLDS, "hybrid", 0.42)
+    ref, got = (both_apps(w, "GET", "/api/matching-modes") for w in (0, 1))
+    assert got[1] == ref[1]
+    assert {m["mode"]: m["default_threshold"]
+            for m in got[1]["matching_modes"]}["hybrid"] == 0.42
+
+
+class TestImageMatchingRoute:
+    def test_routes_complete_over_a_real_video(self, client, tmp_path):
+        """Both routes over a real mp4 with the tiny CLIP on the CPU:
+        ``fast_match`` from a multipart image, ``traditional`` by the id
+        of an uploaded image, each with its clips cut."""
+        import cv2
+
+        video = make_test_video(tmp_path / "src.mp4", n_frames=30)
+        vid = _upload(client, video)[1]["video_id"]
+        cap = cv2.VideoCapture(video)
+        cap.set(cv2.CAP_PROP_POS_FRAMES, 12)
+        frame = cap.read()[1]
+        cap.release()
+        png = cv2.imencode(".png", frame)[1].tobytes()
+        status, out = client("POST", "/api/image-matching", data=_image_form(
+            {"video_id": vid, "matching_mode": "fast_match", "top_k": "3",
+             "similarity_threshold": "-1"}, png))
+        assert status == 200 and out["status"] == "completed"
+        assert out["total_found"] == len(out["results"]) == 3
+        form = FormData()
+        form.add_field("file", png, filename="ref.png",
+                       content_type="image/png")
+        image_id = client("POST", "/api/upload-image", data=form)[1][
+            "image_id"]
+        status, out = client("POST", "/api/image-matching-by-id", json={
+            "video_id": vid, "image_id": image_id, "top_k": 2,
+            "similarity_threshold": 0.0})
+        assert status == 200 and out["status"] == "completed"
+        assert out["metadata"]["matching_mode"] == "traditional"
+        assert out["total_found"] == len(out["clips"]) == 2
+        assert abs(out["results"][0]["timestamp"] - 12 / 25) < 0.5
+        clips = {c["filename"] for c in client("GET", "/api/clips")[1][
+            "clips"]}
+        assert {r["clip_filename"] for r in out["results"]} <= clips

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_or_reference_package():
                 "ops.image_stats", "models.yolo", "models.owlvit",
                 "services.detector", "services.adaptive_threshold",
                 "services.universal_detector",
-                "services.open_vocab_matcher"):
+                "services.open_vocab_matcher", "parallel.scheduler",
+                "services.cross_domain_matcher", "services.image_matcher",
+                "pipelines.phase4"):
         assert f"avede_tpu_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 

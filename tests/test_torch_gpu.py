@@ -133,11 +133,12 @@ def test_flash_blhd_kernel_at_owlvit_shape(cuda):
     _within_bf16_ulp(got, ref)
 
 
-@pytest.mark.parametrize("bsz", [1024, 256, 4])
+@pytest.mark.parametrize("bsz", [1024, 256, 16, 4, 1])
 def test_flash_blhd_kernel_at_clip_detection_shapes(cuda, bsz):
-    """CLIP's vision attention on the detection path: the 8 × 8 grid of
-    a 16-frame batch (1024 cells) and crop buckets of ``embed_pixels``,
-    50 tokens each, contiguous heads."""
+    """CLIP's vision attention on the detection and image-query paths:
+    the 8 × 8 grid of a 16-frame batch (1024 cells) and buckets of
+    ``embed_pixels`` (crops; 1 is a reference image alone), 50 tokens
+    each, contiguous heads."""
     g = torch.Generator(device="cuda").manual_seed(bsz)
     q, k, v = (torch.randn(bsz, 50, 768, device=cuda, generator=g
                            ).to(torch.bfloat16).view(bsz, 50, 12, 64)
@@ -244,6 +245,44 @@ def test_detect_in_frame_launches_flash_at_l50(cuda):
     for d in dets:
         x0, y0, x1, y1 = d["bbox"]
         assert 0 <= x0 < x1 <= 1920 and 0 <= y0 < y1 <= 1080
+
+
+def test_batching_executor_on_card(cuda):
+    """Eight threads embed their crops at once through the engine's
+    batching executor on the card: fewer tower calls than requests, and
+    each thread's rows equal a direct ``embed_pixels`` of its crops
+    within bf16 rounding (row cosine >= 0.999)."""
+    import threading
+
+    from avede_tpu_torch.ops.preprocess import clip_preprocess
+    from avede_tpu_torch.parallel.embed import ClipEngine
+
+    engine = ClipEngine(device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    crops = [[rng.integers(0, 255, (int(h), int(w), 3), dtype=np.uint8)
+              for h, w in rng.integers(16, 300, (int(n), 2))]
+             for n in rng.integers(3, 21, 8)]
+    out, start = [None] * 8, threading.Barrier(8)
+
+    def work(i):
+        start.wait()
+        out[i] = engine.embed_images(crops[i])
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    stats = engine._batcher.stats
+    assert stats["requests"] == 8 and stats["batches"] < 8
+    for got, c in zip(out, crops):
+        px = torch.cat([clip_preprocess(torch.from_numpy(x[None]).cuda(),
+                                        size=224) for x in c])
+        ref = engine.embed_pixels(px)
+        cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                    * np.linalg.norm(ref, axis=1))
+        assert got.shape == ref.shape and float(cos.min()) >= 0.999
 
 
 def test_attention_layer_launches_bf16_entry_only(cuda):

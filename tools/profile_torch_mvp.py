@@ -41,6 +41,15 @@ with ``torch.profiler`` (CPU + CUDA activities):
   seconds of its stages (detect, proposals and their saliency, motion,
   edge, suppression and temporal parts, frame statistics, thresholds
   and merge, GrabCut and features) and its ``enhancement_stats``;
+- ``image_query``: two rows on ``chip_smoke.py``'s phase-11 source (a
+  real 1280×720 mp4 it writes, decoded by the port's reader): a cold
+  ``traditional`` ``VideoProcessor.process_image_matching`` call with
+  reference A (the embed of every frame, clips cut) and a warm
+  ``smart_match`` call with A (after one unprofiled ``smart_match``
+  call with C that warms YOLO and the crop path); each row adds the
+  host seconds of its stages (decode, pack + embed, pHash, SSIM /
+  histograms / ORB, cross-domain features, YOLO, crop embeddings, clip
+  cuts);
 - ``vision_bucket``: the vision tower alone on one 128-frame bucket of
   packed I420 frames (``ClipEngine._embed_device``), over five buckets,
   reported per bucket as well;
@@ -76,7 +85,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 WINDOWS = ("vision_bucket", "cold", "warm", "rerank_cold", "rerank_warm",
            "advanced_warm", "detection_hybrid", "small_object",
-           "library_cold",
+           "image_query", "library_cold",
            "library_warm", "dense_scan_stages", "index_search")
 SPANS = ("phase1.", "phase2.", "phase3.", "owlvit.", "yolo.")
 
@@ -203,6 +212,9 @@ def main() -> None:
             _detection_window(torch, engine, video, acts, card, out)
         if "small_object" in windows:
             _small_object_window(torch, np, engine, acts, card, out)
+        if "image_query" in windows:
+            _image_query_windows(torch, np, engine, acts, card, out,
+                                 Path(tmp))
 
         # library search, default (bfloat16) tier
         if not windows & {"library_cold", "library_warm",
@@ -401,6 +413,55 @@ def _small_object_window(torch, np, engine, acts, card, out) -> None:
     _report(torch, prof, wall_ms, "small_object", card, 1, out,
             host_stages_s=stages, results=len(res["results"]),
             enhancement_stats=stats)
+
+
+def _image_query_windows(torch, np, engine, acts, card, out, tmp) -> None:
+    """A cold ``traditional`` and a warm ``smart_match`` image query
+    under the profiler, each with the host seconds of its stages."""
+    from torch.profiler import profile
+
+    import chip_smoke
+    from avede_tpu_torch.io import video_reader
+    from avede_tpu_torch.services import video_processor
+
+    video_processor.validate_video = video_reader.validate_video
+    path = tmp / f"{chip_smoke.IMAGE_VIDEO_ID}.mp4"
+    chip_smoke.write_image_query_video(np, path)
+    frames, _ = video_reader.VideoReader(sample_rate=1).extract_frames(
+        str(path))
+    refs = chip_smoke.image_query_refs(np, frames)
+    proc = video_processor.VideoProcessor(engine=engine)
+    stages = {}
+    undo = chip_smoke.image_query_stages(stages, proc)
+
+    def call(mode, ref, clips):
+        res = proc.process_image_matching(
+            str(path), refs[ref], matching_mode=mode,
+            top_k=chip_smoke.IMAGE_TOP_K, extract_clips=clips,
+            video_id=chip_smoke.IMAGE_VIDEO_ID)
+        if res["status"] != "completed":
+            sys.exit(f"profile_torch_mvp: image query ({mode}): {res}")
+        return res
+
+    for name, mode, ref, clips in (
+            ("image_query_traditional_cold", "traditional", "A", True),
+            (None, "smart_match", "C", False),
+            ("image_query_smart_warm", "smart_match", "A", False)):
+        if name is None:
+            call(mode, ref, clips)                # unprofiled warm-up
+            continue
+        stages.clear()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            res = call(mode, ref, clips)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _report(torch, prof, wall_ms, name, card, 1, out,
+                host_stages_s=chip_smoke.host_stage_report(stages),
+                results=len(res["results"]))
+    for u in undo:
+        u()
 
 
 def _vision_bucket(torch, np, engine, video, acts, card, out,
