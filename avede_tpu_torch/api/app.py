@@ -24,6 +24,10 @@ routes of the ported slices, answering as the JAX routes do.
   the video;
 - ``POST /api/image-matching-by-id`` — ``{video_id, matching_mode, ...}``
   with ``image_id`` (an uploaded image) in the body or the query string;
+- ``POST /api/enhanced-person-detection`` — ``{video_id, image_id,
+  similarity_threshold, frame_skip, temporal_consistency,
+  save_annotated_frames}``: the person in an uploaded image found across
+  the video;
 - ``POST /api/upload-image`` — multipart ``file`` →
   ``data/images/<id>.<ext>``;
 - ``GET  /api/download/{clip_filename}`` — a cut clip (no path
@@ -34,7 +38,9 @@ routes of the ported slices, answering as the JAX routes do.
   thresholds;
 - ``GET  /api/detection-modes`` — detection modes and precisions;
 - ``GET  /api/small-object-capabilities`` — the small-object path's
-  settings.
+  settings;
+- ``GET  /`` — the service's name, version and endpoint map; ``GET /ui``
+  — the built-in single-page UI.
 
 Request bodies are coerced as the JAX package's pydantic 2 models do in
 their lax mode (``"5"``, ``5.0`` and ``true`` are the int 5, 5 and 1;
@@ -63,6 +69,7 @@ import uuid
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from .. import __version__
 from ..utils.config import settings
 from ..utils.errors import error_log
 from ..utils.logging import get_logger
@@ -206,8 +213,8 @@ def _lax_fields(body: Any, fields) -> Optional[Dict[str, Any]]:
 
 
 # the fields of the JAX package's QueryRequest, UnlimitedDetectionRequest,
-# SmallObjectDetectionRequest, BackgroundIndependenceRequest and
-# ImageMatchingRequest
+# SmallObjectDetectionRequest, BackgroundIndependenceRequest,
+# ImageMatchingRequest and PersonSearchRequest
 _QUERY_FIELDS = (("video_id", "str", _INVALID), ("query", "str", _INVALID),
                  ("mode", "str", "mvp"), ("top_k", "int?", None),
                  ("threshold", "float?", None))
@@ -243,6 +250,12 @@ _IMAGE_MATCHING_FIELDS = (("video_id", "str", _INVALID),
                           ("top_k", "int?", None),
                           ("similarity_threshold", "float?", None),
                           ("debug_mode", "bool", False))
+_PERSON_FIELDS = (("video_id", "str", _INVALID),
+                  ("image_id", "str", _INVALID),
+                  ("similarity_threshold", "float?", None),
+                  ("frame_skip", "int?", None),
+                  ("temporal_consistency", "bool", True),
+                  ("save_annotated_frames", "bool", False))
 _IMAGE_MATCHING_DETAIL = ("fields need string video_id; optional strings "
                           "matching_mode and target_class, integer top_k, "
                           "number similarity_threshold, boolean debug_mode")
@@ -261,6 +274,44 @@ async def _parse(request, fields, detail: str):
     if req is None:
         return None, _json({"detail": detail}, 422)
     return req, None
+
+
+async def builtin_ui(request):
+    from aiohttp import web
+
+    from ..web.builtin import INDEX_HTML
+
+    return web.Response(text=INDEX_HTML, content_type="text/html")
+
+
+async def root(request):
+    return _json({
+        "message": "Video Event Detection API (TPU-native)",
+        "version": __version__,
+        "endpoints": {
+            "/api/upload": "POST - Upload video file",
+            "/api/query": "POST - Process event detection query",
+            "/api/unlimited-detection": "POST - Unlimited object detection",
+            "/api/small-object-detection": "POST - Small-object detection",
+            "/api/background-independence":
+                "POST - Background-independent detection",
+            "/api/image-matching": "POST - Image matching (multipart)",
+            "/api/image-matching-by-id": "POST - Image matching by image_id",
+            "/api/enhanced-person-detection":
+                "POST - Person re-identification",
+            "/api/upload-image": "POST - Upload reference image",
+            "/api/download/{clip_filename}": "GET - Download extracted clip",
+            "/api/health": "GET - Health check",
+            "/api/videos": "GET - List videos",
+            "/api/clips": "GET - List clips",
+            "/api/images": "GET - List reference images",
+            "/api/matching-modes": "GET - Matching modes",
+            "/api/detection-modes": "GET - Detection modes",
+            "/api/small-object-capabilities":
+                "GET - Small-object capabilities",
+            "/api/metrics": "GET - Runtime metrics",
+        },
+    })
 
 
 async def health(request):
@@ -557,6 +608,37 @@ async def image_matching_by_id(request):
     return await _match_image(state, req, image)
 
 
+async def enhanced_person_detection(request):
+    """JSON fields; the person of the uploaded image ``image_id`` searched
+    for across the video (404 for an unknown video or image, 400 for an
+    image that does not decode)."""
+    state: ApiState = request.app["state"]
+    req, bad = await _parse(
+        request, _PERSON_FIELDS, "body needs string video_id and image_id; "
+        "optional number similarity_threshold, integer frame_skip, "
+        "booleans temporal_consistency and save_annotated_frames")
+    if bad is not None:
+        return bad
+    video = _resolve_or_none(state, req["video_id"])
+    if video is None:
+        return _json({"detail": f"video not found: {req['video_id']}"}, 404)
+    img_path = _find_image(req["image_id"])
+    if img_path is None:
+        return _json({"detail": f"image not found: {req['image_id']}"}, 404)
+    image = _load_image(img_path)
+    if image is None:
+        return _json({"detail": f"cannot decode image: {req['image_id']}"},
+                     400)
+    with get_monitor().track("person_detection"):
+        out = await _run_blocking(
+            state.processor.process_person_search, video, image,
+            similarity_threshold=req["similarity_threshold"],
+            frame_skip=req["frame_skip"],
+            temporal_consistency=req["temporal_consistency"],
+            save_annotated_frames=req["save_annotated_frames"])
+    return _json(out, 200 if out.get("status") != "error" else 500)
+
+
 async def upload_image(request):
     reader = await request.multipart()
     field = None
@@ -742,6 +824,8 @@ def create_app(processor=None, device: Optional[str] = None):
         threading.Thread(target=_prewarm, daemon=True,
                          name="avede-lib-prewarm").start()
     app.add_routes([
+        web.get("/", root),
+        web.get("/ui", builtin_ui),
         web.get("/api/health", health),
         web.get("/api/metrics", metrics),
         web.post("/api/upload", upload_video),
@@ -752,6 +836,8 @@ def create_app(processor=None, device: Optional[str] = None):
         web.post("/api/background-independence", background_independence),
         web.post("/api/image-matching", image_matching),
         web.post("/api/image-matching-by-id", image_matching_by_id),
+        web.post("/api/enhanced-person-detection",
+                 enhanced_person_detection),
         web.post("/api/upload-image", upload_image),
         web.get("/api/download/{clip_filename}", download_clip),
         web.get("/api/videos", list_videos),

@@ -2,7 +2,8 @@
 // attention with an online softmax over K/V tiles. Two entries:
 //
 // - avede_flash_attention_bf16 (the serving path): bf16 q, k, v in the
-//   projections' own layout [B, L, H, hd], token rows at a stride of ldi
+//   projections' own layout [B, L, H, hd] (hd = 64, or 88 for BLIP-2's
+//   ViT-g), token rows at a stride of ldi
 //   elements: H*hd for the contiguous [B, L, D] output of an nn.Linear
 //   viewed per head (CLIP), 3*H*hd for the q, k and v thirds of one fused
 //   qkv projection's [B, L, 3D] output (BLIP's vision tower), read in
@@ -22,7 +23,9 @@
 // holding one key) the products grow with L^2 to about 290 FLOP per byte
 // of the function's own work (QK^T and P.V once each): still bound by
 // bytes, just under the ridge; the second P.V term below (see the last
-// point) takes this design to about 430.
+// point) takes this design to about 430. At BLIP-2's ViT-g shape (L = 257,
+// hd = 88: 30 frames x 16 heads move 86.8 MB for 11.2 GFLOP) it is about
+// 130 FLOP per byte: bound by bytes.
 // The bf16 design spends on bytes in flight and on launches, not on the
 // widest tensor-core instruction:
 // - 4 warps per block, one warp per 16 query rows (a 64-row q tile),
@@ -31,8 +34,9 @@
 // - A persistent block walks several (pair, q tile) items. The q tile and
 //   each 64-key K/V tile go into shared memory by 16-byte cp.async
 //   (rows past L zero-filled), double-buffered: the next item's loads
-//   are in flight while this one computes. Rows are 128 B, stored with
-//   the 16-byte chunks XOR-swizzled by row so ldmatrix is conflict-free.
+//   are in flight while this one computes. Rows are 128 B at hd = 64
+//   (192 B at hd = 88, padded to 96 columns), stored with the 16-byte
+//   chunks XOR-swizzled by row so ldmatrix is conflict-free.
 // - Scores stay in the mma accumulator fragments; row max and sum use
 //   quad shuffles; keys past L score -inf.
 // - P.V splits P into two bf16 terms (hi = bf16(p), lo = bf16(p - hi))
@@ -147,44 +151,71 @@ extern "C" int avede_flash_attention_f32(const float* q, const float* k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 [B, L, H, hd] entry (hd = 64)
+// bf16 [B, L, H, hd] entry (hd = 64 or 88)
 // ---------------------------------------------------------------------------
+//
+// One kernel, instantiated per head dim. hd = 64 (CLIP, BLIP-base,
+// OWL-ViT) is one 128-byte row of 8 16-byte chunks. hd = 88 (BLIP-2's
+// ViT-g: 1408 = 16 x 88) is 11 chunks; Q.K^T's m16n8k16 steps need a
+// depth that is a multiple of 16, so the tiles hold 96 columns in shared
+// memory and the twelfth chunk is zero-filled by cp.async with src-size
+// 0 (the global read never passes the head: the next head's columns lie
+// there). P.V's n dimension covers 88 = 11 n8 tiles exactly, so the
+// padded output tile is never computed and only 88 columns are written.
 
 namespace {
 
-constexpr int HD = 64;              // head dim: 64 bf16 = one 128-byte row
 constexpr int TR = 64;              // rows of a q or K/V tile
 constexpr int TT = 128;             // threads: 4 warps x 16 query rows
-constexpr int TILE = TR * HD;       // bf16 elements of one tile
 
-struct Stage {
-  __nv_bfloat16 q[TILE];
-  __nv_bfloat16 k[TILE];
-  __nv_bfloat16 v[TILE];
+// HD: the head dim; HP: its width in shared memory (a multiple of 16)
+template <int HD, int HP>
+struct Geo {
+  static constexpr int CH = HP / 8;     // 16-byte chunks a tile row
+  static constexpr int HC = HD / 8;     // chunks that hold the head
+  static constexpr int TILE = TR * HP;  // bf16 elements of one tile
+  static_assert(HD % 8 == 0 && HP % 16 == 0 && HP >= HD && HP - HD < 16,
+                "head padded to the next multiple of 16");
+  static_assert(CH == 8 || CH == 12, "swizzle for 8 or 12 chunks a row");
+  // Element offset of (row, chunk). ldmatrix reads one chunk column of 8
+  // consecutive rows; those 8 addresses must hit 8 distinct 16-byte
+  // bank groups (of 8 in 128 bytes). With 8 chunks a row the XOR with
+  // row & 7 does it. With 12 (192-byte rows, so row r starts at bank
+  // group 4 * (r & 1)), the XOR with (r >> 1) & 3 moves the chunk within
+  // its aligned group of 4 (it stays below 12) and gives the four row
+  // pairs distinct groups.
+  static __device__ __forceinline__ int swz(int row, int chunk) {
+    if (CH == 8) return row * HP + ((chunk ^ (row & 7)) << 3);
+    return row * HP + ((chunk ^ ((row >> 1) & 3)) << 3);
+  }
 };
 
-// element offset of (row, 16-byte chunk) in a swizzled 64x64 tile
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * HD + ((chunk ^ (row & 7)) << 3);
-}
+template <int HP>
+struct Stage {
+  __nv_bfloat16 q[TR * HP];
+  __nv_bfloat16 k[TR * HP];
+  __nv_bfloat16 v[TR * HP];
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows row0.. of a matrix with row stride ld (elements); rows >= L are
-// zero-filled (src-size 0)
+// rows row0.. of a matrix with row stride ld (elements); rows >= L and
+// the chunks past the head are zero-filled (src-size 0)
+template <int HD, int HP>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int ld,
                                           int row0, int L) {
+  using G = Geo<HD, HP>;
 #pragma unroll
-  for (int i = threadIdx.x; i < TR * 8; i += TT) {
-    const int r = i >> 3, c = i & 7;
+  for (int i = threadIdx.x; i < TR * G::CH; i += TT) {
+    const int r = i / G::CH, c = i % G::CH;
     const int gr = row0 + r;
-    const bool ok = gr < L;
+    const bool ok = gr < L && c < G::HC;
     const __nv_bfloat16* g = ok ? src + (long long)gr * ld + c * 8 : src;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst + swz(r, c))), "l"(g),
+                 :: "r"(smem_u32(dst + G::swz(r, c))), "l"(g),
                     "r"(ok ? 16 : 0) : "memory");
   }
 }
@@ -224,14 +255,18 @@ __device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
   lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
 }
 
+template <int HD, int HP>
 __global__ void __launch_bounds__(TT)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, int B, int L, int H,
                   int ldi, float scale_log2) {
+  using G = Geo<HD, HP>;
+  constexpr int KS = HP / 16;                 // Q.K^T k16 steps
+  constexpr int NO = G::HC;                   // output n8 tiles
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  Stage<HP>* st = reinterpret_cast<Stage<HP>*>(smem_raw);
   const int ld = H * HD;                      // output row stride
   const int nt = (L + TR - 1) / TR;           // q tiles = K/V tiles
   const int items = B * H * nt;
@@ -252,17 +287,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int s) {
     int qt, kt;
     const long long base = item_base(s, qt, kt, ldi);
-    Stage& S = st[s & 1];
-    if (kt == 0) load_tile(S.q, q + base, ldi, qt * TR, L);
-    load_tile(S.k, k + base, ldi, kt * TR, L);
-    load_tile(S.v, v + base, ldi, kt * TR, L);
+    Stage<HP>& S = st[s & 1];
+    if (kt == 0) load_tile<HD, HP>(S.q, q + base, ldi, qt * TR, L);
+    load_tile<HD, HP>(S.k, k + base, ldi, kt * TR, L);
+    load_tile<HD, HP>(S.v, v + base, ldi, kt * TR, L);
   };
 
   if (steps > 0) issue(0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  uint32_t qf[4][4];
-  float acc[8][4];
+  uint32_t qf[KS][4];
+  float acc[NO][4];
   float m[2], l[2];
 
   for (int s = 0; s < steps; ++s) {
@@ -270,17 +305,18 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    Stage& S = st[s & 1];
+    Stage<HP>& S = st[s & 1];
     int qt, kt;
     const long long base = item_base(s, qt, kt, ld);    // of the output
 
     if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ldsm_x4(qf[kk], &S.q[swz(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                 2 * kk + (lane >> 4))]);
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], &S.q[G::swz(warp * 16 + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8,
+                                    2 * kk + (lane >> 4))]);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NO; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
       m[0] = m[1] = -INFINITY;
@@ -294,12 +330,12 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         uint32_t b[4];
-        ldsm_x4(b, &S.k[swz(8 * j + (lane & 7) + (lane >> 4) * 8,
-                            2 * kk + ((lane >> 3) & 1))]);
+        ldsm_x4(b, &S.k[G::swz(8 * j + (lane & 7) + (lane >> 4) * 8,
+                               2 * kk + ((lane >> 3) & 1))]);
         mma_bf16(sc[j], qf[kk], b[0], b[1]);
         mma_bf16(sc[j + 1], qf[kk], b[2], b[3]);
       }
@@ -335,12 +371,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
       acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
     }
 
-    // P.V with P = hi + lo, 16 keys per step
+    // P.V with P = hi + lo, 16 keys per step; output tiles in pairs (an
+    // odd last tile takes its pair's first half)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ah[4], al[4];
@@ -349,14 +386,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ah[2], al[2]);
       split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
-      for (int n = 0; n < 8; n += 2) {
+      for (int n = 0; n < NO; n += 2) {
         uint32_t b[4];
-        ldsm_x4_t(b, &S.v[swz(16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8,
-                              n + (lane >> 4))]);
+        ldsm_x4_t(b, &S.v[G::swz(16 * kk + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8,
+                                 n + (lane >> 4))]);
         mma_bf16(acc[n], ah, b[0], b[1]);
         mma_bf16(acc[n], al, b[0], b[1]);
-        mma_bf16(acc[n + 1], ah, b[2], b[3]);
-        mma_bf16(acc[n + 1], al, b[2], b[3]);
+        if (n + 1 < NO) {
+          mma_bf16(acc[n + 1], ah, b[2], b[3]);
+          mma_bf16(acc[n + 1], al, b[2], b[3]);
+        }
       }
     }
 
@@ -374,20 +414,20 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int r = warp * 16 + (lane >> 2);
       const int cc = 2 * (lane & 3);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        *reinterpret_cast<uint32_t*>(&stg[swz(r, n) + cc]) =
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<uint32_t*>(&stg[G::swz(r, n) + cc]) =
             pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-        *reinterpret_cast<uint32_t*>(&stg[swz(r + 8, n) + cc]) =
+        *reinterpret_cast<uint32_t*>(&stg[G::swz(r + 8, n) + cc]) =
             pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
       }
       __syncwarp();
 #pragma unroll
-      for (int i = lane; i < 16 * 8; i += 32) {
-        const int row = warp * 16 + (i >> 3), c = i & 7;
+      for (int i = lane; i < 16 * G::HC; i += 32) {
+        const int row = warp * 16 + i / G::HC, c = i % G::HC;
         const int grow = qt * TR + row;
         if (grow < L)
           *reinterpret_cast<uint4*>(o + base + (long long)grow * ld + c * 8) =
-              *reinterpret_cast<const uint4*>(&stg[swz(row, c)]);
+              *reinterpret_cast<const uint4*>(&stg[G::swz(row, c)]);
       }
     }
     __syncthreads();
@@ -395,35 +435,42 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-}  // namespace
-
-// q, k, v: bf16 [B, L, H, 64] with token rows ldi elements apart (ldi >=
-// H*64, a multiple of 8, each pointer 16-byte aligned); o: contiguous
-// bf16 [B, L, H*64]. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for hd != 64 or a bad ldi.
-extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int L, int H, int D, int ldi,
-                                          void* stream) {
-  if (D != HD || ldi < H * HD || ldi % 8 != 0)
-    return (int)cudaErrorInvalidValue;
+template <int HD, int HP>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int L, int H, int ldi, void* stream) {
   static int grid_cap = 0;
-  const int smem = 2 * (int)sizeof(Stage);
+  const int smem = 2 * (int)sizeof(Stage<HP>);
   if (grid_cap == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(flash_bf16_kernel,
+    cudaFuncSetAttribute(flash_bf16_kernel<HD, HP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bf16_kernel,
-                                                  TT, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_bf16_kernel<HD, HP>, TT, smem);
     grid_cap = sms * (per_sm > 0 ? per_sm : 1);
   }
   const int items = B * H * ((L + TR - 1) / TR);
   const int grid = items < grid_cap ? items : grid_cap;
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_bf16_kernel<<<grid, TT, smem, (cudaStream_t)stream>>>(
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
+  flash_bf16_kernel<HD, HP><<<grid, TT, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B, L, H, ldi, scale_log2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v: bf16 [B, L, H, D] with token rows ldi elements apart (ldi >=
+// H*D, a multiple of 8, each pointer 16-byte aligned); o: contiguous
+// bf16 [B, L, H*D]. Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for D not in {64, 88} or a bad ldi.
+extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int L, int H, int D, int ldi,
+                                          void* stream) {
+  if ((D != 64 && D != 88) || ldi < H * D || ldi % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64) return launch_bf16<64, 64>(q, k, v, o, B, L, H, ldi, stream);
+  return launch_bf16<88, 96>(q, k, v, o, B, L, H, ldi, stream);
 }

@@ -149,13 +149,18 @@ class BlipVisionEncoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 class BertAttention(nn.Module):
-    def __init__(self, cfg: BlipConfig) -> None:
+    """``kv_dim``: the width of the tokens keys and values are taken
+    from, where it is not the text's (BLIP-2's Q-Former cross-attends
+    to 1408-wide ViT-g tokens)."""
+
+    def __init__(self, cfg: BlipConfig, kv_dim: Optional[int] = None
+                 ) -> None:
         super().__init__()
         d = cfg.text_dim
         self.heads = cfg.text_heads
         self.query = nn.Linear(d, d)
-        self.key = nn.Linear(d, d)
-        self.value = nn.Linear(d, d)
+        self.key = nn.Linear(kv_dim or d, d)
+        self.value = nn.Linear(kv_dim or d, d)
 
     def _split(self, t: torch.Tensor) -> torch.Tensor:
         """[B, L, D] → [B, H, L, hd]."""

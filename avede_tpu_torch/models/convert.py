@@ -8,7 +8,8 @@ arrays) into a state dict for the port's models (``models/clip.py``,
 ..., "batch_stats": ...}``, as YOLO's BatchNorm has) it carries the
 running statistics too. ``load_params`` reads
 the flat slash-joined ``.npz`` that ``avede_tpu.models.convert.
-save_params`` writes, so both packages can serve one weight file.
+save_params`` writes, so both packages can serve one weight file;
+``save_params`` writes a port model's weights in that layout.
 
 Mapping, per leaf: path parts join with ``.`` and ``layers_<i>``
 becomes ``layers.<i>``; a 2-D Dense ``kernel [in, out]`` becomes
@@ -22,10 +23,11 @@ name.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def flatten_params(tree: Mapping[str, Any], prefix: str = ""
@@ -100,3 +102,53 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
     sd = params_from_flat(cols["params"])
     sd.update(params_from_flat(cols["batch_stats"], stats=True))
     return sd
+
+
+def _jax_parts(key: str) -> List[str]:
+    """``a.layers.3.b`` → ``["a", "layers_3", "b"]``."""
+    parts, out = key.split("."), []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) \
+                and parts[i + 1].isdigit():
+            out.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return out
+
+
+def save_params(model: nn.Module, path: str) -> None:
+    """Write a port model's weights as the JAX package's flat ``.npz``,
+    which both packages' ``load_params`` read (its inverse): Dense and
+    conv ``weight`` → ``kernel`` ([in, out], HWIO), norm ``weight`` →
+    ``scale``, ``nn.Embedding``'s → ``embedding``; BatchNorm
+    ``running_mean`` / ``running_var`` → ``batch_stats/…/mean`` / ``var``
+    beside ``params/…`` (the layout of a saved Flax variables dict)."""
+    owners = dict(model.named_modules())
+    params: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    for key, t in model.state_dict().items():
+        owner_name, _, leaf = key.rpartition(".")
+        v = t.detach().float().cpu().numpy()
+        parts = _jax_parts(owner_name) if owner_name else []
+        if leaf in ("running_mean", "running_var"):
+            stats["/".join(parts + [leaf[len("running_"):]])] = v
+            continue
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf == "weight":
+            if isinstance(owners.get(owner_name), nn.Embedding):
+                leaf = "embedding"
+            elif v.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                v = v.T if v.ndim == 2 else v.transpose(2, 3, 1, 0)
+        params["/".join(parts + [leaf])] = np.ascontiguousarray(v)
+    if stats:
+        params = {**{f"params/{k}": v for k, v in params.items()},
+                  **{f"batch_stats/{k}": v for k, v in stats.items()}}
+    np.savez_compressed(path, **params)
+

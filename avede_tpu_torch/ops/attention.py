@@ -7,8 +7,9 @@ over K/V tiles. Any L works: the kernel masks K rows past L itself, so
 nothing is padded. Bound by bytes on the H100.
 
 - ``flash_attention_blhd`` serves every layer of the CLIP vision tower
-  (L = 50, hd = 64 at ViT-B/32) and of BLIP's (L = 577 at 384 px, patch
-  16): bf16 q, k, v in the projections' own ``[B, L, H, hd]`` layout in
+  (L = 50, hd = 64 at ViT-B/32), of BLIP's (L = 577 at 384 px, patch
+  16) and of BLIP-2's ViT-g (L = 257 at 224 px, patch 14, hd = 88):
+  bf16 q, k, v in the projections' own ``[B, L, H, hd]`` layout in
   (BLIP's are the three thirds of its fused qkv output, read in place at
   a row stride of 3·D: no copy), bf16 ``[B, L, H·hd]`` out, tensor-core
   products with f32 softmax and accumulation.
@@ -32,6 +33,7 @@ from . import _build
 from .kernels import _entry, _require_cuda, _stream
 
 _HEAD_DIMS = (16, 32, 64)
+_BLHD_HEAD_DIMS = (64, 88)   # the bf16 entry's instantiations
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -115,7 +117,7 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     """q, k, v: ``[B, L, H, hd]`` (each projection's ``[B, L, H·hd]``
     viewed per head, or the thirds of a fused ``[B, L, 3·H·hd]`` qkv
     output, read in place at their row stride) → ``[B, L, H·hd]``
-    (non-causal, no mask). On the card: bf16 with hd = 64.
+    (non-causal, no mask). On the card: bf16 with hd = 64 or 88.
     ``launches_by_length`` counts the launches by L."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"bad shapes {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -126,8 +128,9 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
             or v.dtype != torch.bfloat16:
         raise ValueError("flash_attention_blhd takes bfloat16 q, k, v")
-    if d != 64:
-        raise ValueError(f"flash_attention_blhd takes head dim 64, not {d}")
+    if d not in _BLHD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_blhd takes head dim "
+                         f"{_BLHD_HEAD_DIMS}, not {d}")
     ld = _row_stride(q, k, v)
     out = torch.empty((b, length, h * d), dtype=torch.bfloat16,
                       device=q.device)

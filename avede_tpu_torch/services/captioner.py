@@ -8,9 +8,11 @@ work into a query-independent half (``frame_repr``: the caption, cached
 per frame by ``io.embedding_cache.FrameReprCache``) and a cheap
 query-dependent half (``scores_from_repr``).
 
-``BLIP_MODEL`` values containing "blip2" select the JAX package's BLIP-2
-Q-Former reranker, which is not ported yet: ``make_reranker`` raises for
-them (an error envelope at the API), never switching to BLIP quietly.
+``BLIP_MODEL`` values containing "blip2" select ``Blip2RerankService``,
+the BLIP-2 Q-Former reranker: it scores candidate frames against the
+query directly by image-text contrastive similarity (ITC), no caption
+round trip; its query-independent half is the Q-Former's per-query image
+embeddings.
 """
 
 from __future__ import annotations
@@ -24,13 +26,14 @@ import torch
 
 from ..models.blip import BlipConfig, blip_base, init_blip
 from ..models.convert import load_params
-from ..models.tokenizer import HashCaptionDecoder, WordPieceTokenizer
+from ..models.qformer import QFormerConfig, init_blip2
+from ..models.tokenizer import (HashCaptionDecoder, HashTokenizer,
+                                WordPieceTokenizer)
 from ..ops.preprocess import blip_preprocess
 from ..parallel.embed import ClipEngine
 from ..utils.config import settings
-from ..utils.errors import AvedeError
 from ..utils.logging import get_logger
-from ..utils.platform import with_compute_dtype
+from ..utils.platform import resolve_device, with_compute_dtype
 
 logger = get_logger(__name__)
 
@@ -51,19 +54,53 @@ def _params_identity(state_dict: Dict[str, torch.Tensor]) -> str:
     return "explicit:" + h.hexdigest()[:8]
 
 
-def _wordpiece_for(vocab_path: Optional[str], model_vocab_size: int
-                   ) -> Optional[WordPieceTokenizer]:
+def _load_model(model: torch.nn.Module,
+                state_dict: Optional[Dict[str, torch.Tensor]],
+                weights_path: Optional[str], device: torch.device,
+                dtype: torch.dtype, what: str):
+    """(``model`` with its weights from ``state_dict``, else
+    ``weights_path`` / ``settings.BLIP_WEIGHTS``, else as initialised
+    (random from seed 0), on ``device`` in ``dtype``, eval mode; its
+    weights' identity for repr-cache tags)."""
+    weights_path = weights_path or settings.BLIP_WEIGHTS
+    if state_dict is not None:
+        src = _params_identity(state_dict)
+    elif weights_path and Path(weights_path).exists():
+        state_dict = load_params(weights_path)
+        src = f"ckpt:{weights_path}"
+        logger.info("%s weights loaded from %s", what, weights_path)
+    else:
+        src = "rand0"
+        logger.info("%s randomly initialised (no checkpoint)", what)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    return model.to(device, dtype).eval(), src
+
+
+def _wordpiece_for(vocab_path: Optional[str], model_vocab_size: int,
+                   mode: str = "decode") -> Optional[WordPieceTokenizer]:
     """The bundled (or explicit) WordPiece vocab, ONLY when its id space
-    is exactly the model's (the JAX package's ``decode`` rule): the
-    bundled 30524 entries fit BLIP-base; against a tiny 100-id test
-    decoder they would map every generated id to [PAD] or [unused]."""
+    fits the model (the JAX package's two rules). ``decode`` wants the
+    exact width: the bundled 30524 entries fit BLIP-base; against a tiny
+    100-id test decoder they would map every generated id to [PAD] or
+    [unused]. ``encode`` wants every reachable id (real pieces, not the
+    bracketed specials a lowercased query never hits) inside the model's
+    embedding table: BLIP-2's Q-Former is 30523 wide."""
     path = vocab_path or settings.BLIP_VOCAB
     if not (path and Path(path).exists()):
         return None
     tok = WordPieceTokenizer(path)
-    if len(tok.inv) != model_vocab_size:
-        logger.info("WordPiece vocab %d doesn't fit model vocab %d — "
-                    "using hash fallback", len(tok.inv), model_vocab_size)
+    if mode == "decode":
+        ok = len(tok.inv) == model_vocab_size
+    else:
+        reachable = max((i for w, i in tok.vocab.items()
+                         if not (w.startswith("[") and w.endswith("]"))),
+                        default=0)
+        ok = max(reachable, tok.unk) < model_vocab_size
+    if not ok:
+        logger.info("WordPiece vocab %d doesn't fit model vocab %d (%s) "
+                    "— using hash fallback", len(tok.inv),
+                    model_vocab_size, mode)
         return None
     return tok
 
@@ -86,20 +123,9 @@ class CaptionService:
         self.engine = engine
         self.device = engine.device
         self.cfg = cfg or with_compute_dtype(blip_base(), self.device)
-        weights_path = weights_path or settings.BLIP_WEIGHTS
-        model = init_blip(self.cfg, seed=0)
-        if state_dict is not None:
-            self._param_src = _params_identity(state_dict)
-        elif weights_path and Path(weights_path).exists():
-            state_dict = load_params(weights_path)
-            self._param_src = f"ckpt:{weights_path}"
-            logger.info("BLIP weights loaded from %s", weights_path)
-        else:
-            self._param_src = "rand0"
-            logger.info("BLIP randomly initialised (no checkpoint)")
-        if state_dict is not None:
-            model.load_state_dict(state_dict)
-        self.model = model.to(self.device, self.cfg.torch_dtype).eval()
+        self.model, self._param_src = _load_model(
+            init_blip(self.cfg, seed=0), state_dict, weights_path,
+            self.device, self.cfg.torch_dtype, "BLIP")
         self.decoder = (_wordpiece_for(vocab_path, self.cfg.vocab_size)
                         or HashCaptionDecoder())
 
@@ -164,11 +190,82 @@ class CaptionService:
         return sims, [{"caption": c} for c in caps]
 
 
-def make_reranker(engine: ClipEngine) -> CaptionService:
-    """The phase-2 reranker by ``settings.BLIP_MODEL``: BLIP captions;
-    BLIP-2 (a value containing "blip2") raises until it is ported."""
+class Blip2RerankService:
+    """BLIP-2 Q-Former ITC reranker on ``device`` (``cuda`` unless the
+    caller asks for the CPU): candidate frames scored against the query
+    by the max over query tokens of ``img · txt``.
+
+    Weights: ``state_dict`` (e.g. ``models.convert.params_from_jax``),
+    else ``weights_path`` / ``settings.BLIP_WEIGHTS`` (the JAX package's
+    flat ``.npz``), else random from seed 0. A default config is the
+    full BLIP-2 (ViT-g, 32 queries) in the device's compute dtype."""
+
+    repr_kind = "blip2img"
+
+    def __init__(self, cfg: Optional[QFormerConfig] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 weights_path: Optional[str] = None,
+                 tokenizer=None, device=None) -> None:
+        self.device = resolve_device(device)
+        self.cfg = cfg or with_compute_dtype(QFormerConfig(), self.device)
+        self.model, self._param_src = _load_model(
+            init_blip2(self.cfg, seed=0), state_dict, weights_path,
+            self.device, self.cfg.torch_dtype, "BLIP-2")
+        self.tokenizer = (tokenizer
+                          or _wordpiece_for(None, self.cfg.vocab_size,
+                                            mode="encode")
+                          or HashTokenizer(self.cfg.vocab_size))
+
+    @property
+    def repr_tag(self) -> str:
+        c = self.cfg
+        return (f"itcv1|{c.image_size}px|{c.vision_depth}x{c.vision_dim}"
+                f"|{c.num_query_tokens}q|{c.projection_dim}d"
+                f"|{c.hidden}h|{c.depth}L|{self._param_src}|torch")
+
+    def query_ids(self, query: str) -> np.ndarray:
+        """[CLS] + the first 30 pieces + [SEP] → int64 [1, K]. Raises for
+        an id past the embedding table (a table under 103 rows cannot
+        hold [SEP]), which JAX's gather turns into NaN scores."""
+        ids = [101] + self.tokenizer.encode(query)[:30] + [102]
+        if max(ids) >= self.cfg.vocab_size:
+            raise ValueError(f"token id {max(ids)} outside the Q-Former's "
+                             f"{self.cfg.vocab_size}-row embedding table")
+        return np.asarray([ids], np.int64)
+
+    def frame_repr(self, frames: np.ndarray) -> List[np.ndarray]:
+        """uint8 [N, H, W, 3] → per-frame unit Q-Former image
+        embeddings, f32 [Q, D] each."""
+        if len(frames) == 0:
+            return []
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        with torch.inference_mode():
+            px = blip_preprocess(x, size=self.cfg.image_size)
+            img = self.model.image_embeds(px).cpu().numpy()
+        return [row for row in img]
+
+    def scores_from_repr(self, reprs: List[np.ndarray], query: str
+                         ) -> Tuple[np.ndarray, List[dict]]:
+        if not reprs:
+            return np.zeros((0,), np.float32), []
+        ids = torch.from_numpy(self.query_ids(query)).to(self.device)
+        with torch.inference_mode():
+            txt = self.model.text_embeds(
+                ids, torch.ones_like(ids, dtype=torch.bool))
+        txt = txt.cpu().numpy()[0]                             # [D]
+        img = np.stack([np.asarray(r, np.float32) for r in reprs])
+        scores = (img @ txt).max(axis=1).astype(np.float32)    # max over Q
+        return scores, [{"itc_score": float(v)} for v in scores]
+
+    def rerank_scores(self, frames: np.ndarray, query: str
+                      ) -> Tuple[np.ndarray, List[dict]]:
+        return self.scores_from_repr(self.frame_repr(frames), query)
+
+
+def make_reranker(engine: ClipEngine):
+    """The phase-2 reranker by ``settings.BLIP_MODEL``: BLIP-2's ITC (a
+    value containing "blip2") on the engine's device, else BLIP
+    captions."""
     if "blip2" in settings.BLIP_MODEL.lower():
-        raise AvedeError(
-            f"BLIP_MODEL={settings.BLIP_MODEL!r} selects the BLIP-2 "
-            f"Q-Former reranker, which is not ported yet")
+        return Blip2RerankService(device=engine.device)
     return CaptionService(engine)

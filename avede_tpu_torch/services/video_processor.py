@@ -10,7 +10,9 @@ envelopes; and open-vocabulary detection over a whole video
 through ``OpenVocabMatcher``), tiled small-object detection
 (``process_small_object_detection``), background-independent matching
 (``process_background_independence``) and image query
-(``process_image_matching``: phase 4's six matching modes). The heavier
+(``process_image_matching``: phase 4's six matching modes) and person
+search (``process_person_search``: a reference image's person found
+across the video). The heavier
 pipelines and detectors are built at first use over the one shared CLIP
 engine, and the detection services share one ``UniversalDetector``.
 """
@@ -51,6 +53,7 @@ class VideoProcessor:
         self._open_vocab = None
         self._small_object = None
         self._background = None
+        self._person = None
 
     # -- lazy pipelines (BLIP and the grounding head load on first use) --
     @property
@@ -114,6 +117,14 @@ class VideoProcessor:
             self._background = BackgroundIndependentService(
                 self.engine, detector=self.universal_detector)
         return self._background
+
+    @property
+    def person(self):
+        if self._person is None:
+            from .person_detector import PersonSearchService
+
+            self._person = PersonSearchService(self.engine)
+        return self._person
 
     def resolve_video(self, video_id: str) -> str:
         """``data/videos/<id>.<ext>`` lookup over the supported
@@ -296,3 +307,18 @@ class VideoProcessor:
                         else [object_queries],
                         "background_independence_stats": {}, "metadata": {}})
             return env
+
+    def process_person_search(self, video_path: str, reference_image,
+                              **kwargs) -> Dict[str, Any]:
+        """Matches of the person in ``reference_image`` (uint8 RGB)
+        across the video; ``kwargs`` go to
+        ``PersonSearchService.process_video_for_person``."""
+        task_id = uuid.uuid4().hex
+        try:
+            validate_video(video_path)
+            out = self.person.process_video_for_person(
+                video_path, reference_image, **kwargs)
+            return {"task_id": task_id, "status": "completed", **out}
+        except Exception as exc:  # noqa: BLE001 — typed error envelope
+            error_log.record(exc, component="person_search")
+            return error_envelope(task_id, exc)

@@ -6,7 +6,8 @@ overrides: every field can be set by an environment variable of its
 name; numbers, booleans, lists and dicts parse as JSON. Only the
 settings the ported paths (the ``mvp``, ``reranked`` and ``advanced``
 queries, library search, open-vocabulary, small-object and
-background-independent detection, image query) read are here.
+background-independent detection, image query, person search) read are
+here.
 """
 
 import dataclasses
@@ -59,6 +60,10 @@ class Settings:
         default_factory=lambda: _bundled_asset("clip_bpe_merges.txt.gz"))
     BLIP_VOCAB: Optional[str] = dataclasses.field(    # BERT WordPiece
         default_factory=lambda: _bundled_asset("blip_wordpiece_vocab.txt.gz"))
+    FACE_MODEL_PATH: Optional[str] = None   # cv2 FaceDetectorYN onnx
+    APPEARANCE_WEIGHTS: Optional[str] = None     # re-ID encoder .npz
+    FACE_DETECTOR_WEIGHTS: Optional[str] = None  # face-region YOLO .npz
+    FACE_EMBED_WEIGHTS: Optional[str] = None     # 32 px face encoder .npz
 
     # --- Scan ---
     STREAM_CHUNK_FRAMES: int = 256      # decode→embed overlap chunk
@@ -132,6 +137,15 @@ class Settings:
     TILE_SIZE: int = 640                # tiled inference on large frames
     TILE_OVERLAP: int = 128
     RPN_MAX_PROPOSALS: int = 128
+
+    # --- Person re-identification ---
+    PERSON_SIMILARITY_THRESHOLD: float = 0.60
+    PERSON_FRAME_SKIP: int = 5
+    PERSON_BATCH_SIZE: int = 50
+    PERSON_TEMPORAL_WINDOW: int = 5
+    PERSON_TEMPORAL_KEEP_RATIO: float = 0.8
+    PERSON_FEATURE_WEIGHTS: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"face": 0.6, "body": 0.3, "visual": 0.1})
 
     # --- Device execution ---
     COMPUTE_DTYPE: str = "bfloat16"     # on CUDA; the CPU computes in f32

@@ -37,7 +37,10 @@ and the script exits non-zero without printing a result:
    grid's (row ``[grid]``: 16 frames x 8 x 8 cells = 1024 images x 50
    tokens) and the largest crop bucket's (row ``[crop]``: 256 x 50), and
    at image query's small buckets: a reference image alone (row
-   ``[ref]``: 1 x 50) and a frame's crops (row ``[crops16]``: 16 x 50).
+   ``[ref]``: 1 x 50) and a frame's crops (row ``[crops16]``: 16 x 50),
+   and at BLIP-2's ViT-g shape (row ``[blip2]``: 30 candidates x 257
+   tokens, 16 heads of 88, the thirds of a fused qkv at row stride
+   4224; the entry's hd = 88 instantiation).
    The entry counts launches by L only, so the detection rows' counts
    are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
@@ -131,8 +134,9 @@ and the script exits non-zero without printing a result:
    textured background; 8 tiles of 640 px at overlap 128 a frame): the
    route's default ``process_small_object_detection`` (``clip`` mode,
    RPN, adaptive thresholds, background independence, top 20) cold and
-   warm, one ``owlvit`` call at top 5 on the first 8 frames, two
-   ``clip`` calls at threshold -1 without the adaptive thresholds on the
+   warm on the first 30 frames, one ``owlvit`` call at top 5 on the
+   first 8 frames, two ``clip`` calls at threshold -1 without the
+   adaptive thresholds on the
    first 2 frames (top 2), one ``process_background_independence`` with
    its defaults and one at threshold -1 on the first 4 frames; cv2 is
    required (GrabCut, Farnebäck flow, contours) and its RNG is seeded
@@ -178,6 +182,49 @@ and the script exits non-zero without printing a result:
    cosine >= 0.99; the cold call's top frame kept when the CLIP part of
    the 40 survivors' composite is recomputed on the CPU). Prints each
    call's wall, host seconds by stage and launches.
+12. (run after phase 8, with BLIP-base freed) drive the ``reranked``
+   mode with ``BLIP_MODEL = "blip2-itm-vit-g"`` through
+   ``VideoProcessor.process_query`` at full width: the Q-Former reranker
+   (``QFormerConfig()``: ViT-g 1408 x 39 at 224 px, 16 heads of 88, MLP
+   6144; Q-Former 768 x 12, 32 queries, projection 256, vocab 30523;
+   bf16, random weights from seed 0) on phase 5's source: one cold call
+   (fresh caches; the 30 candidates through the tower) and three warm
+   ones (the text side only). The cold call must launch the bf16 flash
+   entry 39 times at L = 257 for each candidate batch, and at L = 50,
+   the I420 patch embed and ``cosine_window_topk`` for the scan; warm
+   calls no L = 257 launch; no contract entry. Results sorted and
+   finite, ``0.7·clip + 0.3·itc_score`` within 1e-5, repeated calls
+   identical. The cold call again on fresh caches and one warm call run
+   under ``torch.profiler`` for the device's busy time and idle share.
+   Two candidates' per-query image embeddings and the query's text
+   embedding on the card against the CPU's f32 plain path on the card's
+   weights in f32: row cosine >= 0.999. Prints the cold wall, the warm
+   p50, the tower's and the text side's ms, and the launches.
+13. (run after phase 11) drive person search through
+   ``VideoProcessor.process_person_search`` at full width (CLIP
+   ViT-B/32 bf16, random weights from seed 0; YOLOv8n at 640 px bf16
+   through ``YOLO_WEIGHTS``: a file of its seed-0 random weights with the
+   person class's logit bias at 1.0, since random YOLOv8n scores every
+   class about 0.5 and keeps no person box; ``DETECTION_MAX_OBJECTS``
+   4) on a real video file: 300 frames of 1280×720 at 30 fps, four seeded
+   identities with fixed outfits walking over a textured background
+   (the port's ``utils.synthetic`` drawer), written by cv2 as ``mp4v``
+   in ``.mp4``; the reference image is the first identity drawn alone
+   by ``draw_person``. Call (a): the defaults (every 5th frame: 60; no
+   weights: the gray-crop face, GrabCut body and CLIP visual cues), then
+   again under the profiler (the same matches); call (b): the
+   appearance encoder, the face-region YOLO and the face embedder loaded
+   through ``APPEARANCE_WEIGHTS``, ``FACE_DETECTOR_WEIGHTS`` and
+   ``FACE_EMBED_WEIGHTS`` from ``.npz`` files the script writes in the
+   JAX package's layout (port random weights from seed 0, f32), at
+   threshold -1 with annotated frames saved. Some sampled frame must
+   have a person box (the bias puts every anchor's person score at
+   sigmoid(1) = 0.73, above detect_persons' fixed 0.3);
+   the bf16 flash entry must launch at L = 50 and no other kernel run.
+   One frame's CLIP visual, appearance and face-encoder rows on the
+   card against the CPU's f32 plain path, on the card's person boxes:
+   row cosine >= 0.9999. Prints each call's wall and host seconds by
+   stage, the device's busy time and idle share, and the launches.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -186,7 +233,10 @@ kernels, the library search of its tier for the library's, the cold
 ``reranked`` call for the flash entry at BLIP's L = 577, and phase 9's
 five detection calls for it at OWL-ViT's; phase 10's seven calls are
 the ``small_object`` path, phase 11's eight the ``image_query`` path
-(the ``[ref]`` and ``[crops16]`` rows read its L = 50 launches).
+(the ``[ref]`` and ``[crops16]`` rows read its L = 50 launches), phase
+12's cold call the ``reranked_blip2`` path (the ``[blip2]`` row reads
+its L = 257 launches) and phase 13's three calls the ``person_search``
+path.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -229,14 +279,19 @@ BLIP_TOKENS = (384 // 16) ** 2 + 1
 OWL_TOKENS = (768 // 32) ** 2 + 1
 # CLIP ViT-B/32's: 224 px in 32 px patches, plus CLS
 CLIP_TOKENS = (224 // 32) ** 2 + 1
+# BLIP-2's ViT-g: 224 px in 14 px patches, plus CLS (16 heads of 88)
+BLIP2_TOKENS = (224 // 14) ** 2 + 1
+BLIP2_DEPTH = 39
 # the bf16 flash entry counts its launches by L only, read under these
 # keys: L = 577 is BLIP-base's vision tower on the rerank paths and
 # OWL-ViT's on the detection path (neither runs the other's model);
 # L = 50 is CLIP's (the mvp scan, the detection grid and crops)
 FLASH_L577 = f"flash_attention_blhd[L={BLIP_TOKENS}]"
 FLASH_L50 = f"flash_attention_blhd[L={CLIP_TOKENS}]"
+FLASH_L257 = f"flash_attention_blhd[L={BLIP2_TOKENS}]"
 # phase 3's rows of the bf16 flash entry at each model's shape
 BLIP_FLASH = "flash_attention_blhd[blip]"
+BLIP2_FLASH = "flash_attention_blhd[blip2]"
 OWL_FLASH = "flash_attention_blhd[owl]"
 GRID_FLASH = "flash_attention_blhd[grid]"
 CROP_FLASH = "flash_attention_blhd[crop]"
@@ -244,9 +299,17 @@ CROP_FLASH = "flash_attention_blhd[crop]"
 REF_FLASH = "flash_attention_blhd[ref]"
 CROPS16_FLASH = "flash_attention_blhd[crops16]"
 DETECTION_BATCH = 16
+# the port's ``utils.trace`` span names, which the profiler also records
+# as device-side ranges
+TRACE_SPANS = ("phase1.", "phase2.", "phase3.", "owlvit.", "yolo.")
 # phase 10: a 1080p source of 60 frames with six planted objects
 # (kind, side px, x, y, px per frame in x and y, RGB)
 SMALL_W, SMALL_H, SMALL_FRAMES = 1920, 1080, 60
+# the default small-object calls read the first 30 of them: cut from 60,
+# where the two took about 130 s of the phase's 238 s (NVIDIA H100 80GB
+# HBM3, 700 W), to keep the whole script within 600 s beside phases
+# 12-13
+SMALL_DEFAULT_FRAMES = 30
 SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
                  ("disc", 24, 700, 300, -6, 4, (40, 220, 60)),
                  ("square", 32, 1200, 500, 5, -3, (30, 60, 230)),
@@ -267,6 +330,14 @@ IMAGE_OBJECTS = [("square", 200, 120, 90, 1.1, 0.4, (40, 40, 220)),
                  ("square", 64, 520, 520, 1.5, -0.6, (230, 60, 40)),
                  ("disc", 100, 300, 420, 0.6, -0.5, (40, 220, 230))]
 IMAGE_TOP_K = 5
+# phase 13: people walking in a 1280×720 mp4 of 300 frames at 30 fps:
+# per identity its height px, start x, y and px per frame in x and y
+PERSON_FRAMES = 300
+# YOLOv8n's person logit bias in phase 13's weight file, and the boxes
+# NMS keeps a frame there (one per walking identity)
+PERSON_BIAS, PERSON_MAX_BOXES = 1.0, 4
+PERSON_WALKS = [(420, 100, 200, 2.5, 0.3), (360, 900, 250, -2.0, 0.4),
+                (300, 500, 380, 1.2, -0.5), (460, 300, 120, -1.4, 0.2)]
 IMAGE_VIDEO_ID = "image-query"
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
 # the largest crop bucket of ``ClipEngine.embed_pixels``
@@ -283,9 +354,10 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                "cosine_topk_int8": "library_int8",
                "quantize_rows": "library_int8",
                "quantize_per_channel": "library_int8",
-               BLIP_FLASH: "reranked",
+               BLIP_FLASH: "reranked", BLIP2_FLASH: "reranked_blip2",
                REF_FLASH: "image_query", CROPS16_FLASH: "image_query"}
-LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, OWL_FLASH: FLASH_L577,
+LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, BLIP2_FLASH: FLASH_L257,
+              OWL_FLASH: FLASH_L577,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
               REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
@@ -616,6 +688,8 @@ def check_kernels(torch, np, video):
     if err > tol:
         fail(f"flash_attention: max err {err} > {tol}")
     rows.append(check_blip_flash(torch, F, dev, gen))
+    rows.append(check_blip_flash(torch, F, dev, gen, BLIP2_FLASH,
+                                 BLIP2_TOKENS, 16, 88))
     # the detection path: OWL-ViT's batch, the CLIP grid's cells of a
     # 16-frame batch and the largest crop bucket
     rows.append(check_blhd_flash(torch, F, dev, gen, OWL_FLASH,
@@ -667,15 +741,18 @@ def check_kernels(torch, np, video):
     return rows
 
 
-def check_blip_flash(torch, F, dev, gen):
-    """Phase 3, row 2c: the serving flash entry at BLIP's vision shape,
-    2 x TOP_K_RESULTS candidates of 577 tokens, q, k and v the thirds of
-    one fused qkv projection read in place (row stride 3 x 768), as the
-    reranked path runs it. Same bar as the CLIP row."""
+def check_blip_flash(torch, F, dev, gen, name=BLIP_FLASH,
+                     length=BLIP_TOKENS, h=12, hd=64):
+    """Phase 3, rows 2c and 2i: the serving flash entry at a BLIP vision
+    tower's shape, 2 x TOP_K_RESULTS candidates, q, k and v the thirds of
+    one fused qkv projection read in place (row stride 3 x h x hd), as the
+    reranked path runs it: BLIP-base's [30, 577, 12, 64] (row stride
+    2304) and BLIP-2's ViT-g [30, 257, 16, 88] (row stride 4224; the
+    entry's hd = 88 instantiation). Same bar as the CLIP row."""
     from avede_tpu_torch.ops import attention
     from avede_tpu_torch.utils.config import settings
 
-    bsz, length, h, hd = 2 * settings.TOP_K_RESULTS, BLIP_TOKENS, 12, 64
+    bsz = 2 * settings.TOP_K_RESULTS
     qkv = torch.randn(bsz, length, 3 * h * hd, device=dev, generator=gen
                       ).to(torch.bfloat16)
     q, kk, v = (t.unflatten(-1, (h, hd)) for t in qkv.chunk(3, dim=-1))
@@ -690,7 +767,7 @@ def check_blip_flash(torch, F, dev, gen):
     b, f = bound_ms(2 * 4 * q.numel(), 4.0 * bsz * h * length * length * hd,
                     BF16_TENSOR_FLOP_PER_S)
     row = dict(
-        name=BLIP_FLASH, route="cuda",
+        name=name, route="cuda",
         source="avede_tpu_torch/csrc/flash_attention.cu",
         replaces="avede_tpu/ops/attention.py:85",
         shape=f"q,k,v bf16 [{bsz},{length},{h},{hd}], thirds of a fused "
@@ -710,7 +787,7 @@ def check_blip_flash(torch, F, dev, gen):
         library="torch.nn.functional.scaled_dot_product_attention on the "
                 "bf16 [B, H, L, D] views")
     if excess > 0:
-        fail(f"{BLIP_FLASH}: max err {err} over its bar by {excess}")
+        fail(f"{name}: max err {err} over its bar by {excess}")
     return row
 
 
@@ -1278,8 +1355,8 @@ def reset_launches(fns) -> None:
 
 def read_launches(fns) -> dict:
     """Each wrapper's count; the bf16 flash entry's, kept by L, is
-    summed, and its L = 577 and L = 50 launches are also given apart,
-    as ``FLASH_L577`` and ``FLASH_L50``."""
+    summed, and its L = 577, 50 and 257 launches are also given apart,
+    as ``FLASH_L577``, ``FLASH_L50`` and ``FLASH_L257``."""
     out = {}
     for fn in fns:
         by_len = getattr(fn, "launches_by_length", None)
@@ -1289,6 +1366,7 @@ def read_launches(fns) -> dict:
         out[fn.__name__] = by_len.total()
         out[FLASH_L577] = by_len[BLIP_TOKENS]
         out[FLASH_L50] = by_len[CLIP_TOKENS]
+        out[FLASH_L257] = by_len[BLIP2_TOKENS]
     return out
 
 
@@ -1488,6 +1566,220 @@ def detection_box_report(np, results, width: int, height: int):
                    and x1 > 0 and y1 > 0 and x0 < width and y0 < height)
         inside += 0 <= x0 and 0 <= y0 and x1 <= width and y1 <= height
     return ok, inside / max(len(results), 1)
+
+
+def device_window(torch, fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA) → (its result,
+    wall ms, device busy ms: the union of kernel and copy intervals,
+    idle share 1 - busy / wall). The wall includes the profiler's own
+    cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    # kernels and copies, not the device-side ranges of ``trace`` spans
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith(TRACE_SPANS))
+    busy_us, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            if hi is not None:
+                busy_us += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    if hi is not None:
+        busy_us += hi - lo
+    if busy_us <= 0:
+        fail("the profiler saw no device work in a traced window")
+    busy_ms = busy_us / 1e3
+    return out, {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+                 "device_idle_share": 1.0 - busy_ms / wall_ms,
+                 "device_events": len(spans)}
+
+
+def drive_blip2(torch, np, engine, video, cache_dir):
+    """Phase 12: the ``reranked`` mode with ``BLIP_MODEL`` naming BLIP-2,
+    through ``VideoProcessor.process_query`` at full width: the Q-Former
+    reranker (``QFormerConfig()``: ViT-g 1408 x 39 at 224 px, 16 heads of
+    88, MLP 6144; Q-Former 768 x 12, 32 queries, projection 256, vocab
+    30523; bf16, random weights from seed 0) on phase 5's 600-frame
+    source. One cold call (fresh caches: 30 candidates through the tower,
+    cached as ``blip2img``) and three warm ones (the text side only);
+    the cold call again on fresh caches and one warm call under the
+    profiler, for the device's busy and idle time."""
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.models.qformer import Blip2Retrieval, QFormerConfig
+    from avede_tpu_torch.ops import attention, kernels
+    from avede_tpu_torch.ops.preprocess import blip_preprocess
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.pipelines.phase2 import Phase2Rerank
+    from avede_tpu_torch.services import captioner, video_processor
+    from avede_tpu_torch.utils.config import settings
+
+    blip_model, settings.BLIP_MODEL = settings.BLIP_MODEL, "blip2-itm-vit-g"
+    # the in-memory source stands in for the container validate_video
+    # would probe
+    video_processor.validate_video = lambda path: None
+    proc = video_processor.VideoProcessor(engine=engine)
+    proc.phase1 = Phase1Scan(engine, reader=video,
+                             cache=EmbeddingCache(str(cache_dir / "a")))
+    needed = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
+              kernels.cosine_window_topk)
+    contracts = (kernels.fused_patch_embed, attention.flash_attention,
+                 kernels.cosine_scores)
+    counted = needed + contracts
+    path, vid, top_k = "memory://blip2-street", "blip2-street", \
+        settings.TOP_K_RESULTS
+    t0 = time.perf_counter()
+    svc = proc.phase2.captioner                          # builds ViT-g
+    build_s = time.perf_counter() - t0
+    cfg = svc.cfg
+    if not isinstance(svc, captioner.Blip2RerankService) \
+            or cfg != QFormerConfig(dtype="bfloat16"):
+        fail(f"BLIP_MODEL={settings.BLIP_MODEL}: got {type(svc).__name__} "
+             f"with {cfg}")
+    stages: dict = {}
+    batches = []
+    frame_repr = svc.frame_repr
+
+    def counted_repr(frames):
+        batches.append(len(frames))
+        return frame_repr(frames)
+
+    svc.frame_repr = counted_repr
+    undo = timed_stage(stages, svc, "frame_repr", "blip2_image_embeds")
+
+    def query():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = proc.process_query(path, QUERIES[0], mode="reranked",
+                                 threshold=-1.0, extract_clips=False,
+                                 video_id=vid)
+        torch.cuda.synchronize()
+        if out["status"] != "completed":
+            fail(f"BLIP-2 reranked query: {out}")
+        return out["results"], (time.perf_counter() - t0) * 1e3
+
+    reset_launches(counted)
+    cold, cold_ms = query()
+    cold_launches = read_launches(counted)
+    cold_stages, cold_batches = dict(stages), list(batches)
+    reset_launches(counted)
+    warm = [query() for _ in range(3)]
+    warm_launches = read_launches(counted)
+    undo()
+    del svc.frame_repr
+    for name in [fn.__name__ for fn in needed] + [FLASH_L50]:
+        if cold_launches[name] <= 0:
+            fail(f"BLIP-2 reranked: {name} never launched on the cold "
+                 f"call: {cold_launches}")
+    n_batches = sum(1 for n in cold_batches if n)
+    if n_batches == 0 or cold_launches[FLASH_L257] \
+            != BLIP2_DEPTH * n_batches:
+        fail(f"BLIP-2 reranked: {cold_launches[FLASH_L257]} flash launches "
+             f"at L = {BLIP2_TOKENS} for {n_batches} candidate batches "
+             f"({cold_batches}), not {BLIP2_DEPTH} each")
+    if warm_launches[FLASH_L257] or any(
+            c[fn.__name__] for c in (cold_launches, warm_launches)
+            for fn in contracts):
+        fail(f"BLIP-2: the tower ran warm or a contract entry ran: "
+             f"{cold_launches}, {warm_launches}")
+    for res in [cold] + [r for r, _ in warm]:
+        conf = [r["confidence"] for r in res]
+        if not 0 < len(res) <= top_k or not np.all(np.isfinite(conf)) \
+                or conf != sorted(conf, reverse=True):
+            fail(f"BLIP-2 reranked: scores not finite and sorted: {conf}")
+        for r in res:
+            if "caption" in r or not np.isfinite(r["itc_score"]) \
+                    or abs(r["confidence"] - (0.7 * r["clip_score"]
+                                              + 0.3 * r["itc_score"])) > 1e-5:
+                fail(f"BLIP-2 reranked: not an ITC result: {r}")
+        if res != cold:
+            fail("BLIP-2 reranked: repeated queries gave different results")
+
+    # the device's busy and idle time: the cold call again on fresh caches
+    # (the captioner kept), and one warm call
+    proc.phase1 = Phase1Scan(engine, reader=video,
+                             cache=EmbeddingCache(str(cache_dir / "b")))
+    proc._phase2 = Phase2Rerank(proc.phase1, captioner=svc)
+    (again, _), cold_window = device_window(torch, query)
+    _, warm_window = device_window(torch, query)
+    if again != cold:
+        fail("BLIP-2 reranked: the cold call on fresh caches differs")
+
+    # the card's bf16 against the CPU's f32 plain path on the same weights
+    # (the card's, in f32): two candidate frames' per-query image
+    # embeddings, the query's text embedding, their ITC scores
+    t0 = time.perf_counter()
+    frames = np.ascontiguousarray(video._chunk(0, 300)[::150, :, :, ::-1])
+    sd = {k: v.float().cpu() for k, v in svc.model.state_dict().items()}
+    with torch.device("meta"):
+        cpu = Blip2Retrieval(QFormerConfig())
+    cpu.load_state_dict(sd, assign=True)
+    cpu.eval()
+    del sd
+    ids = torch.from_numpy(svc.query_ids(QUERIES[0]))
+    with torch.inference_mode():
+        px = blip_preprocess(torch.from_numpy(frames), cfg.image_size)
+        img_cpu = cpu.image_embeds(px).numpy()
+        txt_cpu = cpu.text_embeds(ids).numpy()
+        img_card = svc.model.image_embeds(px.cuda()).cpu().numpy()
+        txt_card = svc.model.text_embeds(ids.cuda()).cpu().numpy()
+    del cpu
+    gc.collect()
+    itc_card = (img_card @ txt_card[0]).max(1)
+    itc_cpu = (img_cpu @ txt_cpu[0]).max(1)
+    checks = {
+        "image_embeds_min_row_cosine": row_cosine(np, img_card, img_cpu),
+        "text_embed_cosine": row_cosine(np, txt_card, txt_cpu),
+        "itc_max_abs_diff": float(np.abs(itc_card - itc_cpu).max()),
+        "rows_checked": int(img_card.shape[0] * img_card.shape[1]),
+        "card_and_cpu_s": time.perf_counter() - t0}
+    if checks["image_embeds_min_row_cosine"] < 0.999 \
+            or checks["text_embed_cosine"] < 0.999:
+        fail(f"BLIP-2 card vs CPU: {checks}")
+
+    # device times of the pieces at the cold path's shapes
+    cand = torch.from_numpy(np.repeat(frames, top_k, axis=0)).cuda()
+    with torch.inference_mode():
+        px = blip_preprocess(cand, cfg.image_size)
+        tower_ms = call_ms(torch, lambda: svc.model.image_embeds(px),
+                           iters=5)
+        text_ms = call_ms(torch, lambda: svc.model.text_embeds(ids.cuda()),
+                          iters=10)
+    # ViT-g's and the Q-Former's matrix products for the batch
+    d, m, L = cfg.vision_dim, cfg.vision_mlp, BLIP2_TOKENS
+    vision_flop = 2.0 * len(cand) * cfg.vision_depth * L * (
+        4 * d * d + 2 * d * m + 2 * L * d)
+    out = {
+        "build_models_s": build_s, "candidates": len(cold),
+        "candidate_batches": cold_batches,
+        "reranked_cold_ms": cold_ms,
+        "reranked_warm_p50_ms": statistics.median(ms for _, ms in warm),
+        "warm_ms": [ms for _, ms in warm],
+        "cold_host_stages_s": cold_stages,
+        "cold_profiled": cold_window, "warm_profiled": warm_window,
+        "image_embeds_ms_per_batch": tower_ms,
+        "text_embed_ms": text_ms,
+        "vision_tflop_per_batch": vision_flop / 1e12,
+        "flash_launches_L257": cold_launches[FLASH_L257],
+        "launches": {"cold": cold_launches, "warm": warm_launches},
+        "top": [(round(r["timestamp"], 3), round(r["itc_score"], 6))
+                for r in cold[:5]], **checks}
+    settings.BLIP_MODEL = blip_model
+    del proc, svc, cand, px
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def drive_detection(torch, np, engine, video):
@@ -1849,8 +2141,8 @@ def drive_small_objects(torch, np, engine, det):
     # above) so that merge, GrabCut and the re-scoring run on detections
     all_cells = dict(confidence_threshold=-1.0,
                      enable_adaptive_thresholds=False, top_k=2)
-    calls = (("default_cold", "small_object", SMALL_FRAMES, {}),
-             ("default_warm", "small_object", SMALL_FRAMES, {}),
+    calls = (("default_cold", "small_object", SMALL_DEFAULT_FRAMES, {}),
+             ("default_warm", "small_object", SMALL_DEFAULT_FRAMES, {}),
              ("owlvit", "small_object", 8, dict(detection_mode="owlvit",
                                                  top_k=5)),
              ("clip_all", "small_object", 2, all_cells),
@@ -2419,6 +2711,317 @@ def drive_image_query(torch, np, engine, tmp: Path):
     }
 
 
+def person_scene(np, cv2, ids, background, i: int):
+    """Frame ``i`` of phase 13's source, BGR uint8 [720, 1280, 3]: the
+    identities of ``ids`` walking over ``background``, each a person of
+    its own height bouncing along its own line (the port's
+    ``utils.synthetic`` person drawer)."""
+    from avede_tpu_torch.utils.synthetic import _draw_person_into
+
+    rgb = background.copy()
+    for ident, (ph, x, y, vx, vy) in zip(ids, PERSON_WALKS):
+        pw = int(ph * 0.45)
+        cx = pw // 2 + _bounce(x + vx * i, IMAGE_W - pw - 1)
+        cy = ph // 2 + _bounce(y + vy * i, IMAGE_H - ph - 1)
+        # outfits are fixed, so the drawer draws no random numbers
+        _draw_person_into(rgb, ident, None, (cx, cy), ph)
+    return cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)
+
+
+def write_person_video(np, path):
+    """Phase 13's source as a real mp4 (``mp4v``, 1280×720, 30 fps, 300
+    frames): four seeded identities with fixed outfits walking over a
+    seeded textured background → (source report, the reference image:
+    the first identity drawn alone by ``draw_person``, RGB)."""
+    import cv2
+
+    from avede_tpu_torch.utils.synthetic import (draw_person, make_identity,
+                                                 with_outfit)
+
+    rng = np.random.default_rng(13)
+    ids = [with_outfit(make_identity(rng), rng) for _ in PERSON_WALKS]
+    coarse = rng.integers(40, 200, (18, 32, 3), dtype=np.uint8)
+    background = np.clip(cv2.resize(coarse, (IMAGE_W, IMAGE_H),
+                                    interpolation=cv2.INTER_CUBIC
+                                    ).astype(np.int16)
+                         + rng.integers(-14, 15, (IMAGE_H, IMAGE_W, 3)),
+                         0, 255).astype(np.uint8)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"),
+                             FPS, (IMAGE_W, IMAGE_H))
+    if not writer.isOpened():
+        print(video_io_info(cv2), file=sys.stderr)
+        fail(f"cv2 cannot write {path} (mp4v)")
+    t0 = time.perf_counter()
+    for i in range(PERSON_FRAMES):
+        writer.write(person_scene(np, cv2, ids, background, i))
+    writer.release()
+    ref, ref_box = draw_person(ids[0], rng, frame_hw=(480, 320))
+    return {"write_s": time.perf_counter() - t0,
+            "bytes": Path(path).stat().st_size, "frames": PERSON_FRAMES,
+            "width": IMAGE_W, "height": IMAGE_H, "fps": FPS,
+            "identities": len(ids), "reference_shape": list(ref.shape),
+            "reference_box": ref_box}, ref
+
+
+def timed_generator(stages: dict, owner, name: str, label: str):
+    """Like ``timed_stage``, for a generator method: each step of the
+    generator adds its wall to ``stages[label]``."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        it = fn(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                stages[label] = stages.get(label, 0.0) \
+                    + time.perf_counter() - t0
+            yield item
+
+    setattr(owner, name, wrapper)
+    return lambda: delattr(owner, name)
+
+
+def person_stages(stages: dict, svc) -> list:
+    """Wrap the person search's host stages → functions that undo the
+    wraps. ``extract_features`` holds the lighting, crop-embedding,
+    silhouette, appearance, face-region and face-embedding stages."""
+    from avede_tpu_torch.services import detector, person_detector
+
+    det = svc.detector
+    wraps = [(det.yolo, "detect", "yolo"),
+             (person_detector, "normalize_lighting", "lighting"),
+             (detector, "extract_object_embeddings", "crop_embeddings"),
+             (person_detector, "_silhouette", "grabcut_silhouettes"),
+             (det, "extract_features", "extract_features")]
+    if det.appearance is not None:
+        wraps.append((det.appearance, "embed", "appearance_embeds"))
+    if det.face_embedder is not None:
+        wraps.append((det.face_embedder, "embed", "face_embeds"))
+    if det._face_yolo is not None:
+        wraps.append((det._face_yolo, "detect", "face_yolo"))
+    return ([timed_generator(stages, svc.reader, "stream_batches",
+                             "decode")]
+            + [timed_stage(stages, *w) for w in wraps])
+
+
+def drive_person_search(torch, np, engine, tmp: Path):
+    """Phase 13: person search through
+    ``VideoProcessor.process_person_search`` at full width (CLIP ViT-B/32
+    bf16, YOLOv8n at 640 px bf16 from ``YOLO_WEIGHTS``: seed-0 random
+    weights with the person class's logit bias at ``PERSON_BIAS``, at most
+    ``PERSON_MAX_BOXES`` boxes a frame) on a real 1280×720 mp4 of 300
+    frames decoded by the port's ``VideoReader`` (every
+    ``PERSON_FRAME_SKIP``-th frame, fitted to 512 px). Call (a):
+    the defaults, no weights (the gray-crop face, GrabCut body and CLIP
+    visual cues), then again under the profiler; call (b): the appearance
+    encoder, the face-region YOLO and the face embedder loaded from
+    ``.npz`` files in the JAX package's layout (``APPEARANCE_WEIGHTS``,
+    ``FACE_DETECTOR_WEIGHTS``, ``FACE_EMBED_WEIGHTS``; port random weights
+    from seed 0, f32), at threshold -1 with annotated frames saved. Then
+    one frame's CLIP visual, appearance and face rows on the card against
+    the CPU's f32 plain path, on the card's person boxes."""
+    try:
+        import cv2
+    except ImportError:
+        fail("cv2 is missing: person search decodes, normalises lighting "
+             "and segments with cv2")
+    from avede_tpu_torch.io import video_reader
+    from avede_tpu_torch.models.appearance import (AppearanceEmbedder,
+                                                   face_embed_config,
+                                                   init_appearance)
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.models.convert import save_params
+    from avede_tpu_torch.models.yolo import YoloConfig, init_yolo, yolov8n
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.services import person_detector, video_processor
+    from avede_tpu_torch.services.detector import (YoloService,
+                                                   extract_object_embeddings)
+    from avede_tpu_torch.utils.config import settings
+    from avede_tpu_torch.utils.synthetic import head_crop
+
+    video_processor.validate_video = video_reader.validate_video
+    path = tmp / "person-search.mp4"
+    source, ref = write_person_video(np, path)
+    # random YOLOv8n scores every class about 0.5 and keeps no person
+    # box on this video (seen on an H100): the person class's logit bias
+    # is raised to PERSON_BIAS in a weight file of its seed-0 weights, so
+    # every anchor's best class is "person" at sigmoid(PERSON_BIAS) above
+    # detect_persons' fixed 0.3, and DETECTION_MAX_OBJECTS caps the boxes
+    # NMS keeps a frame
+    yolo_model = init_yolo(yolov8n(), seed=0)
+    with torch.no_grad():
+        for i in range(3):
+            getattr(yolo_model, f"head_cls_{i}_2").bias[0] = PERSON_BIAS
+    yolo_file = tmp / "yolov8n_person.npz"
+    save_params(yolo_model, str(yolo_file))
+    del yolo_model
+    saved = {k: getattr(settings, k)
+             for k in ("YOLO_WEIGHTS", "DETECTION_MAX_OBJECTS")}
+    settings.YOLO_WEIGHTS = str(yolo_file)
+    settings.DETECTION_MAX_OBJECTS = PERSON_MAX_BOXES
+    proc = video_processor.VideoProcessor(engine=engine)
+    t0 = time.perf_counter()
+    svc = proc.person                          # the detector, YOLOv8n
+    yolo = svc.detector.yolo
+    build_s = time.perf_counter() - t0
+    counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
+               kernels.cosine_window_topk, kernels.cosine_topk_f32,
+               kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
+               quant.quantize_rows, kernels.fused_patch_embed,
+               attention.flash_attention, kernels.cosine_scores,
+               kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
+               quant.quantize_per_channel)
+
+    def call(name, **kw):
+        stages: dict = {}
+        undo = person_stages(stages, proc.person)
+        cv2.setRNGSeed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = proc.process_person_search(str(path), ref, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        for u in undo:
+            u()
+        if out["status"] != "completed":
+            fail(f"person search ({name}): {out}")
+        summ = out["summary"]
+        sims = [m["similarity"] for m in out["matches"]]
+        if summ["frames_processed"] != PERSON_FRAMES // \
+                settings.PERSON_FRAME_SKIP or not np.all(np.isfinite(sims)) \
+                or not all(0.0 <= m["timestamp"] < PERSON_FRAMES / FPS
+                           for m in out["matches"]):
+            fail(f"person search ({name}): {summ}, {sims[:5]}")
+        if summ["frames_with_persons"] == 0:
+            fail(f"person search ({name}): no person box reached "
+                 f"extract_features: {summ}")
+        return out, {"wall_s": wall_s, "host_stages_s": stages,
+                     "matches": len(out["matches"]),
+                     "summary": {k: v for k, v in summ.items()
+                                 if k != "presence_segments"},
+                     "presence_segments": len(summ["presence_segments"])}
+
+    reset_launches(counted)
+    out_a, runs_a = call("a")
+    (out_again, _), profiled = device_window(
+        torch, lambda: call("a, profiled"))
+    if out_again["matches"] != out_a["matches"]:
+        fail("person search: the repeated call (a) answered differently")
+
+    # call (b): the learned cues, from .npz files in the JAX layout
+    weights = {"APPEARANCE_WEIGHTS": init_appearance(seed=0),
+               "FACE_DETECTOR_WEIGHTS": init_yolo(YoloConfig(
+                   num_classes=1, scale="n", img_size=64), seed=0),
+               "FACE_EMBED_WEIGHTS": init_appearance(face_embed_config(),
+                                                     seed=0)}
+    for setting, model in weights.items():
+        file = tmp / f"{setting.lower()}.npz"
+        save_params(model, str(file))
+        setattr(settings, setting, str(file))
+    proc._person = person_detector.PersonSearchService(
+        engine, detector=person_detector.PersonDetector(engine, yolo=yolo))
+    det = proc.person.detector
+    if det.appearance is None or det._face_yolo is None \
+            or det.face_embedder is None:
+        fail("person search: the learned cues did not load from settings")
+    out_b, runs_b = call("b", similarity_threshold=-1.0,
+                         save_annotated_frames=True)
+    launches = read_launches(counted)
+    annotated = out_b["annotated_frames"]
+    if not out_b["matches"] or len(annotated) != min(
+            50, len(out_b["matches"])) or not all(
+            Path(p).exists() for p in annotated):
+        fail(f"person search (b): {len(out_b['matches'])} matches, "
+             f"{len(annotated)} annotated frames")
+    if launches[FLASH_L50] <= 0 or any(
+            n for k, n in launches.items()
+            if not k.startswith("flash_attention_blhd")) \
+            or launches[FLASH_L577] or launches[FLASH_L257]:
+        fail(f"person search: flash never launched at L = {CLIP_TOKENS} "
+             f"or a kernel off this path ran: {launches}")
+
+    # one frame's rows on the card against the CPU's f32 plain path, on
+    # the card's person boxes
+    t0 = time.perf_counter()
+    frames, _ = video_reader.VideoReader(sample_rate=1).extract_frames(
+        str(path), max_frames=PERSON_FRAMES)
+    pick = next((i for i in range(0, PERSON_FRAMES,
+                                  settings.PERSON_FRAME_SKIP)
+                 if det.detect_persons(frames[i:i + 1])[0]), None)
+    if pick is None:
+        fail("person search: no sampled frame has a person box")
+    frame = frames[pick]
+    boxes = [d["bbox"] for d in det.detect_persons(frame[None])[0]]
+    norm = person_detector.normalize_lighting(frame)
+    cpu_clip = ClipEngine(cfg=vit_b32(), device="cpu", seed=0)
+    cpu_app = AppearanceEmbedder(state_dict={
+        k: v.cpu() for k, v in det.appearance.model.state_dict().items()},
+        device="cpu")
+    cpu_face = AppearanceEmbedder(face_embed_config(), state_dict={
+        k: v.cpu() for k, v in det.face_embedder.model.state_dict().items()},
+        device="cpu")
+    cpu_face_yolo = YoloService(
+        cfg=det._face_yolo.cfg, class_names=["face"], device="cpu",
+        state_dict={k: v.float().cpu() for k, v in
+                    det._face_yolo.model.state_dict().items()})
+    heads = [head_crop(frame, b) for b in boxes]
+    # the face encoder's rows on the face boxes extract_features embeds,
+    # or, where random face-YOLO weights give none of at least 4 px a
+    # side, on the person crops
+    faces, face_source = [], "face-YOLO boxes"
+    for source_boxes in ([det.find_faces_scored(norm, b)[0] for b in boxes],
+                         boxes):
+        faces = [c for c in (person_detector.crop(frame, fb)
+                             for fb in source_boxes)
+                 if c.size and min(c.shape[:2]) >= 4]
+        if faces:
+            break
+        face_source = "person crops"
+    face_box_diff = []
+    for b in boxes:
+        region = person_detector.crop(norm, b)
+        if region.size and min(region.shape[:2]) >= 8:
+            got = det._face_yolo.detect(region[None], conf_threshold=0.15)[0]
+            want = cpu_face_yolo.detect(region[None], conf_threshold=0.15)[0]
+            if got and want and len(got) == len(want):
+                face_box_diff.append(max(
+                    abs(a - c) for g, w in zip(got, want)
+                    for a, c in zip(g["bbox"], w["bbox"])))
+    checks = {
+        "frame": pick, "person_boxes": len(boxes),
+        "visual_min_row_cosine": row_cosine(
+            np, extract_object_embeddings(engine, norm, boxes),
+            extract_object_embeddings(cpu_clip, norm, boxes)),
+        "appearance_min_row_cosine": row_cosine(
+            np, det.appearance.embed(heads), cpu_app.embed(heads)),
+        "face_crops": len(faces), "face_crop_source": face_source,
+        "face_min_row_cosine": row_cosine(
+            np, det.face_embedder.embed(faces), cpu_face.embed(faces))
+        if faces else None,
+        "face_yolo_max_box_diff_px": max(face_box_diff, default=None),
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "card_and_cpu_s": time.perf_counter() - t0}
+    if min(checks[k] for k in ("visual_min_row_cosine",
+                               "appearance_min_row_cosine",
+                               "face_min_row_cosine")
+           if checks[k] is not None) < 0.9999 or not faces:
+        fail(f"person search card vs CPU: {checks}")
+    for setting in weights:
+        setattr(settings, setting, None)
+    for k, v in saved.items():
+        setattr(settings, k, v)
+    del cpu_clip, proc
+    return {"source": source, "build_s": build_s,
+            "person_bias": PERSON_BIAS, "max_boxes": PERSON_MAX_BOXES,
+            "calls": {"a": runs_a, "b": runs_b}, "a_profiled": profiled,
+            "launches": launches, **checks}
+
+
 def decode_capabilities() -> dict:
     """What this machine could decode video and serve HTTP with, read
     without installing anything: ``torchvision.io``'s video backends,
@@ -2603,9 +3206,24 @@ def main() -> None:
           flush=True)
     video = SyntheticVideo(np, seed=0)
     rows = check_kernels(torch, np, video)
+    print(json.dumps({"kernel_checks": [
+        {k: r.get(k) for k in ("name", "ms", "plain_ms", "bound_ms",
+                               "library_ms", "max_abs_err")}
+        for r in rows]}), flush=True)
 
     from avede_tpu_torch.parallel.embed import ClipEngine
     from avede_tpu_torch.utils.config import settings
+
+    t_script = time.perf_counter()
+
+    def phase(name, fn, *args):
+        """Run one phase → its report, printed at once with its wall (a
+        later phase's failure keeps the earlier reports)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(json.dumps({"card": card, name: out,
+                          "phase_s": time.perf_counter() - t0}), flush=True)
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         for attr in ("DATA_DIR", "VIDEO_DIR", "CLIP_DIR", "FRAME_DIR",
@@ -2613,27 +3231,40 @@ def main() -> None:
             setattr(settings, attr, str(Path(tmp) / attr.lower()))
         engine = ClipEngine(device="cuda", seed=0)   # ViT-B/32, bf16
         reference = check_against_cpu(torch, np, engine, video)
-        main_path = drive_main_path(torch, np, engine, video,
-                                    Path(tmp) / "embeddings")
-        library = drive_library(torch, np, engine, Path(tmp))
+        print(json.dumps({"card": card, "reference": reference}),
+              flush=True)
+        main_path = phase("main_path", drive_main_path, torch, np, engine,
+                          video, Path(tmp) / "embeddings")
+        library = phase("library", drive_library, torch, np, engine,
+                        Path(tmp))
         # phase 8 runs while the CLIP engine is loaded; phase 7 after it,
         # with the card's memory free again for its peak
-        rerank = drive_rerank(torch, np, engine, video, Path(tmp) / "rerank")
+        rerank = phase("rerank", drive_rerank, torch, np, engine, video,
+                       Path(tmp) / "rerank")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 12 after phase 8, with BLIP-base freed
+        blip2 = phase("blip2", drive_blip2, torch, np, engine, video,
+                      Path(tmp) / "blip2")
         gc.collect()
         det, detection = drive_detection(torch, np, engine, video)
-        t0 = time.perf_counter()
-        small = drive_small_objects(torch, np, engine, det)
-        small["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"card": card, "detection": detection}),
+              flush=True)
+        small = phase("small_objects", drive_small_objects, torch, np,
+                      engine, det)
         del det
         gc.collect()
-        t0 = time.perf_counter()
-        image_query = drive_image_query(torch, np, engine, Path(tmp))
-        image_query["phase_s"] = time.perf_counter() - t0
+        image_query = phase("image_query", drive_image_query, torch, np,
+                            engine, Path(tmp))
+        gc.collect()
+        person = phase("person_search", drive_person_search, torch, np,
+                       engine, Path(tmp))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     index = {dtype: drive_index(torch, np, dtype)
              for dtype in ("bfloat16", "int8")}
+    print(json.dumps({"card": card, "index": index}), flush=True)
 
     # each kernel's launches on every path, each path's counts zeroed
     # just before it ran; ``launches`` is the count on the row's own path
@@ -2642,6 +3273,8 @@ def main() -> None:
              "unlimited_detection": detection["launches"],
              "small_object": small["launches"],
              "image_query": image_query["launches"],
+             "reranked_blip2": blip2["launches"]["cold"],
+             "person_search": person["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:
@@ -2650,15 +3283,9 @@ def main() -> None:
         row["launches"] = paths[row["path"]][key]
         row["launches_by_path"] = {p: c.get(key, 0)
                                    for p, c in paths.items()}
+    print(json.dumps({"script_s_after_build": time.perf_counter()
+                      - t_script}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"card": card, "reference": reference,
-                      "main_path": main_path}), flush=True)
-    print(json.dumps({"card": card, "library": library}), flush=True)
-    print(json.dumps({"card": card, "rerank": rerank}), flush=True)
-    print(json.dumps({"card": card, "detection": detection}), flush=True)
-    print(json.dumps({"card": card, "small_objects": small}), flush=True)
-    print(json.dumps({"card": card, "image_query": image_query}), flush=True)
-    print(json.dumps({"card": card, "index": index}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

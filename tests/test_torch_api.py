@@ -108,19 +108,28 @@ class TestPortApi:
         ops = client("GET", "/api/metrics")[1]["operations"]
         assert "phase2.rerank" in ops and "phase1.score_topk" in ops
 
-    def test_unported_mode_is_500_envelope(self, client, tmp_path,
-                                           monkeypatch):
-        """The BLIP-2 reranker is not ported: selecting it answers an
-        advanced query with a 500 error envelope."""
-        monkeypatch.setattr(settings, "BLIP_MODEL", "blip2-opt-2.7b")
+    def test_blip2_setting_serves_advanced_query(self, client, tmp_path,
+                                                 monkeypatch):
+        """``BLIP_MODEL`` naming BLIP-2 serves an advanced query (200,
+        ITC scores in every result) in the order the facade gives."""
+        from tests.test_torch_qformer import use_tiny_blip2
+
+        use_tiny_blip2(monkeypatch, tmp_path)
         client.processor._phase2 = client.processor._phase3 = None
         video = make_test_video(tmp_path / "src.mp4", n_frames=30)
         _, body = _upload(client, video)
         status, out = client("POST", "/api/query", json={
             "video_id": body["video_id"], "query": "q", "mode": "advanced",
             "threshold": -1.0})
-        assert status == 500 and out["status"] == "error"
-        assert "not ported" in out["error"]
+        assert status == 200 and out["status"] == "completed"
+        assert out["total_found"] == len(out["results"]) > 0
+        assert all(np.isfinite(r["itc_score"]) for r in out["results"])
+        direct = client.processor.process_query(
+            client.processor.resolve_video(body["video_id"]), "q",
+            mode="advanced", threshold=-1.0, extract_clips=False,
+            video_id=body["video_id"])
+        assert [r["timestamp"] for r in out["results"]] \
+            == [r["timestamp"] for r in direct["results"]]
 
     def test_query_unknown_video_404(self, client):
         status, _ = client("POST", "/api/query",
@@ -249,6 +258,12 @@ class _Recorder:
     def process_image_matching(self, video, image, **kw):
         return {"status": "error" if kw["matching_mode"] == "bogus"
                 else "completed", "call": "image_matching", "video": video,
+                "image": [list(image.shape), int(image.astype(int).sum())],
+                **kw}
+
+
+    def process_person_search(self, video, image, **kw):
+        return {"status": "completed", "call": "person", "video": video,
                 "image": [list(image.shape), int(image.astype(int).sum())],
                 **kw}
 
@@ -770,3 +785,138 @@ class TestImageMatchingRoute:
         clips = {c["filename"] for c in client("GET", "/api/clips")[1][
             "clips"]}
         assert {r["clip_filename"] for r in out["results"]} <= clips
+
+
+# ---------------------------------------------------------------------------
+# person search, the root and the built-in UI
+# ---------------------------------------------------------------------------
+
+_PERSON_BODIES = [
+    ({}, 200), ({"similarity_threshold": "0.5"}, 200),
+    ({"similarity_threshold": None, "frame_skip": None}, 200),
+    ({"frame_skip": "3"}, 200), ({"frame_skip": 4.0}, 200),
+    ({"frame_skip": " +2 "}, 200), ({"frame_skip": True}, 200),
+    ({"temporal_consistency": "no", "save_annotated_frames": "yes"}, 200),
+    ({"temporal_consistency": 0, "save_annotated_frames": 1.0}, 200),
+    ({"similarity_threshold": 1, "extra": [1]}, 200),
+    ({"frame_skip": "3.5"}, 422), ({"frame_skip": 2.5}, 422),
+    ({"similarity_threshold": "abc"}, 422),
+    ({"temporal_consistency": "maybe"}, 422),
+    ({"save_annotated_frames": None}, 422),
+    ({"image_id": None}, 422), ({"video_id": 7}, 422),
+    ({"video_id": "missing"}, 404), ({"image_id": "nope"}, 404),
+    ({"image_id": "bad"}, 400),
+]
+
+
+@pytest.fixture()
+def person_images(tmp_data_dirs):
+    images = tmp_data_dirs / "images"
+    images.mkdir(exist_ok=True)
+    (images / "img1.png").write_bytes(_png(1))
+    (images / "bad.png").write_bytes(b"not an image")
+    return images
+
+
+@pytest.mark.parametrize("body,status", _PERSON_BODIES)
+def test_person_bodies_parse_as_the_jax_app(both_apps, person_images, body,
+                                            status):
+    """JSON bodies coerced as pydantic 2's lax mode does; 404 for an
+    unknown video or image, 400 for an image that does not decode;
+    accepted ones reach the processor with the same arguments and the
+    same decoded image."""
+    payload = {"video_id": "v", "image_id": "img1", **body}
+    ref = both_apps(0, "POST", "/api/enhanced-person-detection",
+                    json=payload)
+    got = both_apps(1, "POST", "/api/enhanced-person-detection",
+                    json=payload)
+    assert got[0] == ref[0] == status
+    if status == 200:
+        assert got[1] == ref[1] and got[1]["call"] == "person"
+
+
+def test_person_route_refuses_bad_json_as_the_jax_app(both_apps):
+    for which in (0, 1):
+        path = "/api/enhanced-person-detection"
+        assert both_apps(which, "POST", path, data=b"{x", headers={
+            "Content-Type": "application/json"})[0] == 422
+        assert both_apps(which, "POST", path, json=["v", "img1"])[0] == 422
+        assert both_apps(which, "POST", path, json={"video_id": "v"})[0] \
+            == 422
+
+
+def test_person_detection_tracked_as_the_jax_app(both_apps, person_images):
+    from avede_tpu.utils.metrics import get_monitor as jax_monitor
+
+    from avede_tpu_torch.utils.metrics import get_monitor
+
+    def count(which):
+        ops = both_apps(which, "GET", "/api/metrics")[1]["operations"]
+        return ops.get("person_detection", {}).get("count_total", 0)
+
+    before = [count(0), count(1)]
+    for which in (0, 1):
+        assert both_apps(which, "POST", "/api/enhanced-person-detection",
+                         json={"video_id": "v", "image_id": "img1"}
+                         )[0] == 200
+        assert both_apps(which, "POST", "/api/enhanced-person-detection",
+                         json={"video_id": "v", "image_id": "nope"}
+                         )[0] == 404
+    assert [count(0) - before[0], count(1) - before[1]] == [1, 1]
+    for monitor in (jax_monitor, get_monitor):
+        assert len(monitor()._records["person_detection"]) >= 1
+
+
+def test_root_and_ui_as_the_jax_app(both_apps):
+    ref, got = (both_apps(w, "GET", "/") for w in (0, 1))
+    assert got[0] == ref[0] == 200 and got[1] == ref[1]
+    assert "/api/enhanced-person-detection" in got[1]["endpoints"]
+    ref, got = (both_apps(w, "GET", "/ui") for w in (0, 1))
+    assert got[0] == ref[0] == 200 and got[1] == ref[1]
+    assert got[2]["Content-Type"] == ref[2]["Content-Type"]
+    assert got[2]["Content-Type"].startswith("text/html")
+    assert b"enhanced-person-detection" in got[1]
+
+
+def test_person_route_completes_over_a_real_video(client, tmp_path):
+    """The route over a real mp4 of drawn people with tiny CLIP and YOLO
+    on the CPU: an uploaded reference image, every person box a match
+    at threshold 0."""
+    import cv2
+
+    from avede_tpu_torch.models.yolo import tiny_yolo_config
+    from avede_tpu_torch.services.detector import YoloService
+    from avede_tpu_torch.services.person_detector import (
+        PersonDetector, PersonSearchService)
+    from avede_tpu_torch.utils.synthetic import (draw_people, draw_person,
+                                                 make_identity)
+
+    proc = client.processor
+    proc._person = PersonSearchService(proc.engine, detector=PersonDetector(
+        proc.engine, yolo=YoloService(cfg=tiny_yolo_config(),
+                                      device="cpu")))
+    rng = np.random.default_rng(0)
+    ids = [make_identity(rng) for _ in range(2)]
+    video = str(tmp_path / "people.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25.0,
+                             (128, 96))
+    for _ in range(20):
+        frame, _ = draw_people(ids, rng, frame_hw=(96, 128),
+                               person_h_range=(40, 60))
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    writer.release()
+    vid = _upload(client, video)[1]["video_id"]
+    ref, _ = draw_person(ids[0], rng, frame_hw=(96, 64))
+    form = FormData()
+    form.add_field("file", cv2.imencode(".png", ref[..., ::-1])[1].tobytes(),
+                   filename="ref.png", content_type="image/png")
+    image_id = client("POST", "/api/upload-image", data=form)[1]["image_id"]
+    status, out = client("POST", "/api/enhanced-person-detection", json={
+        "video_id": vid, "image_id": image_id, "similarity_threshold": 0,
+        "frame_skip": "4", "temporal_consistency": False})
+    assert status == 200 and out["status"] == "completed"
+    assert out["summary"]["frames_processed"] == 5
+    assert out["total_found"] == len(out["matches"]) > 0
+    for m in out["matches"]:
+        assert m["detection_method"] == "yolo" and 0 <= m["similarity"] <= 1
+

@@ -47,7 +47,9 @@ def test_port_imports_no_jax_or_reference_package():
                 "services.universal_detector",
                 "services.open_vocab_matcher", "parallel.scheduler",
                 "services.cross_domain_matcher", "services.image_matcher",
-                "pipelines.phase4"):
+                "pipelines.phase4", "models.qformer", "models.appearance",
+                "services.person_detector", "utils.synthetic",
+                "web.builtin"):
         assert f"avede_tpu_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -93,6 +95,17 @@ class TestEntryPointsNeedACard:
             YoloService()
         with pytest.raises(ConfigurationError):
             YoloService(device="cuda")
+
+    def test_reranker_and_person_models_raise(self):
+        from avede_tpu_torch.models.appearance import AppearanceEmbedder
+        from avede_tpu_torch.models.qformer import tiny_qformer_config
+        from avede_tpu_torch.services.captioner import Blip2RerankService
+        from avede_tpu_torch.utils.errors import ConfigurationError
+
+        with pytest.raises(ConfigurationError):
+            Blip2RerankService(cfg=tiny_qformer_config())
+        with pytest.raises(ConfigurationError):
+            AppearanceEmbedder()
 
     def test_app_processor_raises(self, tmp_path, monkeypatch):
         from avede_tpu_torch.api.app import create_app

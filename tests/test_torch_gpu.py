@@ -102,6 +102,32 @@ def test_flash_blhd_kernel_reads_fused_qkv_in_place(cuda, L):
         tattn.flash_attention_blhd(q, k.contiguous(), v)
 
 
+@pytest.mark.parametrize("bsz,L", [(30, 257), (2, 65), (3, 1), (1, 130)])
+def test_flash_blhd_kernel_at_head_dim_88(cuda, bsz, L):
+    """BLIP-2's ViT-g: hd = 88 (1408 = 16 × 88), q, k, v the thirds of one
+    fused [B, L, 3·1408] projection read at a row stride of 4224; the
+    head is padded to 96 columns only in shared memory."""
+    g = torch.Generator(device="cuda").manual_seed(88 + L)
+    qkv = torch.randn(bsz, L, 3 * 16 * 88, device=cuda, generator=g
+                      ).to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (16, 88)) for t in qkv.chunk(3, dim=-1))
+    before = tattn.flash_attention_blhd.launches_by_length[L]
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[L] == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+    # contiguous heads (row stride 1408) give the same answer
+    again = tattn.flash_attention_blhd(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(again, got)
+
+
+def test_flash_blhd_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 4, 2, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.flash_attention_blhd(q, q, q)
+
+
 def test_blip_vision_layer_launches_flash(cuda):
     from avede_tpu_torch.models.blip import BlipVisionLayer, blip_base
 
@@ -115,6 +141,44 @@ def test_blip_vision_layer_launches_flash(cuda):
     assert tattn.flash_attention_blhd.launches_by_length[577] == before + 1
     cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, -1)
     assert float(cos.min()) >= 0.99
+
+
+def test_blip2_vision_layer_launches_flash_at_hd88(cuda):
+    """One ViT-g layer of BLIP-2 (1408 wide, 16 heads of 88, 257 tokens)
+    in bf16 on the card: one flash launch at L = 257, against the CPU's
+    f32 layer (row cosine >= 0.99)."""
+    from avede_tpu_torch.models.blip import BlipVisionLayer
+    from avede_tpu_torch.models.qformer import QFormerConfig
+
+    layer = BlipVisionLayer(QFormerConfig().vision_cfg).to(cuda,
+                                                           torch.bfloat16)
+    x = torch.randn(2, 257, 1408, device=cuda, dtype=torch.bfloat16)
+    before = tattn.flash_attention_blhd.launches_by_length[257]
+    with torch.inference_mode():
+        got = layer(x)
+        ref = layer.float().cpu()(x.float().cpu())
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[257] == before + 1
+    cos = torch.nn.functional.cosine_similarity(got.float().cpu(), ref, -1)
+    assert float(cos.min()) >= 0.99
+
+
+@pytest.mark.parametrize("face", [False, True], ids=["default", "face"])
+def test_appearance_encoder_on_card_matches_cpu(cuda, face):
+    """The person-search encoders in f32 on the card (TF32 off here)
+    against the CPU on the same weights."""
+    from avede_tpu_torch.models.appearance import (AppearanceEmbedder,
+                                                   face_embed_config)
+
+    cfg = face_embed_config() if face else None
+    cpu = AppearanceEmbedder(cfg, seed=3, device="cpu")
+    card = AppearanceEmbedder(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(0)
+    crops = [rng.integers(0, 255, (int(h), int(w), 3), dtype=np.uint8)
+             for h, w in rng.integers(6, 120, (33, 2))]
+    got, ref = card.embed(crops), cpu.embed(crops)
+    assert got.shape == ref.shape == (33, cpu.cfg.embed_dim)
+    assert np.abs(got - ref).max() <= 1e-5
 
 
 def test_flash_blhd_kernel_at_owlvit_shape(cuda):

@@ -167,20 +167,33 @@ class TestMvpSlice:
                        ).frame_embeddings(video, "sp", rows="full")
         assert np.abs(full - ref).max() <= CONF_TOL
 
-    def test_unported_modes_answer_with_error_envelope(self, processors,
-                                                       tmp_data_dirs,
-                                                       monkeypatch):
-        """Every query mode is served; what is not ported yet (the BLIP-2
-        reranker that ``BLIP_MODEL`` can select for ``reranked`` and
-        ``advanced``) answers with an error envelope, as an unknown mode
-        does."""
-        _, tproc = processors
-        monkeypatch.setattr(tsettings, "BLIP_MODEL", "blip2-opt-2.7b")
+    def test_blip2_modes_served_and_unknown_mode_is_error_envelope(
+            self, processors, tmp_data_dirs, tmp_path, monkeypatch):
+        """Every query mode is served: with ``BLIP_MODEL`` naming BLIP-2,
+        ``reranked`` ranks the candidates as JAX's does by ITC scores and
+        ``advanced`` completes with them; an unknown mode answers with
+        an error envelope."""
+        from tests.test_torch_qformer import use_tiny_blip2
+
+        jproc, tproc = processors
+        use_tiny_blip2(monkeypatch, tmp_path)
         video = make_test_video(tmp_data_dirs / "videos" / "v2.mp4")
+        outs = {}
         for mode in ("reranked", "advanced"):
-            out = tproc.process_query(video, "q", mode=mode, threshold=-1.0)
-            assert out["status"] == "error"
-            assert "not ported" in out["error"]
+            out = tproc.process_query(video, "q", mode=mode, top_k=3,
+                                      threshold=-1.0, extract_clips=False,
+                                      video_id="v2")
+            assert out["status"] == "completed", out
+            assert out["total_found"] == len(out["results"]) > 0
+            assert all(np.isfinite(r["itc_score"]) for r in out["results"])
+            outs[mode] = out["results"]
+        ref = jproc.process_query(video, "q", mode="reranked", top_k=3,
+                                  threshold=-1.0, extract_clips=False,
+                                  video_id="v2")["results"]
+        assert [r["timestamp"] for r in outs["reranked"]] \
+            == [r["timestamp"] for r in ref]
+        for r, want in zip(outs["reranked"], ref):
+            assert abs(r["itc_score"] - want["itc_score"]) <= 1e-4
         out = tproc.process_query(video, "q", mode="bogus")
         assert out["status"] == "error" and "bogus" in out["error"]
 

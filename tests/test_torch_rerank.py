@@ -2,7 +2,7 @@
 JAX package: a real mp4 through both ``VideoProcessor.process_query``
 on the same tiny CLIP, BLIP and grounding weights, plus the pieces the
 slice adds around them (``FrameReprCache``, ``read_frames_at``, the
-metrics spans, the BLIP-2 setting).
+metrics spans, the BLIP-2 reranker that the setting selects).
 
 Both packages store the CLIP table through the int8 embedding cache, so
 a CLIP score may differ by one int8 step (the mvp slice's 5e-3 bar);
@@ -204,17 +204,46 @@ class TestRerankSlice:
         assert [r["caption"] for r in second] \
             == [r["caption"] for r in first]
 
-    def test_blip2_setting_is_an_error_envelope(self, processors,
-                                                tmp_data_dirs, monkeypatch):
-        _, tproc = processors
-        tproc._phase2 = tproc._phase3 = None
-        monkeypatch.setattr(tsettings, "BLIP_MODEL", "blip2-opt-2.7b")
-        video = make_test_video(tmp_data_dirs / "videos" / "b.mp4")
+    def test_blip2_setting_serves_itc_rerank_as_jax(
+            self, processors, weights, tmp_data_dirs, tmp_path, monkeypatch):
+        """``BLIP_MODEL`` naming BLIP-2 serves ``reranked`` and
+        ``advanced`` with ITC scores: both packages load one ``.npz`` of
+        tiny Q-Former weights; the candidates, their order and their
+        ``itc_score`` details are JAX's."""
+        from avede_tpu.models.univtg import tiny_grounding_config as jground
+        from avede_tpu.pipelines.phase2 import Phase2Rerank as JPhase2
+        from avede_tpu.pipelines.phase3 import Phase3Temporal as JPhase3
+
+        from avede_tpu_torch.models.univtg import tiny_grounding_config
+        from avede_tpu_torch.pipelines.phase2 import Phase2Rerank
+        from avede_tpu_torch.pipelines.phase3 import Phase3Temporal
+        from avede_tpu_torch.services.captioner import Blip2RerankService
+        from tests.test_torch_qformer import use_tiny_blip2
+
+        jproc, tproc = processors
+        use_tiny_blip2(monkeypatch, tmp_path)
+        # the default reranker by the setting; the tiny grounding head
+        jproc._phase2 = JPhase2(jproc.phase1)
+        jproc._phase3 = JPhase3(jproc._phase2, cfg=jground(32),
+                                params=weights["ground"][0])
+        tproc._phase2 = Phase2Rerank(tproc.phase1)
+        tproc._phase3 = Phase3Temporal(tproc._phase2,
+                                       cfg=tiny_grounding_config(32),
+                                       state_dict=weights["ground"][1])
+        video = make_test_video(tmp_data_dirs / "videos" / "b.mp4",
+                                n_frames=120)
         for mode in ("reranked", "advanced"):
-            out = tproc.process_query(video, "q", mode=mode,
-                                      threshold=-1.0)
-            assert out["status"] == "error"
-            assert "not ported" in out["error"] and "blip2" in out["error"]
+            ref = _query(jproc, video, mode, "b")
+            got = _query(tproc, video, mode, "b")
+            assert isinstance(tproc.phase2.captioner, Blip2RerankService)
+            assert len(got) == len(ref) == 4
+            assert [r["timestamp"] for r in got] \
+                == [r["timestamp"] for r in ref]
+            for r, want in zip(got, ref):
+                assert "caption" not in r
+                assert abs(r["itc_score"] - want["itc_score"]) <= 1e-4
+                assert r["caption_similarity"] == r["itc_score"]
+                assert abs(r["confidence"] - want["confidence"]) <= CONF_TOL
 
 
 def test_spans_reach_the_metrics_monitor(weights, tmp_data_dirs, port_dirs):
