@@ -84,6 +84,17 @@ class AppearanceEncoder(nn.Module):
                                             ).clamp(min=1e-8)
 
 
+def nt_xent_loss(emb_a: torch.Tensor, emb_b: torch.Tensor,
+                 temperature: float = 0.1) -> torch.Tensor:
+    """SimCLR NT-Xent over positive pairs (row i of ``emb_a`` with row i
+    of ``emb_b``): the diagonals of the row and the column log-softmax of
+    ``emb_a @ emb_b.T / temperature``, averaged, then halved."""
+    logits = (emb_a @ emb_b.T) / temperature                 # [B, B]
+    loss_ab = -torch.log_softmax(logits, dim=1).diagonal()
+    loss_ba = -torch.log_softmax(logits, dim=0).diagonal()
+    return (loss_ab + loss_ba).mean() / 2.0
+
+
 def init_appearance(cfg: Optional[AppearanceConfig] = None, seed: int = 0
                     ) -> AppearanceEncoder:
     """Encoder with deterministic random weights from ``seed``."""

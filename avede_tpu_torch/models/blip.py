@@ -7,9 +7,13 @@ The same architecture, parameter names and numerics as the JAX package
 16×16 conv patch embedding, a fused ``qkv`` projection, exact (erf) GELU
 and LayerNorm eps 1e-5; the text decoder is post-LN with eps 1e-12 and
 8 heads at full width. Vision self-attention (unmasked, non-causal,
-hd = 64) goes through the hand-written ``flash_attention_blhd``, which
-reads the q, k and v thirds of the fused ``[B, L, 3D]`` projection in
-place; its plain version runs on the CPU. Text attention (causal, or one
+hd = 64) goes through the hand-written ``flash_attention_blhd`` when
+``use_flash`` is set (the serving default), which reads the q, k and v
+thirds of the fused ``[B, L, 3D]`` projection in place; its plain
+version runs on the CPU. The kernel has no backward, so the trainers
+build the model with ``use_flash=False``: plain softmax attention on the
+same thirds in the config's dtype, the JAX package's einsum (JAX trains
+through no Pallas kernel either). Text attention (causal, or one
 query over the cache, or cross-attention over the vision tokens, hd = 96)
 stays plain torch with an f32 softmax. Images are NHWC at the public
 functions, as in the JAX package.
@@ -68,6 +72,7 @@ class BlipConfig:
     pad_token_id: int = 0
     max_caption_len: int = 50
     dtype: str = "float32"
+    use_flash: bool = True   # hand-written flash attention in the vision tower
 
     @property
     def num_patches(self) -> int:
@@ -100,6 +105,7 @@ class BlipVisionLayer(nn.Module):
         super().__init__()
         d, eps = cfg.vision_dim, cfg.vision_ln_eps
         self.heads = cfg.vision_heads
+        self.use_flash = cfg.use_flash
         self.layer_norm1 = nn.LayerNorm(d, eps=eps)
         self.qkv = nn.Linear(d, 3 * d)
         self.projection = nn.Linear(d, d)
@@ -112,7 +118,13 @@ class BlipVisionLayer(nn.Module):
         # the three thirds of [B, L, 3D], viewed per head without a copy
         q, k, v = (t.unflatten(-1, (self.heads, d // self.heads))
                    for t in self.qkv(self.layer_norm1(x)).chunk(3, dim=-1))
-        x = x + self.projection(flash_attention_blhd(q, k, v))
+        if self.use_flash:
+            o = flash_attention_blhd(q, k, v)
+        else:
+            o = masked_softmax_attention(
+                *(t.transpose(1, 2) for t in (q, k, v))
+            ).transpose(1, 2).flatten(2)
+        x = x + self.projection(o)
         y = self.fc2(F.gelu(self.fc1(self.layer_norm2(x))))
         return x + y
 

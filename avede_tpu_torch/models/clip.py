@@ -15,7 +15,7 @@ conv of the JAX package); the serving path enters the tower through
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -168,6 +168,13 @@ class CLIPModel(nn.Module):
     @staticmethod
     def _unit(emb: torch.Tensor) -> torch.Tensor:
         return emb / torch.linalg.norm(emb, dim=-1, keepdim=True)
+
+    def forward(self, pixels: torch.Tensor, ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(unit-norm image embeddings, unit-norm text embeddings,
+        ``exp(logit_scale)``): the contrastive trainer's forward."""
+        return (self.encode_image(pixels), self.encode_text(ids),
+                self.logit_scale.exp())
 
     def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         return self._unit(self.vision(pixels))

@@ -9,7 +9,8 @@ arrays) into a state dict for the port's models (``models/clip.py``,
 running statistics too. ``load_params`` reads
 the flat slash-joined ``.npz`` that ``avede_tpu.models.convert.
 save_params`` writes, so both packages can serve one weight file;
-``save_params`` writes a port model's weights in that layout.
+``save_params`` writes a port model's weights in that layout;
+``train_state_from_jax`` carries an optax Adam state across with them.
 
 Mapping, per leaf: path parts join with ``.`` and ``layers_<i>``
 becomes ``layers.<i>``; a 2-D Dense ``kernel [in, out]`` becomes
@@ -86,6 +87,36 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return params_from_flat(flatten_params(tree))
 
 
+def _adam_state(node: Any):
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an
+    optax state: a tuple of transformation states, nested by ``chain``."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    for child in node if isinstance(node, tuple) else ():
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(params: Mapping[str, Any], opt_state: Any,
+                         step: int) -> Dict[str, Any]:
+    """A JAX train state (a Flax parameter tree and an optax ``adamw``
+    or ``chain(clip_by_global_norm, adamw)`` state, as numpy trees) →
+    the port's ``TrainState.state_dict()`` layout (``parallel/train.py``):
+    ``{"params", "opt_state": {"count", "mu", "nu"}, "step"}``. The
+    moments take the parameters' key mapping and transposes; optax's
+    update count becomes ``count``."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in opt_state")
+    return {"params": params_from_jax(params),
+            "opt_state": {"count": int(np.asarray(adam.count)),
+                          "mu": params_from_jax(adam.mu),
+                          "nu": params_from_jax(adam.nu)},
+            "step": int(np.asarray(step))}
+
+
 def load_params(path: str) -> Dict[str, torch.Tensor]:
     """Read a flat slash-joined ``.npz`` (the JAX package's format); a
     file of a whole variables dict (every path under ``params/`` or
@@ -125,7 +156,10 @@ def save_params(model: nn.Module, path: str) -> None:
     conv ``weight`` → ``kernel`` ([in, out], HWIO), norm ``weight`` →
     ``scale``, ``nn.Embedding``'s → ``embedding``; BatchNorm
     ``running_mean`` / ``running_var`` → ``batch_stats/…/mean`` / ``var``
-    beside ``params/…`` (the layout of a saved Flax variables dict)."""
+    beside ``params/…`` (the layout of a saved Flax variables dict).
+    The archive is stored, not deflated (the JAX package deflates):
+    trained f32 weights hardly compress, and deflating ViT-B/32's
+    600 MB takes about half a minute."""
     owners = dict(model.named_modules())
     params: Dict[str, np.ndarray] = {}
     stats: Dict[str, np.ndarray] = {}
@@ -150,5 +184,5 @@ def save_params(model: nn.Module, path: str) -> None:
     if stats:
         params = {**{f"params/{k}": v for k, v in params.items()},
                   **{f"batch_stats/{k}": v for k, v in stats.items()}}
-    np.savez_compressed(path, **params)
+    np.savez(path, **params)
 

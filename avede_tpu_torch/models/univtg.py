@@ -73,6 +73,33 @@ class TemporalGroundingHead(nn.Module):
         return sal, off
 
 
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor
+                ) -> torch.Tensor:
+    """Per-element sigmoid binary cross-entropy, optax's
+    ``sigmoid_binary_cross_entropy`` in the form ``relu(x) - x·z +
+    log1p(exp(-|x|))``: finite, with a finite gradient, at the head's
+    ``finfo.min`` masked logits, so ``torch.where`` can mask it without
+    putting NaN into the gradient."""
+    x, z = logits, labels.to(logits.dtype)
+    return F.relu(x) - x * z + torch.log1p(torch.exp(-x.abs()))
+
+
+def grounding_loss(saliency: torch.Tensor, offsets: torch.Tensor,
+                   sal_labels: torch.Tensor, off_labels: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """BCE on saliency over the valid frames + L1 on the boundary
+    offsets over the foreground frames (label > 0.5), each a mean over
+    its frames (at least 1) — ``avede_tpu/models/univtg.py:89-99``."""
+    valid = valid.bool()
+    zero = saliency.new_zeros(())
+    bce = torch.where(valid, sigmoid_bce(saliency, sal_labels), zero)
+    bce = bce.sum() / valid.sum().clamp(min=1)
+    fg = (sal_labels > 0.5) & valid
+    l1 = (offsets - off_labels).abs().sum(-1)
+    l1 = torch.where(fg, l1, zero).sum() / fg.sum().clamp(min=1)
+    return bce + l1
+
+
 def init_grounding(cfg: Optional[TemporalGroundingConfig] = None,
                    seed: int = 0) -> TemporalGroundingHead:
     """Head with deterministic random weights from ``seed``

@@ -30,7 +30,7 @@ import math
 import torch
 
 from . import _build
-from .kernels import _entry, _require_cuda, _stream
+from .kernels import _entry, _refuse_grad, _require_cuda, _stream
 
 _HEAD_DIMS = (16, 32, 64)
 _BLHD_HEAD_DIMS = (64, 88)   # the bf16 entry's instantiations
@@ -58,6 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention takes float32 q, k, v")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    _refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -132,6 +133,7 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_blhd takes head dim "
                          f"{_BLHD_HEAD_DIMS}, not {d}")
     ld = _row_stride(q, k, v)
+    _refuse_grad("flash_attention_blhd", q, k, v)
     out = torch.empty((b, length, h * d), dtype=torch.bfloat16,
                       device=q.device)
     if q.numel() == 0:

@@ -69,6 +69,21 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would record the kernel's call: the kernel
+    writes its output through a pointer, so the output has no
+    ``grad_fn`` and a gradient through it would be lost without a word.
+    No kernel has a backward, as no Pallas kernel of the JAX package has
+    one; train through the plain path (``use_flash=False``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its output would drop the gradient "
+            f"of an input that requires grad; call it under "
+            f"torch.inference_mode() / torch.no_grad(), or train through "
+            f"the plain path (use_flash=False)")
+
+
 def _require_cuda(*tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
@@ -181,6 +196,7 @@ def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
         raise ValueError(f"frames must be float32 or uint8, not "
                          f"{frames.dtype}")
     _require_cuda(frames, w2, b2)
+    _refuse_grad("fused_patch_embed", frames, w2, b2, *(split or ()))
     g = s // patch
     out = torch.empty((n, g * g, d), dtype=torch.float32,
                       device=frames.device)
@@ -225,6 +241,7 @@ def fused_patch_embed_i420(packed: torch.Tensor, w2: torch.Tensor,
         raise ValueError("the I420 entry takes uint8 frames and returns "
                          "bfloat16")
     _require_cuda(packed, w2, b2)
+    _refuse_grad("fused_patch_embed_i420", packed, w2, b2, *(split or ()))
     g = s // patch
     out = torch.empty((n, g * g, d), dtype=torch.bfloat16,
                       device=packed.device)
@@ -281,6 +298,7 @@ def cosine_scores(emb: torch.Tensor, queries: torch.Tensor,
     _require_cuda(*args)
     if emb.dtype != torch.float32 or q.dtype != torch.float32:
         raise ValueError("cosine_scores takes float32 tables and queries")
+    _refuse_grad("cosine_scores", *args)
     if valid is not None and valid.dtype != torch.bool:
         raise ValueError("valid must be a bool mask")
     out = torch.empty((n, q.shape[0]), dtype=torch.float32,
@@ -344,6 +362,7 @@ def _lowp_scores(emb, scales, queries, valid, row_dtype, plain, symbol,
             or (scales is not None and scales.dtype != torch.float32):
         raise ValueError(f"{symbol} takes {row_dtype} rows, float32 "
                          f"queries and float32 scales")
+    _refuse_grad(wrapper.__name__, *args)
     if valid is not None and valid.dtype != torch.bool:
         raise ValueError("valid must be a bool mask")
     out = torch.empty((n, q.shape[0]), dtype=torch.float32,
@@ -458,6 +477,7 @@ def cosine_window_topk(emb: torch.Tensor, valid: Optional[torch.Tensor],
     if emb.dtype != torch.float32 or q.dtype != torch.float32:
         raise ValueError("cosine_window_topk takes float32 tables and "
                          "queries")
+    _refuse_grad("cosine_window_topk", emb, q, valid)
     if valid is not None and valid.dtype != torch.bool:
         raise ValueError("valid must be a bool mask")
     if mids.dtype != torch.int32:
@@ -532,6 +552,7 @@ def _topk_library(emb, scales, query, valid, k, row_dtype, plain, unfused,
             or (scales is not None and scales.dtype != torch.float32):
         raise ValueError(f"{symbol} takes {row_dtype} rows, a float32 "
                          f"query and float32 scales")
+    _refuse_grad(wrapper.__name__, emb, query, scales)
     if valid is not None and valid.dtype != torch.bool:
         raise ValueError("valid must be a bool mask")
     vals = torch.empty((k,), dtype=torch.float32, device=emb.device)

@@ -135,7 +135,7 @@ and the script exits non-zero without printing a result:
    route's default ``process_small_object_detection`` (``clip`` mode,
    RPN, adaptive thresholds, background independence, top 20) cold and
    warm on the first 30 frames, one ``owlvit`` call at top 5 on the
-   first 8 frames, two ``clip`` calls at threshold -1 without the
+   first 4 frames, two ``clip`` calls at threshold -1 without the
    adaptive thresholds on the
    first 2 frames (top 2), one ``process_background_independence`` with
    its defaults and one at threshold -1 on the first 4 frames; cv2 is
@@ -226,6 +226,32 @@ and the script exits non-zero without printing a result:
    row cosine >= 0.9999. Prints each call's wall and host seconds by
    stage, the device's busy time and idle share, and the launches.
 
+14. (run after phase 13, while the CLIP engine is loaded) train at full
+   width in f32 with TF32 off (``parallel/train.py``,
+   ``train_reid.py``): CLIP ViT-B/32 from seed 0 (clip 1.0, adamw 1e-4 /
+   0.05) on one fixed seeded batch of 32 images (224 px) and 77-token
+   ids, 10 ``make_train_step`` steps and one more under the profiler;
+   BLIP-base's ``make_caption_train_step`` (``use_flash=False``: plain
+   attention, no kernel; 384 px, 577 tokens; adam 1e-4 behind clip 1.0)
+   on a batch of 8 with 20-token ids and pads, 5 steps; the default
+   grounding head (512 → 256, depth 4) at B = 16, N = 256 and the
+   default appearance encoder (64 px) at batch 64, 10 steps each. Each
+   run prints its step ms (CUDA events, median of steps 3 on), first and
+   last loss and gradient norm, and peak memory; every loss must be
+   finite and the last below the first; each trainer's first step on
+   the card is held to the same step on the CPU at a small batch (loss
+   within 1e-4 relative, gradient norm within 1e-3). Then the CLIP
+   trained there is written by ``save_params`` and served by a
+   ``ClipEngine`` (bf16, the kernels) on phase 5's source: one cold
+   ``process_video`` and two warm queries, launches zeroed before them
+   and kept as path ``train_serve`` (the I420 patch embed, flash at
+   L = 50 and ``cosine_window_topk`` above 0, every contract entry 0);
+   the engine's embeddings of 8 frames must be within row cosine 0.99
+   of the trained f32 model's ``encode_image`` and nearer to it than to
+   the untrained engine's. Last, ``avede_tpu_torch.eval.eval_grounding``
+   on the card (seed 0: 3 seeds of 500 steps), held to EVAL.json's JAX
+   spread: mean tIoU >= 0.686, tIoU@0.5 >= 0.9.
+
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
 ``launches``, those on its own path: ``mvp`` for the first slice's
@@ -235,7 +261,8 @@ five detection calls for it at OWL-ViT's; phase 10's seven calls are
 the ``small_object`` path, phase 11's eight the ``image_query`` path
 (the ``[ref]`` and ``[crops16]`` rows read its L = 50 launches), phase
 12's cold call the ``reranked_blip2`` path (the ``[blip2]`` row reads
-its L = 257 launches) and phase 13's three calls the ``person_search``
+its L = 257 launches), phase 13's three calls the ``person_search``
+path and phase 14's three calls of the trained CLIP the ``train_serve``
 path.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
@@ -310,6 +337,9 @@ SMALL_W, SMALL_H, SMALL_FRAMES = 1920, 1080, 60
 # HBM3, 700 W), to keep the whole script within 600 s beside phases
 # 12-13
 SMALL_DEFAULT_FRAMES = 30
+# the ``owlvit`` call reads the first 4: cut from 8, where it took 32 s
+# (NVIDIA H100 80GB HBM3, 700 W), to make room for phase 14
+SMALL_OWLVIT_FRAMES = 4
 SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
                  ("disc", 24, 700, 300, -6, 4, (40, 220, 60)),
                  ("square", 32, 1200, 500, 5, -3, (30, 60, 230)),
@@ -339,6 +369,16 @@ PERSON_BIAS, PERSON_MAX_BOXES = 1.0, 4
 PERSON_WALKS = [(420, 100, 200, 2.5, 0.3), (360, 900, 250, -2.0, 0.4),
                 (300, 500, 380, 1.2, -0.5), (460, 300, 120, -1.4, 0.2)]
 IMAGE_VIDEO_ID = "image-query"
+# phase 14: each trainer's (batch, steps, rows of its card-vs-CPU first
+# step); the caption ids' length; the grounding head's frames
+TRAIN_CLIP, TRAIN_CAPTION = (32, 10, 4), (8, 5, 1)
+TRAIN_GROUNDING, TRAIN_REID = (16, 10, 2), (64, 10, 8)
+TRAIN_CAPTION_LEN, TRAIN_GROUNDING_N, TRAIN_SERVE_FRAMES = 20, 256, 8
+# a first step's loss and gradient norm, card against CPU (relative)
+TRAIN_LOSS_REL, TRAIN_NORM_REL = 1e-4, 1e-3
+# the grounding eval's bar: EVAL.json's JAX spread over 3 seeds (mean
+# tIoU 0.776, std 0.030; tIoU@0.5 1.0): the mean less 3 std, and 0.9
+GROUNDING_MIN_TIOU, GROUNDING_MIN_AT_05 = 0.686, 0.9
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
 # the largest crop bucket of ``ClipEngine.embed_pixels``
 CROP_BUCKET = 256
@@ -2076,7 +2116,7 @@ def drive_small_objects(torch, np, engine, det):
     source of 60 frames (8 tiles of 640 px at overlap 128 a frame):
     the route's default ``process_small_object_detection`` (``clip``
     mode, RPN, adaptive thresholds and background independence, top 20)
-    cold and warm; one ``owlvit`` call at top 5 on the first 8 frames;
+    cold and warm; one ``owlvit`` call at top 5 on the first 4 frames;
     two ``clip`` calls on the first 2 frames that keep every cell (top
     2); one ``process_background_independence`` with its defaults and
     one at threshold -1 on the first 4 frames (frames fitted to 512 px
@@ -2143,8 +2183,8 @@ def drive_small_objects(torch, np, engine, det):
                      enable_adaptive_thresholds=False, top_k=2)
     calls = (("default_cold", "small_object", SMALL_DEFAULT_FRAMES, {}),
              ("default_warm", "small_object", SMALL_DEFAULT_FRAMES, {}),
-             ("owlvit", "small_object", 8, dict(detection_mode="owlvit",
-                                                 top_k=5)),
+             ("owlvit", "small_object", SMALL_OWLVIT_FRAMES,
+              dict(detection_mode="owlvit", top_k=5)),
              ("clip_all", "small_object", 2, all_cells),
              ("clip_all_again", "small_object", 2, all_cells),
              ("background", "background", SMALL_FRAMES, {}),
@@ -3065,6 +3105,300 @@ def unit_rows(np, seed: int, n: int, dim: int):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
+def train_steps(torch, np, name, state, step, args, n_steps):
+    """Phase 14: ``n_steps`` of ``step`` on one fixed batch → (state, the
+    run's report): each step's ms by CUDA events (their median over
+    steps 3 on), the losses and gradient norms, the peak memory. Every
+    loss must be finite and the last below the first."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n_steps)]
+    metrics = []
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        state, m = step(state, *args)
+        end.record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train {name}: losses not finite and falling: {losses}")
+    return state, {
+        "steps": n_steps, "step_ms_median_from_3": statistics.median(ms[2:]),
+        "step_ms": ms, "first_loss": losses[0], "last_loss": losses[-1],
+        "losses": losses, "first_grad_norm": norms[0],
+        "last_grad_norm": norms[-1],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "wall_s": wall_s}
+
+
+def first_step_vs_cpu(name, card, cpu):
+    """Phase 14: one step's (loss, gradient norm) on the card and on the
+    CPU, from one seed on one batch → report; loss within
+    ``TRAIN_LOSS_REL``, gradient norm within ``TRAIN_NORM_REL``."""
+    (lc, gc), (lr, gr) = card, cpu
+    rel = {"loss_rel_diff": abs(lc - lr) / abs(lr),
+           "grad_norm_rel_diff": abs(gc - gr) / gr,
+           "card": {"loss": lc, "grad_norm": gc},
+           "cpu": {"loss": lr, "grad_norm": gr}}
+    if not (rel["loss_rel_diff"] <= TRAIN_LOSS_REL
+            and rel["grad_norm_rel_diff"] <= TRAIN_NORM_REL):
+        fail(f"train {name}: card vs CPU first step {rel}")
+    return rel
+
+
+def one_step(step, state, *args):
+    """(loss, gradient norm) of one step, read back."""
+    _, m = step(state, *args)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def train_and_check(torch, np, name, make, args, cpu_rows, n_steps):
+    """Phase 14, one trainer: ``make(device)`` → (model, state, step).
+    The card's first step on the first ``cpu_rows`` rows of ``args``
+    against the CPU's; then the card's state is reset to its start and
+    runs ``n_steps`` on the whole batch → (model, state, report)."""
+    import copy
+
+    model, state, step = make("cuda")
+    start = copy.deepcopy(state.state_dict())
+    card_args = [torch.from_numpy(a).cuda() for a in args]
+    card = one_step(step, state, *(a[:cpu_rows] for a in card_args))
+    state.load_state_dict(start)
+    del start
+    t0 = time.perf_counter()
+    cpu_model, cpu_state, cpu_step = make("cpu")
+    cpu = one_step(cpu_step, cpu_state,
+                   *(torch.from_numpy(a[:cpu_rows]) for a in args))
+    cpu_s = time.perf_counter() - t0
+    del cpu_model, cpu_state, cpu_step
+    gc.collect()
+    state, report = train_steps(torch, np, name, state, step, card_args,
+                                n_steps)
+    report["card_vs_cpu"] = {**first_step_vs_cpu(name, card, cpu),
+                             "rows": cpu_rows, "cpu_s": cpu_s}
+    report["batch"] = int(args[0].shape[0])
+    return model, state, step, card_args, report
+
+
+def caption_batch(np, cfg, rows: int):
+    """Phase 14(b)'s fixed batch: normal pixels (BLIP-normalized) and
+    ``TRAIN_CAPTION_LEN``-token ids below BOS, BOS first, row i ending in
+    EOS at 10 + i and PAD after it."""
+    rng = np.random.default_rng(0)
+    px = rng.normal(size=(rows, cfg.image_size, cfg.image_size, 3)
+                    ).astype(np.float32)
+    ids = rng.integers(1, cfg.bos_token_id, size=(rows, TRAIN_CAPTION_LEN))
+    ids[:, 0] = cfg.bos_token_id
+    for i in range(rows):
+        end = min(10 + i, TRAIN_CAPTION_LEN - 1)
+        ids[i, end] = cfg.eos_token_id
+        ids[i, end + 1:] = cfg.pad_token_id
+    return px, ids
+
+
+def drive_train(torch, np, engine, video, tmp: Path):
+    """Phase 14: the port's trainers at full width in f32 (TF32 off), then
+    the trained CLIP served through the kernels, then the grounding eval.
+
+    (a) CLIP ViT-B/32 from seed 0, ``make_train_step`` (clip 1.0, adamw
+    1e-4 / 0.05), one fixed seeded batch of 32 images (224 px) and
+    77-token ids, 10 steps, then one more under the profiler; (b)
+    BLIP-base's caption step (``use_flash=False``, 384 px, 577 tokens,
+    adam 1e-4 behind clip 1.0), batch 8 of 20-token ids with pads, 5
+    steps; (c) the default grounding head (512 → 256, depth 4) at B = 16,
+    N = 256 and the default appearance encoder (64 px) at batch 64, 10
+    steps each. Each trainer's first step is held to the CPU's at a small
+    batch. (d) the CLIP of (a) written by ``save_params`` and served by a
+    ``ClipEngine`` (bf16, the kernels) on phase 5's source: one cold
+    ``process_video`` and two warm queries, the launches counted as path
+    ``train_serve``; its embeddings of 8 frames against the trained f32
+    model's own. (e) ``avede_tpu_torch.eval.eval_grounding`` on the card
+    (seed 0, 3 seeds of 500 steps), held to EVAL.json's JAX spread."""
+    import dataclasses
+
+    from avede_tpu_torch import eval as port_eval
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.models.appearance import AppearanceConfig
+    from avede_tpu_torch.models.blip import blip_base, init_blip
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.models.convert import save_params
+    from avede_tpu_torch.models.univtg import TemporalGroundingConfig
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.ops.preprocess import clip_preprocess_i420
+    from avede_tpu_torch.parallel import optim
+    from avede_tpu_torch.parallel import train as T
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.parallel.train_reid import (create_reid_train_state,
+                                                     make_reid_train_step)
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.utils.platform import resolve_device
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    # (a) CLIP
+    clip_cfg = vit_b32()
+
+    def make_clip(dev):
+        model, state = T.create_train_state(clip_cfg, seed=0, device=dev)
+        return model, state, T.make_train_step(model)
+
+    clip, clip_state, clip_step, clip_args, out["clip"] = train_and_check(
+        torch, np, "clip", make_clip, T.demo_batch(clip_cfg, TRAIN_CLIP[0]),
+        TRAIN_CLIP[2], TRAIN_CLIP[1])
+    _, out["clip"]["profiled_step"] = device_window(
+        torch, lambda: clip_step(clip_state, *clip_args))
+    del clip_args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) BLIP-base's caption step
+    blip_cfg = dataclasses.replace(blip_base(), use_flash=False)
+
+    def make_blip(dev):
+        model = init_blip(blip_cfg, seed=0).to(resolve_device(dev)).train()
+        state = T.TrainState(model, optim.adam(model.parameters(), 1e-4,
+                                               clip_norm=1.0))
+        return model, state, T.make_caption_train_step(
+            model, blip_cfg.pad_token_id)
+
+    flash_before = attention.flash_attention_blhd.launches_by_length.total()
+    res = train_and_check(torch, np, "caption", make_blip,
+                          caption_batch(np, blip_cfg, TRAIN_CAPTION[0]),
+                          TRAIN_CAPTION[2], TRAIN_CAPTION[1])
+    out["caption"] = res[-1]
+    if attention.flash_attention_blhd.launches_by_length.total() \
+            != flash_before:
+        fail("the caption step launched the flash kernel")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the grounding head and the appearance encoder
+    ground_cfg = TemporalGroundingConfig()
+
+    def make_ground(dev):
+        model, state = T.create_grounding_train_state(ground_cfg, 1e-3,
+                                                      device=dev)
+        return model, state, T.make_grounding_train_step(model)
+
+    ground_args, _ = port_eval.grounding_batch(
+        np.random.default_rng(0), b=TRAIN_GROUNDING[0], n=TRAIN_GROUNDING_N,
+        d=ground_cfg.input_dim)
+    out["grounding"] = train_and_check(
+        torch, np, "grounding", make_ground, ground_args, TRAIN_GROUNDING[2],
+        TRAIN_GROUNDING[1])[-1]
+
+    reid_cfg = AppearanceConfig()
+
+    def make_reid(dev):
+        model, state = create_reid_train_state(reid_cfg, 1e-3, device=dev)
+        return model, state, make_reid_train_step(model)
+
+    rng = np.random.default_rng(0)
+    size = reid_cfg.input_size
+    view_a = rng.random((TRAIN_REID[0], size, size, 3)).astype(np.float32)
+    view_b = np.clip(view_a * rng.uniform(0.7, 1.3, (TRAIN_REID[0], 1, 1, 1))
+                     + rng.normal(0, 0.05, view_a.shape), 0, 1
+                     ).astype(np.float32)
+    out["reid"] = train_and_check(torch, np, "reid", make_reid,
+                                  (view_a, view_b), TRAIN_REID[2],
+                                  TRAIN_REID[1])[-1]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) train, then serve: the trained CLIP through the kernels
+    weights = tmp / "clip_trained.npz"
+    t0 = time.perf_counter()
+    save_params(clip, str(weights))
+    save_s = time.perf_counter() - t0
+    served = ClipEngine(weights_path=str(weights), device="cuda")
+    load_s = time.perf_counter() - t0 - save_s
+    needed = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
+              kernels.cosine_window_topk)
+    contracts = (kernels.fused_patch_embed, attention.flash_attention,
+                 kernels.cosine_scores, kernels.cosine_scores_bf16,
+                 kernels.cosine_scores_int8, quant.quantize_per_channel)
+    counted = needed + contracts + (
+        kernels.cosine_topk_f32, kernels.cosine_topk_bf16,
+        kernels.cosine_topk_int8, quant.quantize_rows)
+    scan = Phase1Scan(served, reader=video,
+                      cache=EmbeddingCache(str(tmp / "train_serve")))
+    path, vid = "memory://synthetic-street", "synthetic-street-trained"
+    reset_launches(counted)
+    t0 = time.perf_counter()
+    cold = scan.process_video(path, QUERIES[0], top_k=10, threshold=-1.0,
+                              video_id=vid)
+    cold_s = time.perf_counter() - t0
+    warm_ms = []
+    for q in QUERIES[:2]:
+        t0 = time.perf_counter()
+        res = scan.process_video(path, q, top_k=10, threshold=-1.0,
+                                 video_id=vid)
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+        conf = [r["confidence"] for r in res]
+        if not res or not np.all(np.isfinite(conf)) \
+                or conf != sorted(conf, reverse=True):
+            fail(f"train_serve: scores not finite and sorted: {conf}")
+    launches = read_launches(counted)
+    if any(launches[fn.__name__] <= 0 for fn in needed) \
+            or launches[FLASH_L50] <= 0:
+        fail(f"train_serve: a kernel of the path never launched: {launches}")
+    if any(launches[fn.__name__] for fn in contracts):
+        fail(f"train_serve: a contract entry ran: {launches}")
+    frames = video._chunk(0, 300)[::300 // TRAIN_SERVE_FRAMES][
+        :TRAIN_SERVE_FRAMES]
+    got = served.embed_frames(frames)
+    with torch.inference_mode():
+        px = clip_preprocess_i420(torch.from_numpy(
+            served._pack_transfer(frames)).cuda())
+        own = clip.encode_image(px).float().cpu().numpy()
+    untrained = engine.embed_frames(frames)
+    serve = {"cold_s": cold_s, "warm_ms": warm_ms,
+             "save_params_s": save_s, "engine_load_s": load_s,
+             "weights_mib": weights.stat().st_size / 2 ** 20,
+             "top_window": cold[0]["window_index"], "launches": launches,
+             "frames": int(len(frames)),
+             "served_vs_trained_min_cosine": row_cosine(np, got, own),
+             "served_vs_untrained_max_cosine": float(max(
+                 row_cosine(np, got[i:i + 1], untrained[i:i + 1])
+                 for i in range(len(got))))}
+    if serve["served_vs_trained_min_cosine"] < 0.99:
+        fail(f"train_serve: served embeddings off the trained model: {serve}")
+    if serve["served_vs_untrained_max_cosine"] \
+            >= serve["served_vs_trained_min_cosine"]:
+        fail(f"train_serve: served embeddings no nearer the trained model "
+             f"than the untrained engine's: {serve}")
+    out["train_serve"] = serve
+    del clip, clip_state, clip_step, served, scan
+    weights.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the grounding eval on the card
+    t0 = time.perf_counter()
+    ev = port_eval.eval_grounding(seed=0, device="cuda")
+    ev["wall_s"] = time.perf_counter() - t0
+    ev["bar"] = {"mean_temporal_iou": GROUNDING_MIN_TIOU,
+                 "tiou_at_0.5": GROUNDING_MIN_AT_05}
+    if not (ev["mean_temporal_iou"] >= GROUNDING_MIN_TIOU
+            and ev["tiou_at_0.5"] >= GROUNDING_MIN_AT_05):
+        fail(f"grounding eval below EVAL.json's JAX spread: {ev}")
+    out["eval_grounding"] = ev
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 def drive_index(torch, np, dtype: str):
     """Phase 7: a ``DeviceLibraryIndex`` at serving size, 1000 seeded
     videos of 1000 unit rows (each made when it is added), with the
@@ -3259,6 +3593,9 @@ def main() -> None:
         gc.collect()
         person = phase("person_search", drive_person_search, torch, np,
                        engine, Path(tmp))
+        gc.collect()
+        train = phase("train", drive_train, torch, np, engine, video,
+                      Path(tmp))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3275,6 +3612,7 @@ def main() -> None:
              "image_query": image_query["launches"],
              "reranked_blip2": blip2["launches"]["cold"],
              "person_search": person["launches"],
+             "train_serve": train["train_serve"]["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_or_reference_package():
                 "services.cross_domain_matcher", "services.image_matcher",
                 "pipelines.phase4", "models.qformer", "models.appearance",
                 "services.person_detector", "utils.synthetic",
-                "web.builtin"):
+                "web.builtin", "parallel.optim", "parallel.train",
+                "parallel.train_reid", "eval"):
         assert f"avede_tpu_torch.{mod}" in out["modules"]
     assert out["bad"] == []
 
@@ -118,6 +119,28 @@ class TestEntryPointsNeedACard:
         app = create_app()
         with pytest.raises(ConfigurationError):
             app["state"].processor
+
+    def test_trainers_and_eval_raise(self):
+        from avede_tpu_torch import eval as teval
+        from avede_tpu_torch.models.clip import tiny_test_config
+        from avede_tpu_torch.parallel.train import (
+            create_grounding_train_state, create_train_state)
+        from avede_tpu_torch.parallel.train_reid import \
+            create_reid_train_state
+        from avede_tpu_torch.utils.errors import ConfigurationError
+
+        with pytest.raises(ConfigurationError, match="device='cpu'"):
+            create_train_state()
+        with pytest.raises(ConfigurationError):
+            create_train_state(tiny_test_config(), device="cuda")
+        with pytest.raises(ConfigurationError):
+            create_grounding_train_state()
+        with pytest.raises(ConfigurationError):
+            create_reid_train_state()
+        with pytest.raises(ConfigurationError):
+            teval.eval_grounding(steps=1, n_seeds=1)
+        with pytest.raises(ConfigurationError):
+            teval.main(["--mode", "grounding"])
 
     def test_cpu_on_request_runs(self):
         from avede_tpu_torch.models.clip import tiny_test_config

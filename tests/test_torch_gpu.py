@@ -577,3 +577,139 @@ def test_library_topk_fused_equals_contract(cuda, dtype, n, d, k, ties):
     assert (fused.launches, contract.launches) == \
         (before[0] + (not above), before[1] + above)
     _bit_equal(got, topk_scores(contract(*tables, q, valid), k))
+
+
+def _grad_cases(cuda):
+    """Each kernel wrapper → (its launch counter, a call on valid card
+    inputs, the float input a caller might train)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kernel = torch.randn(32, 32, 3, 768, device=cuda, generator=g) * 0.02
+    w2, b2 = tk.fold_for_uint8(kernel)
+    frames = torch.randint(0, 255, (2, 224, 224, 3), device=cuda,
+                           dtype=torch.uint8, generator=g)
+    packed = torch.randint(0, 255, (2, 336, 224), device=cuda,
+                           dtype=torch.uint8, generator=g)
+    q32 = torch.randn(1, 2, 50, 64, device=cuda, generator=g)
+    qbf = torch.randn(1, 50, 12, 64, device=cuda, generator=g
+                      ).to(torch.bfloat16)
+    emb = torch.nn.functional.normalize(
+        torch.randn(256, 512, device=cuda, generator=g), dim=-1)
+    query = torch.nn.functional.normalize(
+        torch.randn(512, device=cuda, generator=g), dim=-1)
+    table8, scales = tq.quantize_rows(emb)
+    mids = torch.arange(0, 256, 4, device=cuda, dtype=torch.int32)
+    blhd = tattn.flash_attention_blhd
+    return {
+        "fused_patch_embed": (
+            lambda: tk.fused_patch_embed.launches, w2,
+            lambda w: tk.fused_patch_embed(frames, w, b2, 32)),
+        "fused_patch_embed_i420": (
+            lambda: tk.fused_patch_embed_i420.launches, w2,
+            lambda w: tk.fused_patch_embed_i420(packed, w, b2, 32)),
+        "flash_attention": (
+            lambda: tattn.flash_attention.launches, q32,
+            lambda q: tattn.flash_attention(q, q32, q32)),
+        "flash_attention_blhd": (
+            lambda: blhd.launches_by_length.total(), qbf,
+            lambda q: blhd(q, qbf, qbf)),
+        "cosine_scores": (
+            lambda: tk.cosine_scores.launches, query,
+            lambda x: tk.cosine_scores(emb, x)),
+        "cosine_scores_bf16": (
+            lambda: tk.cosine_scores_bf16.launches, query,
+            lambda x: tk.cosine_scores_bf16(emb.to(torch.bfloat16), x)),
+        "cosine_scores_int8": (
+            lambda: tk.cosine_scores_int8.launches, query,
+            lambda x: tk.cosine_scores_int8(table8, scales, x)),
+        "cosine_window_topk": (
+            lambda: tk.cosine_window_topk.launches, emb,
+            lambda e: tk.cosine_window_topk(e, None, query, mids, 10)),
+        "cosine_topk_f32": (
+            lambda: tk.cosine_topk_f32.launches, emb,
+            lambda e: tk.cosine_topk_f32(e, query, None, 10)),
+        "cosine_topk_bf16": (
+            lambda: tk.cosine_topk_bf16.launches, query,
+            lambda x: tk.cosine_topk_bf16(emb.to(torch.bfloat16), x, None,
+                                          10)),
+        "cosine_topk_int8": (
+            lambda: tk.cosine_topk_int8.launches, query,
+            lambda x: tk.cosine_topk_int8(table8, scales, x, None, 10)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "fused_patch_embed", "fused_patch_embed_i420", "flash_attention",
+    "flash_attention_blhd", "cosine_scores", "cosine_scores_bf16",
+    "cosine_scores_int8", "cosine_window_topk", "cosine_topk_f32",
+    "cosine_topk_bf16", "cosine_topk_int8"])
+def test_kernel_wrapper_refuses_to_drop_a_gradient(cuda, name):
+    """With grad enabled and an input that requires grad, every wrapper
+    raises on the card (its output would have no ``grad_fn``) and
+    launches nothing; under ``inference_mode`` the same call launches."""
+    count, x, call = _grad_cases(cuda)[name]
+    before = count()
+    with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+        call(x.clone().requires_grad_())
+    assert count() == before
+    with torch.inference_mode():
+        call(x)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+
+
+def test_tiny_clip_train_step_on_card_matches_cpu(cuda):
+    """One ``make_train_step`` step of the tiny CLIP in f32 (TF32 off) on
+    the card and on the CPU from one seed and batch: loss within 1e-4
+    relative, gradient norm within 1e-3, parameters within 1e-4."""
+    from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.parallel.train import (create_train_state,
+                                                demo_batch, make_train_step)
+
+    cfg = tiny_test_config()
+    images, ids = demo_batch(cfg, 8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, state = create_train_state(cfg, learning_rate=1e-3,
+                                          device=dev)
+        state, m = make_train_step(model)(
+            state, torch.from_numpy(images).to(dev),
+            torch.from_numpy(ids).to(dev))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    {k: v.detach().cpu()
+                     for k, v in model.named_parameters()})
+    (lc, gc, pc), (lr, gr, pr) = out["cuda"], out["cpu"]
+    assert abs(lc - lr) <= 1e-4 * abs(lr) and abs(gc - gr) <= 1e-3 * gr
+    assert max(float((pc[k] - pr[k]).abs().max()) for k in pr) <= 1e-4
+
+
+def test_blip_caption_train_step_on_card(cuda):
+    """A tiny BLIP built with ``use_flash=False`` takes a caption step on
+    the card (no flash launch: the plain attention trains) with the
+    CPU's loss within 1e-4 relative; the same model with flash on
+    refuses the step."""
+    import dataclasses
+
+    from avede_tpu_torch.models.blip import init_blip, tiny_blip_config
+    from avede_tpu_torch.parallel import optim
+    from avede_tpu_torch.parallel.train import (TrainState,
+                                                make_caption_train_step)
+
+    cfg = dataclasses.replace(tiny_blip_config(), use_flash=False)
+    rng = np.random.default_rng(0)
+    px = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    ids = rng.integers(3, 90, size=(2, 8))
+    ids[:, 0], ids[0, 6:] = cfg.bos_token_id, cfg.pad_token_id
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = init_blip(cfg, seed=0).to(dev).train()
+        state = TrainState(model, optim.adamw(model.parameters(), 1e-3,
+                                              clip_norm=1.0))
+        before = tattn.flash_attention_blhd.launches_by_length.total()
+        _, m = make_caption_train_step(model, cfg.pad_token_id)(
+            state, torch.from_numpy(px).to(dev), torch.from_numpy(ids).to(dev))
+        losses[dev] = float(m["loss"])
+        assert tattn.flash_attention_blhd.launches_by_length.total() == before
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * losses["cpu"]
+    with pytest.raises(ValueError, match="use_flash=False"):
+        make_caption_train_step(init_blip(tiny_blip_config()), 0)
