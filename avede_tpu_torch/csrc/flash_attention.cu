@@ -2,8 +2,8 @@
 // attention with an online softmax over K/V tiles. Two entries:
 //
 // - avede_flash_attention_bf16 (the serving path): bf16 q, k, v in the
-//   projections' own layout [B, L, H, hd] (hd = 64, or 88 for BLIP-2's
-//   ViT-g), token rows at a stride of ldi
+//   projections' own layout [B, L, H, hd] (hd = 64, 88 for BLIP-2's
+//   ViT-g, or 16 for the tiny 32 px towers), token rows at a stride of ldi
 //   elements: H*hd for the contiguous [B, L, D] output of an nn.Linear
 //   viewed per head (CLIP), 3*H*hd for the q, k and v thirds of one fused
 //   qkv projection's [B, L, 3D] output (BLIP's vision tower), read in
@@ -151,11 +151,13 @@ extern "C" int avede_flash_attention_f32(const float* q, const float* k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 [B, L, H, hd] entry (hd = 64 or 88)
+// bf16 [B, L, H, hd] entry (hd = 16, 64 or 88)
 // ---------------------------------------------------------------------------
 //
 // One kernel, instantiated per head dim. hd = 64 (CLIP, BLIP-base,
-// OWL-ViT) is one 128-byte row of 8 16-byte chunks. hd = 88 (BLIP-2's
+// OWL-ViT) is one 128-byte row of 8 16-byte chunks. hd = 16 (the tiny
+// CLIP, BLIP and OWL-ViT towers: 4 heads of 16 at L = 17) is a 32-byte
+// row of 2 chunks: Q.K^T is one k16 step and P.V two n8 tiles. hd = 88 (BLIP-2's
 // ViT-g: 1408 = 16 x 88) is 11 chunks; Q.K^T's m16n8k16 steps need a
 // depth that is a multiple of 16, so the tiles hold 96 columns in shared
 // memory and the twelfth chunk is zero-filled by cp.async with src-size
@@ -176,16 +178,20 @@ struct Geo {
   static constexpr int TILE = TR * HP;  // bf16 elements of one tile
   static_assert(HD % 8 == 0 && HP % 16 == 0 && HP >= HD && HP - HD < 16,
                 "head padded to the next multiple of 16");
-  static_assert(CH == 8 || CH == 12, "swizzle for 8 or 12 chunks a row");
+  static_assert(CH == 2 || CH == 8 || CH == 12,
+                "swizzle for 2, 8 or 12 chunks a row");
   // Element offset of (row, chunk). ldmatrix reads one chunk column of 8
   // consecutive rows; those 8 addresses must hit 8 distinct 16-byte
   // bank groups (of 8 in 128 bytes). With 8 chunks a row the XOR with
   // row & 7 does it. With 12 (192-byte rows, so row r starts at bank
   // group 4 * (r & 1)), the XOR with (r >> 1) & 3 moves the chunk within
   // its aligned group of 4 (it stays below 12) and gives the four row
-  // pairs distinct groups.
+  // pairs distinct groups. With 2 (32-byte rows: row r starts at group
+  // 2 * (r & 3), so rows r and r + 4 share one), the XOR with
+  // (r >> 2) & 1 moves the upper four rows to the odd groups.
   static __device__ __forceinline__ int swz(int row, int chunk) {
-    if (CH == 8) return row * HP + ((chunk ^ (row & 7)) << 3);
+    if constexpr (CH == 2) return row * HP + ((chunk ^ ((row >> 2) & 1)) << 3);
+    if constexpr (CH == 8) return row * HP + ((chunk ^ (row & 7)) << 3);
     return row * HP + ((chunk ^ ((row >> 1) & 3)) << 3);
   }
 };
@@ -464,13 +470,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // q, k, v: bf16 [B, L, H, D] with token rows ldi elements apart (ldi >=
 // H*D, a multiple of 8, each pointer 16-byte aligned); o: contiguous
 // bf16 [B, L, H*D]. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for D not in {64, 88} or a bad ldi.
+// for D not in {16, 64, 88} or a bad ldi.
 extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int L, int H, int D, int ldi,
                                           void* stream) {
-  if ((D != 64 && D != 88) || ldi < H * D || ldi % 8 != 0)
+  if ((D != 16 && D != 64 && D != 88) || ldi < H * D || ldi % 8 != 0)
     return (int)cudaErrorInvalidValue;
+  if (D == 16) return launch_bf16<16, 16>(q, k, v, o, B, L, H, ldi, stream);
   if (D == 64) return launch_bf16<64, 64>(q, k, v, o, B, L, H, ldi, stream);
   return launch_bf16<88, 96>(q, k, v, o, B, L, H, ldi, stream);
 }

@@ -44,6 +44,15 @@
 //   per SM: 96 columns waste less of the last wave than 128 (294 tiles,
 //   2.23 per SM), 0.178 against 0.199 ms on the H100.
 // P is 32 (K step = 2 rows x 32 px); D must be a multiple of 96.
+//
+// Every other shape (any P that divides S, any D: the tiny 32 px CLIP's
+// P = 8, D = 64) takes a second, simple kernel with the same three
+// entries (avede_patch_embed_any_*): SIMT, a block of 256 threads for
+// 32 patches x 64 output channels, one (pixel row, channel) K slice of
+// P values at a time staged in shared memory (the pixels unpacked and
+// split hi/lo, the W' slice read from the same split bf16 operands), the
+// same three bf16 products a term accumulated in f32. At the tiny shape
+// (K = 192) it is bound by launch and bytes, not operations.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -493,6 +502,146 @@ int launch(const void* frames, const void* w_hi, const void* w_lo,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Any P that divides S, any D: the simple kernel
+// ---------------------------------------------------------------------------
+
+constexpr int ANY_ROWS = 32;            // patches a block
+constexpr int ANY_COLS = 64;            // output channels a block
+constexpr int ANY_THREADS = 256;        // 4 groups of 8 patches x 64 columns
+constexpr int ANY_PER = ANY_ROWS * ANY_COLS / ANY_THREADS;
+
+// K position of (pixel row py, channel c, px) in split_patch_weights'
+// order (row pair, channel, row, px); an odd P's last pair has one row
+__device__ __forceinline__ int kpos(int py, int c, int px, int p) {
+  const int pair = py >> 1;
+  const int rows = min(2, p - 2 * pair);
+  return pair * 6 * p + (c * rows + (py & 1)) * p + px;
+}
+
+// channel c of pixel (y, x) of image img, 0..255, as the wgmma producers
+// compute it
+template <int MODE>
+__device__ __forceinline__ float pixel(const void* frames, long long img,
+                                       int y, int x, int c, int s) {
+  if (MODE == I420) {
+    const uint8_t* f = static_cast<const uint8_t*>(frames)
+                     + img * (long long)s * s * 3 / 2;
+    const float yv = (float)f[(long long)y * s + x];
+    const long long coff = (long long)(y / 2) * (s / 2) + x / 2;
+    const float u = (float)f[(long long)s * s + coff] - 128.f;
+    const float v = (float)f[(long long)s * s * 5 / 4 + coff] - 128.f;
+    return c == 0 ? yuv_channel<0>(yv, u, v)
+         : c == 1 ? yuv_channel<1>(yv, u, v) : yuv_channel<2>(yv, u, v);
+  }
+  const long long at = ((img * s + y) * (long long)s + x) * 3 + c;
+  if (MODE == RGB_U8) return (float)static_cast<const uint8_t*>(frames)[at];
+  return static_cast<const float*>(frames)[at];
+}
+
+template <int MODE, typename OutT>
+__global__ void __launch_bounds__(ANY_THREADS)
+patch_embed_any_kernel(const void* __restrict__ frames,
+                       const __nv_bfloat16* __restrict__ w_hi,
+                       const __nv_bfloat16* __restrict__ w_lo,
+                       const float* __restrict__ bias, OutT* __restrict__ out,
+                       int n, int s, int d, int p) {
+  // a_hi, a_lo [ANY_ROWS][p]; w_hi, w_lo [p][ANY_COLS] (column-fastest,
+  // so a warp's 32 columns read 32 banks)
+  extern __shared__ float any_smem[];
+  float* a_hi = any_smem;
+  float* a_lo = a_hi + ANY_ROWS * p;
+  float* wh = a_lo + ANY_ROWS * p;
+  float* wl = wh + p * ANY_COLS;
+  const int g = s / p, gg = g * g, k = p * p * 3;
+  const long long m_total = (long long)n * gg;
+  const long long m0 = (long long)blockIdx.x * ANY_ROWS;
+  const int n0 = blockIdx.y * ANY_COLS;
+  const int col = threadIdx.x % ANY_COLS, grp = threadIdx.x / ANY_COLS;
+  float acc[ANY_PER];
+#pragma unroll
+  for (int r = 0; r < ANY_PER; ++r) acc[r] = 0.f;
+
+  for (int py = 0; py < p; ++py) {
+    for (int c = 0; c < 3; ++c) {
+      for (int i = threadIdx.x; i < ANY_ROWS * p; i += ANY_THREADS) {
+        const int r = i / p, px = i % p;
+        const long long m = m0 + r;
+        float x = 0.f;
+        if (m < m_total) {
+          const int cell = (int)(m % gg);
+          x = pixel<MODE>(frames, m / gg, (cell / g) * p + py,
+                          (cell % g) * p + px, c, s);
+        }
+        const float hi = __bfloat162float(__float2bfloat16_rn(x));
+        a_hi[i] = hi;
+        a_lo[i] = __bfloat162float(__float2bfloat16_rn(x - hi));
+      }
+      const int k0 = kpos(py, c, 0, p);
+      for (int i = threadIdx.x; i < ANY_COLS * p; i += ANY_THREADS) {
+        const int dd = i / p, px = i % p;
+        const bool ok = n0 + dd < d;
+        const long long at = (long long)(n0 + dd) * k + k0 + px;
+        wh[px * ANY_COLS + dd] = ok ? __bfloat162float(w_hi[at]) : 0.f;
+        wl[px * ANY_COLS + dd] = ok ? __bfloat162float(w_lo[at]) : 0.f;
+      }
+      __syncthreads();
+      for (int px = 0; px < p; ++px) {
+        const float bh = wh[px * ANY_COLS + col];
+        const float bl = wl[px * ANY_COLS + col];
+#pragma unroll
+        for (int r = 0; r < ANY_PER; ++r) {
+          const int at = (grp * ANY_PER + r) * p + px;
+          acc[r] = fmaf(a_hi[at], bh, acc[r]);
+          acc[r] = fmaf(a_hi[at], bl, acc[r]);
+          acc[r] = fmaf(a_lo[at], bh, acc[r]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int dc = n0 + col;
+  if (dc >= d) return;
+  const float b = bias[dc];
+#pragma unroll
+  for (int r = 0; r < ANY_PER; ++r) {
+    const long long m = m0 + grp * ANY_PER + r;
+    if (m >= m_total) break;
+    if constexpr (sizeof(OutT) == 2) {
+      out[m * d + dc] = __float2bfloat16_rn(acc[r] + b);
+    } else {
+      out[m * d + dc] = acc[r] + b;
+    }
+  }
+}
+
+// cudaErrorInvalidValue for a P that does not divide S (or an odd S for
+// I420) or a P whose slices overflow shared memory, else the CUDA error
+// of the set-up or of the launch.
+template <int MODE, typename OutT>
+int launch_any(const void* frames, const void* w_hi, const void* w_lo,
+               const float* bias, OutT* out, int n, int s, int d, int p,
+               void* stream) {
+  if (p < 1 || s % p != 0 || (MODE == I420 && s % 2 != 0) || d < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (2 * ANY_ROWS + 2 * ANY_COLS) * p * (int)sizeof(float);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        patch_embed_any_kernel<MODE, OutT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long m = (long long)n * (s / p) * (s / p);
+  const dim3 grid((unsigned)((m + ANY_ROWS - 1) / ANY_ROWS),
+                  (unsigned)((d + ANY_COLS - 1) / ANY_COLS));
+  patch_embed_any_kernel<MODE, OutT>
+      <<<grid, ANY_THREADS, smem, (cudaStream_t)stream>>>(
+          frames, static_cast<const __nv_bfloat16*>(w_hi),
+          static_cast<const __nv_bfloat16*>(w_lo), bias, out, n, s, d, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // w_hi, w_lo: bf16 [d, 3072] from split_patch_weights; bias f32 [d].
@@ -519,4 +668,32 @@ extern "C" int avede_patch_embed_f32(const float* frames, const void* w_hi,
                                      void* stream) {
   return launch<RGB_F32, float>(frames, w_hi, w_lo, bias, out, n, s, d,
                                 stream);
+}
+
+// The simple kernel's entries: any p that divides s, any d; w_hi, w_lo
+// bf16 [d, p*p*3] from split_patch_weights. Return 0 or an error code
+// (see launch_any).
+extern "C" int avede_patch_embed_any_i420(const uint8_t* packed,
+                                          const void* w_hi, const void* w_lo,
+                                          const float* bias, void* out, int n,
+                                          int s, int d, int p, void* stream) {
+  return launch_any<I420, __nv_bfloat16>(packed, w_hi, w_lo, bias,
+                                         static_cast<__nv_bfloat16*>(out), n,
+                                         s, d, p, stream);
+}
+
+extern "C" int avede_patch_embed_any_u8(const uint8_t* frames,
+                                        const void* w_hi, const void* w_lo,
+                                        const float* bias, float* out, int n,
+                                        int s, int d, int p, void* stream) {
+  return launch_any<RGB_U8, float>(frames, w_hi, w_lo, bias, out, n, s, d, p,
+                                   stream);
+}
+
+extern "C" int avede_patch_embed_any_f32(const float* frames,
+                                         const void* w_hi, const void* w_lo,
+                                         const float* bias, float* out, int n,
+                                         int s, int d, int p, void* stream) {
+  return launch_any<RGB_F32, float>(frames, w_hi, w_lo, bias, out, n, s, d, p,
+                                    stream);
 }

@@ -14,7 +14,9 @@ numerics).
   sigmoid → cxcywh in [0, 1].
 
 Module names follow the JAX package's, so ``models/convert.
-params_from_jax`` maps its tree onto this one. The patch embedding is a
+params_from_jax`` maps its tree onto this one;
+``convert_owlvit_state_dict`` turns a HF ``OwlViTForObjectDetection``
+state dict into that tree. The patch embedding is a
 patchify + matrix product (a conv in the JAX package, not a Pallas
 kernel).
 """
@@ -22,7 +24,7 @@ kernel).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -183,3 +185,55 @@ def init_owlvit(cfg: Optional[OwlViTConfig] = None, seed: int = 0
     checkpoint ships)."""
     return seeded_init(OwlViTDetector(cfg or owlvit_base_patch32()), seed,
                        (nn.Linear, PatchEmbedding))
+
+
+# ---------------------------------------------------------------------------
+# conversion from HF OwlViTForObjectDetection
+# ---------------------------------------------------------------------------
+
+def convert_owlvit_state_dict(sd: Mapping[str, Any], vision_depth: int = 12,
+                              text_depth: int = 12) -> Dict[str, Any]:
+    """HF ``OwlViTForObjectDetection`` state dict → the JAX package's
+    parameter tree (``avede_tpu/models/owlvit.py:211``), array for
+    array; ``models.convert.params_from_jax`` takes it to this model."""
+    from .convert import _convert_encoder_layers, _np, _set
+
+    v, t = "owlvit.vision_model", "owlvit.text_model"
+    p: Dict[str, Any] = {}
+    _set(p, "vision/patch_embedding/kernel",
+         _np(sd[f"{v}.embeddings.patch_embedding.weight"]
+             ).transpose(2, 3, 1, 0))
+    _set(p, "vision/class_embedding",
+         _np(sd[f"{v}.embeddings.class_embedding"]).reshape(-1))
+    _set(p, "vision/position_embedding",
+         _np(sd[f"{v}.embeddings.position_embedding.weight"]))
+    for ln in ("pre_layernorm", "post_layernorm"):
+        _set(p, f"vision/{ln}/scale", _np(sd[f"{v}.{ln}.weight"]))
+        _set(p, f"vision/{ln}/bias", _np(sd[f"{v}.{ln}.bias"]))
+    _convert_encoder_layers(sd, p, f"{v}.encoder", "vision/encoder",
+                            vision_depth)
+
+    _set(p, "text/token_embedding/embedding",
+         _np(sd[f"{t}.embeddings.token_embedding.weight"]))
+    _set(p, "text/position_embedding",
+         _np(sd[f"{t}.embeddings.position_embedding.weight"]))
+    _convert_encoder_layers(sd, p, f"{t}.encoder", "text/encoder",
+                            text_depth)
+    _set(p, "text/final_layer_norm/scale",
+         _np(sd[f"{t}.final_layer_norm.weight"]))
+    _set(p, "text/final_layer_norm/bias",
+         _np(sd[f"{t}.final_layer_norm.bias"]))
+    _set(p, "text/text_projection/kernel",
+         _np(sd["owlvit.text_projection.weight"]).T)
+
+    _set(p, "merge_ln/scale", _np(sd["layer_norm.weight"]))
+    _set(p, "merge_ln/bias", _np(sd["layer_norm.bias"]))
+    for src, dst in (("class_head.dense0", "cls_dense0"),
+                     ("class_head.logit_shift", "logit_shift"),
+                     ("class_head.logit_scale", "logit_scale"),
+                     ("box_head.dense0", "box_dense0"),
+                     ("box_head.dense1", "box_dense1"),
+                     ("box_head.dense2", "box_dense2")):
+        _set(p, f"{dst}/kernel", _np(sd[f"{src}.weight"]).T)
+        _set(p, f"{dst}/bias", _np(sd[f"{src}.bias"]))
+    return p

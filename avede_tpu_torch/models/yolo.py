@@ -6,7 +6,8 @@ anchor-free head with Distribution Focal Loss box regression
 Module names follow the JAX package's (ultralytics layer indices:
 ``b0``…``b9``, ``n12``…``n21``, ``head_box_<level>_<j>``), so
 ``models/convert.params_from_jax`` maps its ``params`` and
-``batch_stats`` onto this one.
+``batch_stats`` onto this one; ``convert_yolov8_state_dict`` turns an
+ultralytics state dict into that pair.
 
 The public forward takes NHWC and returns NHWC head outputs, as the JAX
 package's; inside, the convolutions run NCHW (``F.conv2d``: the JAX
@@ -18,8 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -280,3 +282,67 @@ def init_yolo(cfg: Optional[YoloConfig] = None, seed: int = 0) -> YoloV8:
     bn = tuple(name for name, _ in model.named_parameters()
                if ".bn." in f".{name}")
     return seeded_init(model, seed, (nn.Conv2d,), skip=bn)
+
+
+# ---------------------------------------------------------------------------
+# conversion from an ultralytics state_dict export
+# ---------------------------------------------------------------------------
+
+_UL_BACKBONE = {0: "b0", 1: "b1", 2: "b2", 3: "b3", 4: "b4", 5: "b5",
+                6: "b6", 7: "b7", 8: "b8", 9: "b9", 12: "n12", 15: "n15",
+                16: "n16", 18: "n18", 19: "n19", 21: "n21"}
+
+
+def convert_yolov8_state_dict(sd: Mapping[str, Any], cfg: YoloConfig
+                              ) -> Tuple[Dict, Dict]:
+    """ultralytics ``model.state_dict()`` (keys ``model.<i>.*``) → the
+    JAX package's ``(params, batch_stats)`` trees
+    (``avede_tpu/models/yolo.py:270``), array for array;
+    ``models.convert.params_from_jax({"params": ..., "batch_stats":
+    ...})`` takes them to this model. The ultralytics ``.pt`` pickle needs
+    the ultralytics package to open: export the raw tensors first
+    (``torch.save(dict(model.model.state_dict()), path)``)."""
+    from .convert import _np, _set
+
+    params: Dict = {}
+    stats: Dict = {}
+
+    def conv_bn(src: str, dst: str) -> None:
+        _set(params, f"{dst}/conv/kernel",
+             np.transpose(_np(sd[f"{src}.conv.weight"]), (2, 3, 1, 0)))
+        _set(params, f"{dst}/bn/scale", _np(sd[f"{src}.bn.weight"]))
+        _set(params, f"{dst}/bn/bias", _np(sd[f"{src}.bn.bias"]))
+        _set(stats, f"{dst}/bn/mean", _np(sd[f"{src}.bn.running_mean"]))
+        _set(stats, f"{dst}/bn/var", _np(sd[f"{src}.bn.running_var"]))
+
+    def c2f(src: str, dst: str, n: int) -> None:
+        conv_bn(f"{src}.cv1", f"{dst}/cv1")
+        conv_bn(f"{src}.cv2", f"{dst}/cv2")
+        for i in range(n):
+            conv_bn(f"{src}.m.{i}.cv1", f"{dst}/m_{i}/cv1")
+            conv_bn(f"{src}.m.{i}.cv2", f"{dst}/m_{i}/cv2")
+
+    c2f_n = {2: cfg.n(3), 4: cfg.n(6), 6: cfg.n(6), 8: cfg.n(3),
+             12: cfg.n(3), 15: cfg.n(3), 18: cfg.n(3), 21: cfg.n(3)}
+    for idx, dst in _UL_BACKBONE.items():
+        src = f"model.{idx}"
+        if idx in c2f_n:
+            c2f(src, dst, c2f_n[idx])
+        elif idx == 9:
+            conv_bn(f"{src}.cv1", f"{dst}/cv1")
+            conv_bn(f"{src}.cv2", f"{dst}/cv2")
+        else:
+            conv_bn(src, dst)
+
+    # head: model.22.cv2 (box) / cv3 (cls), 3 levels x (0, 1 ConvBN + a
+    # plain conv)
+    for lvl in range(3):
+        for j in (0, 1):
+            conv_bn(f"model.22.cv2.{lvl}.{j}", f"head_box_{lvl}_{j}")
+            conv_bn(f"model.22.cv3.{lvl}.{j}", f"head_cls_{lvl}_{j}")
+        for cv, kind in (("cv2", "box"), ("cv3", "cls")):
+            src = f"model.22.{cv}.{lvl}.2"
+            _set(params, f"head_{kind}_{lvl}_2/kernel",
+                 np.transpose(_np(sd[f"{src}.weight"]), (2, 3, 1, 0)))
+            _set(params, f"head_{kind}_{lvl}_2/bias", _np(sd[f"{src}.bias"]))
+    return params, stats

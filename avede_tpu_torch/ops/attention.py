@@ -8,7 +8,9 @@ nothing is padded. Bound by bytes on the H100.
 
 - ``flash_attention_blhd`` serves every layer of the CLIP vision tower
   (L = 50, hd = 64 at ViT-B/32), of BLIP's (L = 577 at 384 px, patch
-  16) and of BLIP-2's ViT-g (L = 257 at 224 px, patch 14, hd = 88):
+  16), of BLIP-2's ViT-g (L = 257 at 224 px, patch 14, hd = 88) and of
+  the tiny CLIP, BLIP and OWL-ViT towers (L = 17 at 32 px, patch 8,
+  hd = 16):
   bf16 q, k, v in the projections' own ``[B, L, H, hd]`` layout in
   (BLIP's are the three thirds of its fused qkv output, read in place at
   a row stride of 3·D: no copy), bf16 ``[B, L, H·hd]`` out, tensor-core
@@ -33,7 +35,7 @@ from . import _build
 from .kernels import _entry, _refuse_grad, _require_cuda, _stream
 
 _HEAD_DIMS = (16, 32, 64)
-_BLHD_HEAD_DIMS = (64, 88)   # the bf16 entry's instantiations
+_BLHD_HEAD_DIMS = (16, 64, 88)   # the bf16 entry's instantiations
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -118,7 +120,7 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     """q, k, v: ``[B, L, H, hd]`` (each projection's ``[B, L, H·hd]``
     viewed per head, or the thirds of a fused ``[B, L, 3·H·hd]`` qkv
     output, read in place at their row stride) → ``[B, L, H·hd]``
-    (non-causal, no mask). On the card: bf16 with hd = 64 or 88.
+    (non-causal, no mask). On the card: bf16 with hd = 16, 64 or 88.
     ``launches_by_length`` counts the launches by L."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"bad shapes {tuple(q.shape)}, {tuple(k.shape)}, "

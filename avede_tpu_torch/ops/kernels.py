@@ -10,8 +10,10 @@
   tile, returning bf16 tokens; the contract entry takes uint8 or
   0..255 float RGB frames and returns f32. Neither the unpacked image
   nor the patchified matrix exists in device memory. Both run wgmma in
-  bf16 ×3 (``split_patch_weights`` splits ``W'`` once); bound by
-  operations on the H100.
+  bf16 ×3 (``split_patch_weights`` splits ``W'`` once) at P = 32 and D a
+  multiple of 96, bound by operations on the H100; any other P that
+  divides S and any D (the tiny CLIP's P = 8, D = 64) takes the same
+  source's simple SIMT kernel on the same bf16 ×3 operands.
 - ``cosine_window_topk`` and ``cosine_topk_f32`` / ``_bf16`` /
   ``_int8`` — ``csrc/cosine_scores.cu``'s serving entries, replacing
   ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``) together
@@ -40,6 +42,7 @@ counts kernel launches.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Callable, Optional, Tuple
 
@@ -126,16 +129,26 @@ def _patchify(frames: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(n, g * g, patch * patch * c)
 
 
+def _k_order(patch: int) -> torch.Tensor:
+    """The kernels' K order: position ``j`` of (row pair, channel, row,
+    px) → the ``W'`` row (py, px, c) it holds; an odd P's last pair has
+    one row."""
+    order = []
+    for pair in range(0, patch, 2):
+        rows = range(pair, min(pair + 2, patch))
+        order += [(py * patch + px) * 3 + c
+                  for c in range(3) for py in rows for px in range(patch)]
+    return torch.tensor(order, dtype=torch.long)
+
+
 def split_patch_weights(w2: torch.Tensor, patch: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``W'`` [P·P·3, D] (rows in (py, px, c) order) → (w_hi, w_lo), bf16
     [D, P·P·3] with ``w_hi + w_lo ≈ W'`` to about 2^-17 relative: the
-    kernel's operands, K-major, with K reordered to (row pair, channel,
-    row, px) so that each K step of 64 is one channel of two pixel
-    rows."""
-    k, d = w2.shape
-    w = w2.float().reshape(patch // 2, 2, patch, 3, d)   # pair, r, px, c
-    w = w.permute(4, 0, 3, 1, 2).reshape(d, k)
+    kernels' operands, K-major, with K reordered to (row pair, channel,
+    row, px) so that each of the ``wgmma`` kernel's K steps of 64 is one
+    channel of two pixel rows."""
+    w = w2.float()[_k_order(patch).to(w2.device)].T
     hi = w.to(torch.bfloat16)
     lo = (w - hi.float()).to(torch.bfloat16)
     return hi.contiguous(), lo.contiguous()
@@ -147,27 +160,35 @@ def fused_patch_embed_plain(frames: torch.Tensor, w2: torch.Tensor,
     return _patchify(frames.float(), patch) @ w2.float() + b2.float()
 
 
-def _patch_launch(name, frames, size, split, b2, out, patch, wrapper):
-    if patch != 32:
-        raise ValueError(f"the kernel takes patch 32, not {patch}")
+def _patch_launch(mode, frames, size, split, b2, out, patch, wrapper):
+    """Launch the ``wgmma`` kernel (P = 32, D a multiple of 96) or, for
+    any other P and D, the simple kernel; ``wrapper.launches`` counts
+    both, ``wrapper.launches_by_kernel`` each."""
     w_hi, w_lo = split
     d = out.shape[-1]
-    if d % 96 or w_hi.shape != (d, patch * patch * 3) \
-            or w_lo.shape != w_hi.shape or w_hi.dtype != torch.bfloat16 \
-            or w_lo.dtype != torch.bfloat16:
+    if w_hi.shape != (d, patch * patch * 3) or w_lo.shape != w_hi.shape \
+            or w_hi.dtype != torch.bfloat16 or w_lo.dtype != torch.bfloat16:
         raise ValueError("split weights must be bf16 [D, P·P·3] from "
-                         "split_patch_weights, D a multiple of 96")
+                         "split_patch_weights")
     _require_cuda(frames, w_hi, w_lo, b2)
     if b2.dtype != torch.float32:
         raise ValueError("the folded bias must be float32")
     n = frames.shape[0]
     if n == 0:
         return out
-    fn = _entry("patch_embed", name, [_P, _P, _P, _P, _P, _I, _I, _I, _P])
-    _build.check(fn(frames.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-                    b2.data_ptr(), out.data_ptr(), n, size, d,
-                    _stream(frames)), name)
+    args = [frames.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), n, size, d]
+    kernel = "wgmma" if patch == 32 and d % 96 == 0 else "simt"
+    if kernel == "wgmma":
+        name = f"avede_patch_embed_{mode}"
+    else:
+        name = f"avede_patch_embed_any_{mode}"
+        args.append(patch)
+    fn = _entry("patch_embed", name, [_P] * 5 + [_I] * (len(args) - 5)
+                + [_P])
+    _build.check(fn(*args, _stream(frames)), name)
     wrapper.launches += 1
+    wrapper.launches_by_kernel[kernel] += 1
     return out
 
 
@@ -189,9 +210,9 @@ def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
     if frames.device.type == "cpu":
         return fused_patch_embed_plain(frames, w2, b2, patch)
     if frames.dtype == torch.float32:
-        name = "avede_patch_embed_f32"
+        mode = "f32"
     elif frames.dtype == torch.uint8:
-        name = "avede_patch_embed_u8"
+        mode = "u8"
     else:
         raise ValueError(f"frames must be float32 or uint8, not "
                          f"{frames.dtype}")
@@ -200,12 +221,13 @@ def fused_patch_embed(frames: torch.Tensor, w2: torch.Tensor,
     g = s // patch
     out = torch.empty((n, g * g, d), dtype=torch.float32,
                       device=frames.device)
-    return _patch_launch(name, frames, s,
+    return _patch_launch(mode, frames, s,
                          split or split_patch_weights(w2, patch), b2, out,
                          patch, fused_patch_embed)
 
 
 fused_patch_embed.launches = 0
+fused_patch_embed.launches_by_kernel = collections.Counter()
 
 
 def fused_patch_embed_i420_plain(packed: torch.Tensor, w2: torch.Tensor,
@@ -245,12 +267,13 @@ def fused_patch_embed_i420(packed: torch.Tensor, w2: torch.Tensor,
     g = s // patch
     out = torch.empty((n, g * g, d), dtype=torch.bfloat16,
                       device=packed.device)
-    return _patch_launch("avede_patch_embed_i420", packed, s,
+    return _patch_launch("i420", packed, s,
                          split or split_patch_weights(w2, patch), b2, out,
                          patch, fused_patch_embed_i420)
 
 
 fused_patch_embed_i420.launches = 0
+fused_patch_embed_i420.launches_by_kernel = collections.Counter()
 
 
 def patch_embed_reference(frames_u8: torch.Tensor, kernel: torch.Tensor,

@@ -40,7 +40,13 @@ and the script exits non-zero without printing a result:
    ``[ref]``: 1 x 50) and a frame's crops (row ``[crops16]``: 16 x 50),
    and at BLIP-2's ViT-g shape (row ``[blip2]``: 30 candidates x 257
    tokens, 16 heads of 88, the thirds of a fused qkv at row stride
-   4224; the entry's hd = 88 instantiation).
+   4224; the entry's hd = 88 instantiation). The eval modes' tiny
+   towers (32 px, patch 8, width 64, 4 heads of 16) at the eval path's
+   batch of 32: row ``fused_patch_embed_i420[tiny]`` (1c: packed I420
+   [32, 48, 32] → bf16 [32, 16, 64], the patch embed's simple kernel,
+   which every P other than 32 and D not a multiple of 96 takes) and
+   row ``flash_attention_blhd[tiny]`` (2j: [32, 17, 4, 16], the hd = 16
+   instantiation).
    The entry counts launches by L only, so the detection rows' counts
    are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
@@ -134,8 +140,8 @@ and the script exits non-zero without printing a result:
    textured background; 8 tiles of 640 px at overlap 128 a frame): the
    route's default ``process_small_object_detection`` (``clip`` mode,
    RPN, adaptive thresholds, background independence, top 20) cold and
-   warm on the first 30 frames, one ``owlvit`` call at top 5 on the
-   first 4 frames, two ``clip`` calls at threshold -1 without the
+   warm on the first 10 frames, one ``owlvit`` call at top 5 on the
+   first 2 frames, two ``clip`` calls at threshold -1 without the
    adaptive thresholds on the
    first 2 frames (top 2), one ``process_background_independence`` with
    its defaults and one at threshold -1 on the first 4 frames; cv2 is
@@ -160,7 +166,7 @@ and the script exits non-zero without printing a result:
 11. (run after phase 10, while the CLIP engine is loaded) drive image
    query through ``VideoProcessor.process_image_matching`` at full
    width (CLIP ViT-B/32 bf16, YOLOv8n at 640 px, random weights from
-   seed 0) on a real video file: 300 seeded frames of 1280×720 at 30 fps
+   seed 0) on a real video file: 150 seeded frames of 1280×720 at 30 fps
    (a textured background, four objects of 64-200 px moving) written by
    ``cv2.VideoWriter`` as ``mp4v`` in ``.mp4`` and decoded by the port's
    ``VideoReader`` (fails, printing cv2's Video I/O build information,
@@ -251,6 +257,22 @@ and the script exits non-zero without printing a result:
    the untrained engine's. Last, ``avede_tpu_torch.eval.eval_grounding``
    on the card (seed 0: 3 seeds of 500 steps), held to EVAL.json's JAX
    spread: mean tIoU >= 0.686, tIoU@0.5 >= 0.9.
+15. (run after phase 14) a Hugging Face checkpoint into the port: a
+   random ViT-B/32 state dict under ``CLIPModel``'s names
+   (``hf_clip_state_dict``, made without ``transformers``) written by
+   ``torch.save``, converted by ``python -m
+   avede_tpu_torch.models.convert --model clip`` in its own process and
+   served by ``ClipEngine(weights_path=...)`` through the kernels on
+   phase 5's source (one cold and two warm queries, path
+   ``convert_serve``); the card's embeddings of 8 frames against the
+   same file on the CPU in f32, row cosine >= 0.9999.
+16. (run after phase 15) the eval modes ``image`` (2 seeds) and
+   ``text`` (2 seeds of 700 training steps) through
+   ``avede_tpu_torch.eval.main`` on the card, path ``eval``: the simple
+   patch kernel (``fused_patch_embed_i420[simt]``), flash at L = 17 and
+   ``cosine_window_topk`` must launch, the wgmma patch kernel and the
+   contract entries not at all; image p@1 >= 0.75, text p@1 >= 0.875
+   (EVAL.json's JAX reference less one test item).
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -262,8 +284,10 @@ the ``small_object`` path, phase 11's eight the ``image_query`` path
 (the ``[ref]`` and ``[crops16]`` rows read its L = 50 launches), phase
 12's cold call the ``reranked_blip2`` path (the ``[blip2]`` row reads
 its L = 257 launches), phase 13's three calls the ``person_search``
-path and phase 14's three calls of the trained CLIP the ``train_serve``
-path.
+path, phase 14's three calls of the trained CLIP the ``train_serve``
+path, phase 15's three calls the ``convert_serve`` path and phase 16's
+two modes the ``eval`` path (rows 1c and 2j read its simple-kernel and
+L = 17 launches).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -309,6 +333,11 @@ CLIP_TOKENS = (224 // 32) ** 2 + 1
 # BLIP-2's ViT-g: 224 px in 14 px patches, plus CLS (16 heads of 88)
 BLIP2_TOKENS = (224 // 14) ** 2 + 1
 BLIP2_DEPTH = 39
+# the eval modes' tiny towers: 32 px in 8 px patches, plus CLS (4 heads
+# of 16, width 64); their batch on the eval path is the text mode's
+# sparse cold scan, 15 window middles in the 32-row bucket
+TINY_TOKENS = (32 // 8) ** 2 + 1
+TINY_BATCH = 32
 # the bf16 flash entry counts its launches by L only, read under these
 # keys: L = 577 is BLIP-base's vision tower on the rerank paths and
 # OWL-ViT's on the detection path (neither runs the other's model);
@@ -316,6 +345,10 @@ BLIP2_DEPTH = 39
 FLASH_L577 = f"flash_attention_blhd[L={BLIP_TOKENS}]"
 FLASH_L50 = f"flash_attention_blhd[L={CLIP_TOKENS}]"
 FLASH_L257 = f"flash_attention_blhd[L={BLIP2_TOKENS}]"
+FLASH_L17 = f"flash_attention_blhd[L={TINY_TOKENS}]"
+# the patch embed counts its launches by kernel too: the wgmma kernel
+# (P = 32, D a multiple of 96) and the simple one (any other P and D)
+SIMT_PATCH = "fused_patch_embed_i420[simt]"
 # phase 3's rows of the bf16 flash entry at each model's shape
 BLIP_FLASH = "flash_attention_blhd[blip]"
 BLIP2_FLASH = "flash_attention_blhd[blip2]"
@@ -325,6 +358,10 @@ CROP_FLASH = "flash_attention_blhd[crop]"
 # image query's small buckets: a reference image alone, a frame's crops
 REF_FLASH = "flash_attention_blhd[ref]"
 CROPS16_FLASH = "flash_attention_blhd[crops16]"
+# the eval modes' tiny shapes: rows 1c (the patch embed's simple kernel)
+# and 2j (flash at head dim 16)
+TINY_PATCH = "fused_patch_embed_i420[tiny]"
+TINY_FLASH = "flash_attention_blhd[tiny]"
 DETECTION_BATCH = 16
 # the port's ``utils.trace`` span names, which the profiler also records
 # as device-side ranges
@@ -332,14 +369,15 @@ TRACE_SPANS = ("phase1.", "phase2.", "phase3.", "owlvit.", "yolo.")
 # phase 10: a 1080p source of 60 frames with six planted objects
 # (kind, side px, x, y, px per frame in x and y, RGB)
 SMALL_W, SMALL_H, SMALL_FRAMES = 1920, 1080, 60
-# the default small-object calls read the first 30 of them: cut from 60,
-# where the two took about 130 s of the phase's 238 s (NVIDIA H100 80GB
-# HBM3, 700 W), to keep the whole script within 600 s beside phases
-# 12-13
-SMALL_DEFAULT_FRAMES = 30
-# the ``owlvit`` call reads the first 4: cut from 8, where it took 32 s
-# (NVIDIA H100 80GB HBM3, 700 W), to make room for phase 14
-SMALL_OWLVIT_FRAMES = 4
+# the default small-object calls read the first 10 of them: cut from 60,
+# where the two took about 130 s of the phase's 238 s, then from 30,
+# where they took 85.7 s (NVIDIA H100 80GB HBM3, 700 W), to keep the
+# whole script within 600 s beside phases 12-16
+SMALL_DEFAULT_FRAMES = 10
+# the ``owlvit`` call reads the first 2: cut from 8, where it took 32 s,
+# then from 4, where it took 27.8 s (NVIDIA H100 80GB HBM3, 700 W), to
+# make room for phases 14-16
+SMALL_OWLVIT_FRAMES = 2
 SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
                  ("disc", 24, 700, 300, -6, 4, (40, 220, 60)),
                  ("square", 32, 1200, 500, 5, -3, (30, 60, 230)),
@@ -349,11 +387,12 @@ SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
 SMALL_QUERIES = ["a small red square", "a green ball", "a tiny object"]
 # phase 11: a phone/CCTV clip written as a real mp4 (1280×720, 30 fps),
 # a textured background and four moving objects (kind, side px, x, y,
-# px per frame in x and y, BGR); every call keeps the top 5. 300 frames
-# (10 s), cut from 600 (20 s): at 600 the phase took 152 s on an NVIDIA
-# H100 80GB HBM3 at 700 W, over its 90 s aim; the reference is the
+# px per frame in x and y, BGR); every call keeps the top 5. 150 frames
+# (5 s), cut from 600 (20 s), where the phase took 152 s, then from 300,
+# where its calls took 81.7 s (NVIDIA H100 80GB HBM3, 700 W), to keep
+# the script within 600 s beside phases 15-16; the reference is the
 # middle frame
-IMAGE_W, IMAGE_H, IMAGE_FRAMES = 1280, 720, 300
+IMAGE_W, IMAGE_H, IMAGE_FRAMES = 1280, 720, 150
 IMAGE_REF = IMAGE_FRAMES // 2
 IMAGE_OBJECTS = [("square", 200, 120, 90, 1.1, 0.4, (40, 40, 220)),
                  ("disc", 140, 900, 140, -0.9, 0.7, (60, 200, 40)),
@@ -379,6 +418,14 @@ TRAIN_LOSS_REL, TRAIN_NORM_REL = 1e-4, 1e-3
 # the grounding eval's bar: EVAL.json's JAX spread over 3 seeds (mean
 # tIoU 0.776, std 0.030; tIoU@0.5 1.0): the mean less 3 std, and 0.9
 GROUNDING_MIN_TIOU, GROUNDING_MIN_AT_05 = 0.686, 0.9
+# phase 16's bars, from EVAL.json's JAX reference and its spread over
+# seeds (spread 0: one test item's share): image p@1 1.0 of 4 subjects,
+# text p@1 0.9375 of 16 classes
+EVAL_BARS = {"image": ("image_retrieval", 0.75),
+             "text": ("text_retrieval_trained", 0.875)}
+# phase 15: the converted HF checkpoint served on the card against the
+# same file on the CPU (8 frames, row cosine)
+CONVERT_FRAMES, CONVERT_MIN_COSINE = 8, 0.9999
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
 # the largest crop bucket of ``ClipEngine.embed_pixels``
 CROP_BUCKET = 256
@@ -395,11 +442,13 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                "quantize_rows": "library_int8",
                "quantize_per_channel": "library_int8",
                BLIP_FLASH: "reranked", BLIP2_FLASH: "reranked_blip2",
-               REF_FLASH: "image_query", CROPS16_FLASH: "image_query"}
+               REF_FLASH: "image_query", CROPS16_FLASH: "image_query",
+               TINY_PATCH: "eval", TINY_FLASH: "eval"}
 LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, BLIP2_FLASH: FLASH_L257,
               OWL_FLASH: FLASH_L577,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
-              REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50}
+              REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50,
+              TINY_PATCH: SIMT_PATCH, TINY_FLASH: FLASH_L17}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
@@ -488,6 +537,58 @@ def bf16_err(torch, got, ref, rel: float = 0.0):
     return (err.max().item(), (err - tol).max().item(),
             (got != want).float().mean().item())
 
+
+
+def hf_clip_state_dict(torch, cfg, seed: int = 0) -> dict:
+    """A random state dict under HF ``CLIPModel``'s key names and shapes
+    for the port's ``CLIPConfig`` (MLPs 4x wide), made without
+    ``transformers``: matrices normal(0, 0.02), LayerNorm scales 1 +
+    normal(0, 0.02), biases normal(0, 0.02), the logit scale log(1/0.07).
+    Seeded on the host's generator."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, mean=0.0):
+        return torch.randn(*shape, generator=gen) * 0.02 + mean
+
+    sd = {}
+
+    def tower(prefix, dim, depth):
+        for i in range(depth):
+            s = f"{prefix}.encoder.layers.{i}"
+            for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+                sd[f"{s}.self_attn.{proj}.weight"] = rnd(dim, dim)
+                sd[f"{s}.self_attn.{proj}.bias"] = rnd(dim)
+            sd[f"{s}.layer_norm1.weight"] = rnd(dim, mean=1.0)
+            sd[f"{s}.layer_norm1.bias"] = rnd(dim)
+            sd[f"{s}.mlp.fc1.weight"] = rnd(4 * dim, dim)
+            sd[f"{s}.mlp.fc1.bias"] = rnd(4 * dim)
+            sd[f"{s}.mlp.fc2.weight"] = rnd(dim, 4 * dim)
+            sd[f"{s}.mlp.fc2.bias"] = rnd(dim)
+            sd[f"{s}.layer_norm2.weight"] = rnd(dim, mean=1.0)
+            sd[f"{s}.layer_norm2.bias"] = rnd(dim)
+
+    t, v = cfg.text_dim, cfg.vision_dim
+    sd["text_model.embeddings.token_embedding.weight"] = rnd(cfg.vocab_size,
+                                                            t)
+    sd["text_model.embeddings.position_embedding.weight"] = rnd(
+        cfg.max_text_len, t)
+    tower("text_model", t, cfg.text_depth)
+    sd["text_model.final_layer_norm.weight"] = rnd(t, mean=1.0)
+    sd["text_model.final_layer_norm.bias"] = rnd(t)
+    sd["vision_model.embeddings.class_embedding"] = rnd(v)
+    sd["vision_model.embeddings.patch_embedding.weight"] = rnd(
+        v, 3, cfg.patch_size, cfg.patch_size)
+    sd["vision_model.embeddings.position_embedding.weight"] = rnd(
+        cfg.num_patches + 1, v)
+    sd["vision_model.pre_layrnorm.weight"] = rnd(v, mean=1.0)
+    sd["vision_model.pre_layrnorm.bias"] = rnd(v)
+    tower("vision_model", v, cfg.vision_depth)
+    sd["vision_model.post_layernorm.weight"] = rnd(v, mean=1.0)
+    sd["vision_model.post_layernorm.bias"] = rnd(v)
+    sd["visual_projection.weight"] = rnd(cfg.projection_dim, v)
+    sd["text_projection.weight"] = rnd(cfg.projection_dim, t)
+    sd["logit_scale"] = torch.tensor(2.6592)
+    return sd
 
 class SyntheticVideo:
     """An in-memory decoder: 600 seeded BGR frames of 288×512, a
@@ -778,6 +879,103 @@ def check_kernels(torch, np, video):
     del emb
 
     rows += check_library_kernels(torch, F, dev, gen)
+    rows += check_tiny_kernels(torch, F, dev, gen, video)
+    return rows
+
+
+def check_tiny_kernels(torch, F, dev, gen, video):
+    """Phase 3, rows 1c and 2j: the eval modes' tiny towers (32 px, patch
+    8, width 64, 4 heads of 16) at the eval path's batch. 1c: the I420
+    serving entry on real packed frames [N, 48, 32] → bf16 [N, 16, 64],
+    which the wgmma tile does not take (P = 8, D = 64): the simple
+    kernel; same bar as row 1, the same unpack + bf16 ``F.conv2d``
+    yardstick. 2j: the bf16 flash entry at [N, 17, 4, 16] (contiguous
+    heads, row stride 64), one key tile holding 17 keys; same bar as row
+    2, SDPA its library call."""
+    from avede_tpu_torch.ops import attention, kernels
+    from avede_tpu_torch.ops.preprocess import (clip_preprocess_i420,
+                                                pack_frames_i420)
+
+    n, s, p, d = TINY_BATCH, 32, 8, 64
+    packed = torch.from_numpy(pack_frames_i420(video._chunk(0, n), s,
+                                               src="bgr")).to(dev)
+    kernel = torch.randn(p, p, 3, d, device=dev, generator=gen) \
+        * (3 * p * p) ** -0.5
+    w2, b2 = kernels.fold_for_uint8(kernel)
+    w2, b2 = w2.contiguous(), b2.contiguous()
+    split = kernels.split_patch_weights(w2, p)
+    gg, k = (s // p) ** 2, p * p * 3
+    before = kernels.fused_patch_embed_i420.launches_by_kernel["simt"]
+    got = kernels.fused_patch_embed_i420(packed, w2, b2, p, split)
+    if kernels.fused_patch_embed_i420.launches_by_kernel["simt"] \
+            != before + 1:
+        fail(f"{TINY_PATCH}: the simple kernel did not launch")
+    ref = kernels.fused_patch_embed_i420_plain(packed, w2, b2, p,
+                                               torch.float32)
+    err, excess, unequal = bf16_err(torch, got, ref, TOL_REL)
+    w_bf = w2.reshape(p, p, 3, d).permute(3, 2, 0, 1).to(torch.bfloat16)
+    b, f = bound_ms(packed.numel() + 2 * 2 * w2.numel() + 4 * d
+                    + 2 * n * gg * d, 3 * 2.0 * n * gg * k * d,
+                    BF16_TENSOR_FLOP_PER_S)
+    rows = [dict(
+        name=TINY_PATCH, route="cuda",
+        source="avede_tpu_torch/csrc/patch_embed.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:95",
+        shape=f"packed I420 u8 [{n},{s * 3 // 2},{s}] x W' [{k},{d}] "
+              f"-> bf16 [{n},{gg},{d}] (patch {p}: the simple kernel)",
+        max_abs_err=err, tol="1 bf16 ulp + 1e-4*max|plain| + 1e-5",
+        tol_excess=excess, not_bit_equal=unequal,
+        ms=time_ms(torch, lambda: kernels.fused_patch_embed_i420(
+            packed, w2, b2, p, split), iters=200),
+        call_ms=call_ms(torch, lambda: kernels.fused_patch_embed_i420(
+            packed, w2, b2, p, split), iters=200),
+        plain_ms=time_ms(torch, lambda: kernels.fused_patch_embed_i420_plain(
+            packed, w2, b2, p), iters=200),
+        bound_ms=b, bound_by=f, bound_peak="bf16 tensor cores 989 TFLOP/s",
+        bound_passes=3, library_ms=None,
+        library="null: no single PyTorch call unpacks I420",
+        yardstick_ms=time_ms(torch, lambda: F.conv2d(
+            (clip_preprocess_i420(packed, normalize=False) * 255.0
+             ).permute(0, 3, 1, 2).to(torch.bfloat16), w_bf,
+            b2.to(torch.bfloat16), stride=p), iters=200),
+        yardstick="clip_preprocess_i420(normalize=False)*255 + F.conv2d "
+                  "in bf16 (cuDNN)")]
+    if excess > 0:
+        fail(f"{TINY_PATCH}: max err {err} over its bar by {excess}")
+
+    h, hd, length = 4, 16, TINY_TOKENS
+    q, kk, v = (torch.randn(n, length, h * hd, device=dev, generator=gen
+                            ).to(torch.bfloat16).view(n, length, h, hd)
+                for _ in range(3))
+    got = attention.flash_attention_blhd(q, kk, v)
+    ref = attention.flash_attention_blhd_plain(q.float(), kk.float(),
+                                               v.float())
+    err, excess, unequal = bf16_err(torch, got, ref)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    b, f = bound_ms(2 * 4 * q.numel(), 4.0 * n * h * length * length * hd,
+                    BF16_TENSOR_FLOP_PER_S)
+    rows.append(dict(
+        name=TINY_FLASH, route="cuda",
+        source="avede_tpu_torch/csrc/flash_attention.cu",
+        replaces="avede_tpu/ops/attention.py:85",
+        shape=f"q,k,v bf16 [{n},{length},{h},{hd}] (row stride {h * hd}) "
+              f"-> bf16 [{n},{length},{h * hd}] (the hd = 16 instantiation)",
+        max_abs_err=err, tol="1 bf16 ulp + 1e-5", tol_excess=excess,
+        not_bit_equal=unequal,
+        ms=time_ms(torch, lambda: attention.flash_attention_blhd(q, kk, v),
+                   iters=200),
+        call_ms=call_ms(torch, lambda: attention.flash_attention_blhd(
+            q, kk, v), iters=200),
+        plain_ms=time_ms(torch, lambda: attention.flash_attention_blhd_plain(
+            q, kk, v), iters=200),
+        bound_ms=b, bound_by=f, bound_peak="bf16 tensor cores 989 TFLOP/s",
+        bound_passes=1,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), iters=200),
+        library="torch.nn.functional.scaled_dot_product_attention on the "
+                "bf16 [B, H, L, D] views"))
+    if excess > 0:
+        fail(f"{TINY_FLASH}: max err {err} over its bar by {excess}")
     return rows
 
 
@@ -1385,28 +1583,38 @@ def drive_library(torch, np, engine, root):
 
 
 def reset_launches(fns) -> None:
-    """Zero each wrapper's count (the bf16 flash entry's, kept by L)."""
+    """Zero each wrapper's count (the bf16 flash entry's, kept by L; the
+    patch embed's by kernel too)."""
     for fn in fns:
         if hasattr(fn, "launches_by_length"):
             fn.launches_by_length.clear()
         else:
             fn.launches = 0
+        if hasattr(fn, "launches_by_kernel"):
+            fn.launches_by_kernel.clear()
 
 
 def read_launches(fns) -> dict:
     """Each wrapper's count; the bf16 flash entry's, kept by L, is
-    summed, and its L = 577, 50 and 257 launches are also given apart,
-    as ``FLASH_L577``, ``FLASH_L50`` and ``FLASH_L257``."""
+    summed, and its L = 577, 50, 257 and 17 launches are also given
+    apart, as ``FLASH_L577``, ``FLASH_L50``, ``FLASH_L257`` and
+    ``FLASH_L17``; a patch embed's are also given by kernel, as
+    ``<name>[wgmma]`` and ``<name>[simt]``."""
     out = {}
     for fn in fns:
         by_len = getattr(fn, "launches_by_length", None)
         if by_len is None:
             out[fn.__name__] = fn.launches
+            for kind in ("wgmma", "simt"):
+                if hasattr(fn, "launches_by_kernel"):
+                    out[f"{fn.__name__}[{kind}]"] = \
+                        fn.launches_by_kernel[kind]
             continue
         out[fn.__name__] = by_len.total()
         out[FLASH_L577] = by_len[BLIP_TOKENS]
         out[FLASH_L50] = by_len[CLIP_TOKENS]
         out[FLASH_L257] = by_len[BLIP2_TOKENS]
+        out[FLASH_L17] = by_len[TINY_TOKENS]
     return out
 
 
@@ -2116,7 +2324,7 @@ def drive_small_objects(torch, np, engine, det):
     source of 60 frames (8 tiles of 640 px at overlap 128 a frame):
     the route's default ``process_small_object_detection`` (``clip``
     mode, RPN, adaptive thresholds and background independence, top 20)
-    cold and warm; one ``owlvit`` call at top 5 on the first 4 frames;
+    cold and warm; one ``owlvit`` call at top 5 on the first 2 frames;
     two ``clip`` calls on the first 2 frames that keep every cell (top
     2); one ``process_background_independence`` with its defaults and
     one at threshold -1 on the first 4 frames (frames fitted to 512 px
@@ -2428,7 +2636,7 @@ def video_io_info(cv2) -> str:
 
 def write_image_query_video(np, path) -> dict:
     """Phase 11's source as a real mp4 (``mp4v``, as the repo's tests
-    write theirs): 300 frames of 1280×720 at 30 fps, a seeded textured
+    write theirs): 150 frames of 1280×720 at 30 fps, a seeded textured
     background (coarse colour noise upscaled, plus fine grain) and four
     objects of 64-200 px moving and bouncing off the edges. Fails, with
     cv2's Video I/O build information, where cv2 cannot write it."""
@@ -2507,7 +2715,7 @@ def host_stage_report(stages: dict) -> dict:
 def drive_image_query(torch, np, engine, tmp: Path):
     """Phase 11: image query through ``VideoProcessor.process_image_matching``
     at full width (CLIP ViT-B/32 bf16, YOLOv8n at 640 px, random weights
-    from seed 0) on a real 1280×720 mp4 of 300 frames decoded by the
+    from seed 0) on a real 1280×720 mp4 of 150 frames decoded by the
     port's ``VideoReader`` (sample rate 1, frames fitted to 512 px):
     ``traditional`` cold and again (the result cache), ``fast_match``,
     ``cross_domain``, ``object_focused``, ``hybrid`` and ``smart_match``
@@ -2657,7 +2865,8 @@ def drive_image_query(torch, np, engine, tmp: Path):
             fail(f"image query ({name}): no flash launch for the crops")
     if launches[FLASH_L577] or any(
             n for k, n in launches.items()
-            if not k.startswith("flash_attention_blhd") and k != patch):
+            if not k.startswith("flash_attention_blhd")
+            and k not in (patch, f"{patch}[wgmma]")):
         fail(f"image query: a kernel off this path ran: {launches}")
 
     # eight threads through the batching executor at once, each with 3-20
@@ -3399,6 +3608,131 @@ def drive_train(torch, np, engine, video, tmp: Path):
     return out
 
 
+
+def drive_convert(torch, np, video, tmp: Path):
+    """Phase 15: a Hugging Face checkpoint into the port without JAX or
+    ``transformers``. A random HF-named ViT-B/32 ``CLIPModel`` state dict
+    (``hf_clip_state_dict``, seed 0) is written by ``torch.save``, turned
+    into the JAX layout's ``.npz`` by ``python -m
+    avede_tpu_torch.models.convert --model clip`` (its own process), and
+    served by ``ClipEngine(weights_path=..., device="cuda")`` (bf16, the
+    kernels) on phase 5's source: one cold ``process_video`` and two warm
+    queries, launches zeroed before them and kept as path
+    ``convert_serve``. The engine's embeddings of 8 frames must be within
+    row cosine 0.9999 of the same file served on the CPU in f32."""
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.ops import attention, kernels
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+
+    src, out = tmp / "clip_hf.pt", tmp / "clip_hf.npz"
+    t0 = time.perf_counter()
+    torch.save(hf_clip_state_dict(torch, vit_b32()), src)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "avede_tpu_torch.models.convert", "--model",
+         "clip", "--src", str(src), "--out", str(out)], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    if cli.returncode != 0 or "point settings.CLIP_WEIGHTS" not in cli.stdout:
+        fail(f"convert CLI: rc {cli.returncode}\n{cli.stdout}\n{cli.stderr}")
+    t0 = time.perf_counter()
+    served = ClipEngine(weights_path=str(out), device="cuda")
+    load_s = time.perf_counter() - t0
+    needed = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
+              kernels.cosine_window_topk)
+    contracts = (kernels.fused_patch_embed, attention.flash_attention,
+                 kernels.cosine_scores)
+    scan = Phase1Scan(served, reader=video,
+                      cache=EmbeddingCache(str(tmp / "convert_serve")))
+    path, vid = "memory://synthetic-street", "synthetic-street-hf"
+    reset_launches(needed + contracts)
+    t0 = time.perf_counter()
+    cold = scan.process_video(path, QUERIES[0], top_k=10, threshold=-1.0,
+                              video_id=vid)
+    cold_s = time.perf_counter() - t0
+    warm_ms = []
+    for q in QUERIES[:2]:
+        t0 = time.perf_counter()
+        res = scan.process_video(path, q, top_k=10, threshold=-1.0,
+                                 video_id=vid)
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+        conf = [r["confidence"] for r in res]
+        if not res or not np.all(np.isfinite(conf)) \
+                or conf != sorted(conf, reverse=True):
+            fail(f"convert_serve: scores not finite and sorted: {conf}")
+    launches = read_launches(needed + contracts)
+    if any(launches[fn.__name__] <= 0 for fn in needed) \
+            or launches[FLASH_L50] <= 0:
+        fail(f"convert_serve: a kernel of the path never launched: "
+             f"{launches}")
+    if any(launches[fn.__name__] for fn in contracts):
+        fail(f"convert_serve: a contract entry ran: {launches}")
+    frames = video._chunk(0, 300)[::300 // CONVERT_FRAMES][:CONVERT_FRAMES]
+    got = served.embed_frames(frames)
+    cpu = ClipEngine(cfg=vit_b32(), weights_path=str(out), device="cpu")
+    ref = cpu.embed_frames(frames)
+    report = {"save_s": save_s, "convert_cli_s": convert_s,
+              "engine_load_s": load_s, "cold_s": cold_s, "warm_ms": warm_ms,
+              "checkpoint_mib": src.stat().st_size / 2 ** 20,
+              "npz_mib": out.stat().st_size / 2 ** 20,
+              "cli": cli.stdout.strip().splitlines()[0],
+              "top_window": cold[0]["window_index"], "launches": launches,
+              "frames": int(len(frames)),
+              "card_vs_cpu_min_cosine": row_cosine(np, got, ref)}
+    if report["card_vs_cpu_min_cosine"] < CONVERT_MIN_COSINE:
+        fail(f"convert_serve: card off the CPU on the converted weights: "
+             f"{report}")
+    del served, cpu, scan
+    src.unlink()
+    out.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def drive_eval(torch, np, tmp: Path):
+    """Phase 16: the eval modes ``image`` (two seeds, the untrained tiny
+    CLIP) and ``text`` (two seeds of 700 training steps) through
+    ``avede_tpu_torch.eval.main`` on the card: the tiny towers' I420
+    patch embed on its simple kernel and flash at head dim 16 (L = 17)
+    must launch, ``cosine_window_topk`` too, the wgmma patch kernel and
+    every contract entry not at all; each metric is held to its bar
+    (``EVAL_BARS``)."""
+    from avede_tpu_torch import eval as port_eval
+    from avede_tpu_torch.ops import attention, kernels
+
+    needed = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
+              kernels.cosine_window_topk)
+    contracts = (kernels.fused_patch_embed, attention.flash_attention,
+                 kernels.cosine_scores)
+    reset_launches(needed + contracts)
+    out = {}
+    for mode, (section, bar) in EVAL_BARS.items():
+        t0 = time.perf_counter()
+        res = port_eval.main(["--mode", mode, "--device", "cuda", "--out",
+                              str(tmp / f"eval_{mode}.json")])[section]
+        wall = time.perf_counter() - t0
+        out[mode] = {k: v for k, v in res.items() if k != "per_seed"}
+        out[mode].update(per_seed=[r["precision_at_1"]
+                                   for r in res["per_seed"]],
+                         wall_s=wall, bar=bar)
+        if res["precision_at_1"] < bar:
+            fail(f"eval {mode}: p@1 {res['precision_at_1']} below its bar "
+                 f"{bar}: {out[mode]}")
+    launches = out["launches"] = read_launches(needed + contracts)
+    if launches[SIMT_PATCH] <= 0 or launches[FLASH_L17] <= 0 \
+            or launches["cosine_window_topk"] <= 0:
+        fail(f"eval: a kernel of the path never launched: {launches}")
+    if launches["fused_patch_embed_i420[wgmma]"] \
+            or any(launches[fn.__name__] for fn in contracts):
+        fail(f"eval: a kernel off the tiny path ran: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 def drive_index(torch, np, dtype: str):
     """Phase 7: a ``DeviceLibraryIndex`` at serving size, 1000 seeded
     videos of 1000 unit rows (each made when it is added), with the
@@ -3596,6 +3930,9 @@ def main() -> None:
         gc.collect()
         train = phase("train", drive_train, torch, np, engine, video,
                       Path(tmp))
+        convert = phase("convert", drive_convert, torch, np, video,
+                        Path(tmp))
+        evals = phase("eval", drive_eval, torch, np, Path(tmp))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3613,6 +3950,8 @@ def main() -> None:
              "reranked_blip2": blip2["launches"]["cold"],
              "person_search": person["launches"],
              "train_serve": train["train_serve"]["launches"],
+             "convert_serve": convert["launches"],
+             "eval": evals["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:

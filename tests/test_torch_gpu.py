@@ -380,6 +380,110 @@ def test_patch_embed_i420_kernel_matches_plain(cuda):
         packed, w2, b2, 32, torch.float32), rel=1e-4)
 
 
+
+@pytest.mark.parametrize("bsz,L,fused", [(64, 17, False), (16, 17, True),
+                                         (3, 1, False), (2, 65, True),
+                                         (5, 130, False)])
+def test_flash_blhd_kernel_at_head_dim_16(cuda, bsz, L, fused):
+    """The tiny 32 px towers (CLIP, BLIP, OWL-ViT: 4 heads of 16, L = 17,
+    one key tile with 47 masked rows): hd = 16, 32-byte rows in shared
+    memory; contiguous heads (row stride 64) or the thirds of a fused
+    qkv (row stride 192)."""
+    g = torch.Generator(device="cuda").manual_seed(16 + L)
+    if fused:
+        qkv = torch.randn(bsz, L, 3 * 64, device=cuda, generator=g
+                          ).to(torch.bfloat16)
+        q, k, v = (t.unflatten(-1, (4, 16)) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn(bsz, L, 64, device=cuda, generator=g
+                               ).to(torch.bfloat16).view(bsz, L, 4, 16)
+                   for _ in range(3))
+    before = tattn.flash_attention_blhd.launches_by_length[L]
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[L] == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+def test_tiny_clip_tower_on_card_matches_cpu(cuda):
+    """The tiny CLIP (32 px, patch 8, width 64, 4 heads of 16) served in
+    bf16 on the card: the I420 patch embed's simple kernel and flash at
+    hd = 16, against the CPU's f32 plain path on the same weights."""
+    from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.utils.platform import with_compute_dtype
+
+    frames = np.random.default_rng(3).integers(0, 256, (8, 40, 48, 3),
+                                               dtype=np.uint8)
+    card = ClipEngine(cfg=with_compute_dtype(tiny_test_config(), cuda),
+                      device=cuda, seed=0)
+    cpu = ClipEngine(cfg=tiny_test_config(), device="cpu", seed=0)
+    counts = (tk.fused_patch_embed_i420.launches_by_kernel["simt"],
+              tattn.flash_attention_blhd.launches_by_length[17])
+    got = card.embed_frames(frames)
+    assert tk.fused_patch_embed_i420.launches_by_kernel["simt"] \
+        == counts[0] + 1
+    assert tattn.flash_attention_blhd.launches_by_length[17] \
+        == counts[1] + tiny_test_config().vision_depth
+    ref = cpu.embed_frames(frames)
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                * np.linalg.norm(ref, axis=1))
+    assert cos.min() >= 0.999, cos
+
+
+@pytest.mark.parametrize("entry", ["i420", "uint8", "float32"])
+@pytest.mark.parametrize("n,s,p,d", [(64, 32, 8, 64), (3, 64, 16, 100),
+                                     (2, 28, 7, 70), (1, 224, 32, 64)])
+def test_patch_embed_any_shape_kernel_matches_plain(cuda, entry, n, s, p, d):
+    """Shapes the wgmma tile does not take (P != 32 or D % 96 != 0) run
+    the simple kernel on the same split bf16 operands: the tiny CLIP's
+    [N, 48, 32] I420 -> [N, 16, 64] at P = 8, an odd P, a ragged D."""
+    rng = np.random.default_rng(p * d)
+    kernel = torch.from_numpy(
+        rng.normal(0, 0.05, (p, p, 3, d)).astype(np.float32))
+    w2, b2 = (t.to(cuda) for t in tk.fold_for_uint8(kernel))
+    split = tk.split_patch_weights(w2, p)
+    before = (tk.fused_patch_embed_i420.launches_by_kernel["simt"],
+              tk.fused_patch_embed.launches_by_kernel["simt"])
+    if entry == "i420":
+        packed = torch.from_numpy(rng.integers(
+            0, 256, (n, s * 3 // 2, s), dtype=np.uint8)).to(cuda)
+        got = tk.fused_patch_embed_i420(packed, w2, b2, p, split)
+        torch.cuda.synchronize()
+        assert tk.fused_patch_embed_i420.launches_by_kernel["simt"] \
+            == before[0] + 1
+        _within_bf16_ulp(got, tk.fused_patch_embed_i420_plain(
+            packed, w2, b2, p, torch.float32), rel=1e-4)
+        return
+    x = torch.from_numpy(rng.integers(0, 256, (n, s, s, 3),
+                                      dtype=np.uint8)).to(cuda)
+    if entry == "float32":
+        x = x.float() + torch.rand(x.shape, device=cuda)
+    got = tk.fused_patch_embed(x, w2, b2, p, split)
+    torch.cuda.synchronize()
+    assert tk.fused_patch_embed.launches_by_kernel["simt"] == before[1] + 1
+    ref = tk.fused_patch_embed_plain(x, w2, b2, p)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item() + 1e-5, err
+
+
+def test_patch_embed_refuses_what_it_cannot_take(cuda):
+    """A P that does not divide S, or weights not split to bf16, raise on
+    the card; nothing runs the plain version there."""
+    w2 = torch.zeros(192, 64, device=cuda)
+    b2 = torch.zeros(64, device=cuda)
+    before = tk.fused_patch_embed_i420.launches
+    with pytest.raises(ValueError, match="bad shapes"):
+        tk.fused_patch_embed_i420(
+            torch.zeros(1, 54, 36, dtype=torch.uint8, device=cuda), w2, b2,
+            8)
+    with pytest.raises(ValueError, match="split weights"):
+        tk.fused_patch_embed_i420(
+            torch.zeros(1, 48, 32, dtype=torch.uint8, device=cuda), w2, b2,
+            8, split=(w2.T.contiguous(), w2.T.contiguous()))
+    assert tk.fused_patch_embed_i420.launches == before
+
 @pytest.mark.parametrize("nq", [1, 4])
 def test_cosine_kernel_matches_plain(cuda, nq):
     g = torch.Generator(device="cuda").manual_seed(nq)

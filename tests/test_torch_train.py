@@ -617,7 +617,7 @@ def test_eval_main_writes_its_own_file(tmp_path, monkeypatch):
     assert saved["meta"]["device"] == "cpu" and saved["meta"]["seed"] == 0
     assert saved["temporal_grounding"] == out["temporal_grounding"]
     with pytest.raises(SystemExit):
-        teval.main(["--mode", "caption", "--device", "cpu"])
+        teval.main(["--mode", "detection", "--device", "cpu"])
 
 
 def _tiny_models():
