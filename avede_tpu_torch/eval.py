@@ -21,21 +21,31 @@ seeds, data and output keys:
 - ``background`` — the trained CLIP behind
   ``BackgroundIndependentService``: an object on one background matched
   to its reference on another (success rate, beside a raw-crop CLIP
-  baseline).
+  baseline);
+- ``detection`` — a tiny YOLO and two seeds of a tiny OWL-ViT trained on
+  synthetic shapes (``parallel/train_det.py``, ``train_owl.py``): frame
+  P/R of ``YoloService``, open-vocabulary P/R of ``UniversalDetector``'s
+  ``owlvit`` and ``hybrid`` modes, video P/R through
+  ``SmallObjectService``;
+- ``detection4k`` — tiny YOLOs trained on 256 px tiles, then 3840 × 2160
+  frames tiled through ``SmallObjectService.detect_in_frame`` (mAP@0.5);
+- ``person`` — the re-id encoder, a face-region YOLO, a face embedder and
+  a person YOLO trained on synthetic people, then ``PersonSearchService``
+  over a crowd video with learned fusion weights and four ablations.
 
-    python -m avede_tpu_torch.eval --mode {image,grounding,text,library,
-        caption,background} [--seed 0] [--out results.json]
-        [--device cpu]
+    python -m avede_tpu_torch.eval --mode {image,grounding,text,detection,
+        detection4k,person,caption,library,background,all} [--seed 0]
+        [--out results.json] [--device cpu]
 
 Training runs in f32 through plain PyTorch (as the JAX package trains
 through XLA); the trained weights are served in the device's compute
 dtype, through the kernels on a card (the tiny towers' patch embed at
-P = 8 and flash attention at head dim 16). It runs on ``cuda`` unless
-``--device`` says otherwise, and raises without a card. ``--out`` writes
-the results with the device's name (and on a card its power limit) under
-``meta``; the JAX package's ``EVAL.json`` is never written. The modes
-``detection``, ``detection4k`` and ``person`` wait for ROADMAP.md's item
-8b (their detector trainers).
+P = 8, flash attention at head dim 16 and, in the ``detection`` mode's
+OWL-ViT, at head dim 24). It runs on ``cuda`` unless ``--device`` says
+otherwise, and raises without a card. ``--out`` writes the results with
+the device's name (and on a card its power limit) and each mode's kernel
+launches under ``meta``; the JAX package's ``EVAL.json`` is never
+written.
 """
 
 from __future__ import annotations
@@ -56,14 +66,17 @@ import torch
 
 from .utils.platform import resolve_device
 
-MODES = ("image", "grounding", "text", "library", "caption",
-         "background")
-LATER_MODES = ("detection", "detection4k", "person")
+# every mode of the JAX package's eval.py, in the order ``all`` runs them
+MODES = ("image", "grounding", "text", "detection", "detection4k", "person",
+         "caption", "library", "background")
 # each mode's section of the output, as the JAX package names it
 SECTIONS = {"image": "image_retrieval", "grounding": "temporal_grounding",
             "text": "text_retrieval_trained",
-            "library": "library_search_trained",
+            "detection": "detection_trained",
+            "detection4k": "detection_4k_tiled",
+            "person": "person_reid_trained",
             "caption": "caption_trained",
+            "library": "library_search_trained",
             "background": "background_independence"}
 
 
@@ -80,17 +93,19 @@ def _spread_into(out: dict, prefix: str, vals) -> None:
 # image retrieval (``eval.py:51-131``)
 # ---------------------------------------------------------------------------
 
-def tiny_clip_engine(device, state_dict: Optional[Dict] = None):
-    """A ``ClipEngine`` on the tiny CLIP (32 px, patch 8, width 64) in the
-    device's compute dtype: ``state_dict``'s weights, else random from
-    seed 0."""
+def tiny_clip_engine(device, state_dict: Optional[Dict] = None,
+                     dtype: Optional[str] = None):
+    """A ``ClipEngine`` on the tiny CLIP (32 px, patch 8, width 64) in
+    ``dtype`` (by default the device's compute dtype): ``state_dict``'s
+    weights, else random from seed 0."""
     from .models.clip import tiny_test_config
     from .parallel.embed import ClipEngine
-    from .utils.platform import with_compute_dtype
+    from .utils.platform import compute_dtype
 
     dev = resolve_device(device)
-    return ClipEngine(cfg=with_compute_dtype(tiny_test_config(), dev),
-                      state_dict=state_dict, device=dev, seed=0)
+    cfg = dataclasses.replace(tiny_test_config(),
+                              dtype=dtype or compute_dtype(dev))
+    return ClipEngine(cfg=cfg, state_dict=state_dict, device=dev, seed=0)
 
 
 def _write_video(path: str, frames, fps: float, size) -> None:
@@ -621,6 +636,727 @@ def eval_background(seed: int = 0, steps: int = 400, n_trials: int = 96,
 
 
 # ---------------------------------------------------------------------------
+# detection (``eval.py:606-1035``): tiny YOLO and tiny OWL-ViT trained on
+# synthetic shapes, scored through the serving paths
+# ---------------------------------------------------------------------------
+
+# the detector trainers' batch (``eval.py:612-721``)
+DET_BATCH = 16
+
+
+def _train_tiny_yolo(steps: int, seed: int, scene_fn, num_classes: int = 4,
+                     img_size: int = 64, device=None):
+    """``eval.py:612``: a YOLOv8n (``img_size`` px, ``num_classes``)
+    from ``seed`` trained in f32 on a fresh batch of ``scene_fn(rng)``
+    scenes a step with clip 5.0 + Adam under a cosine decay from 3e-3 to
+    1.5e-4 → (config, trained state dict, last loss)."""
+    from .models.yolo import YoloConfig
+    from .parallel.optim import cosine_decay_schedule
+    from .parallel.train_det import (create_yolo_train_state,
+                                     make_yolo_train_step)
+
+    dev = resolve_device(device)
+    cfg = YoloConfig(num_classes=num_classes, scale="n", img_size=img_size)
+    model, state = create_yolo_train_state(
+        cfg, cosine_decay_schedule(3e-3, steps, alpha=0.05), seed=seed,
+        device=dev)
+    step = make_yolo_train_step(model)
+    rng = np.random.default_rng(seed)
+    metrics = None
+    for _ in range(steps):
+        data = [scene_fn(rng) for _ in range(DET_BATCH)]
+        state, metrics = step(state, *(
+            torch.from_numpy(np.stack([d[i] for d in data])).to(dev)
+            for i in range(4)))
+    loss = float(metrics["loss"]) if metrics else None
+    return cfg, {k: v.detach() for k, v in model.state_dict().items()}, loss
+
+
+def _iou_xyxy(a, g) -> float:
+    ix0, iy0 = max(a[0], g[0]), max(a[1], g[1])
+    ix1, iy1 = min(a[2], g[2]), min(a[3], g[3])
+    inter = max(0.0, ix1 - ix0) * max(0.0, iy1 - iy0)
+    union = ((a[2] - a[0]) * (a[3] - a[1])
+             + (g[2] - g[0]) * (g[3] - g[1]) - inter)
+    return inter / union if union > 0 else 0.0
+
+
+def _match_detections(dets, gtb, gtl, iou_thr: float = 0.5):
+    """Greedy match → (tp, fp, fn), classes agreeing where a detection
+    has a ``class_id``."""
+    matched = set()
+    tp = fp = 0
+    for d in dets:
+        best_iou, best_j = 0.0, -1
+        for j, g in enumerate(gtb):
+            iou = _iou_xyxy(d["bbox"], g)
+            if iou > best_iou:
+                best_iou, best_j = iou, j
+        cid = d.get("class_id")
+        cls_ok = cid is None or (best_j >= 0 and cid == gtl[best_j])
+        if best_iou >= iou_thr and best_j not in matched and cls_ok:
+            tp += 1
+            matched.add(best_j)
+        else:
+            fp += 1
+    return tp, fp, len(gtb) - len(matched)
+
+
+# the ``detection`` mode's OWL-ViT (``eval.py:695-698``): 64 px in 8 px
+# patches, 4 vision layers of 4 heads of 24 (flash at L = 65, hd = 24 on
+# a card), a 2-layer text tower over 8 tokens of a 256-id vocabulary
+DETECTION_OWL = dict(image_size=64, patch_size=8, vision_dim=96,
+                     vision_depth=4, vision_heads=4, text_dim=64,
+                     text_depth=2, text_heads=4, vocab_size=256,
+                     max_text_len=8, projection_dim=64)
+
+
+def _train_tiny_owl(steps: int, seed: int, scene_fn, device=None):
+    """``eval.py:675``: the ``detection`` mode's OWL-ViT from ``seed``
+    trained in f32 with plain attention on ``scene_fn(rng)``'s shapes
+    with names (the query ids are the class names' tokens, so serving
+    routes them through the text tower), clip 5.0 + Adam under warmup →
+    cosine (peak 2e-3, warmup 100) → (config, trained state dict, last
+    loss)."""
+    from .models.owlvit import OwlViTConfig
+    from .models.tokenizer import Tokenizer
+    from .parallel.optim import warmup_cosine_decay_schedule
+    from .parallel.train_owl import (create_owl_train_state,
+                                     make_owl_train_step)
+    from .utils.synthetic import SHAPE_CLASSES
+
+    dev = resolve_device(device)
+    cfg = OwlViTConfig(**DETECTION_OWL)
+    tok = Tokenizer(vocab_size=cfg.vocab_size, context_len=cfg.max_text_len)
+    model, state = create_owl_train_state(
+        cfg, learning_rate=warmup_cosine_decay_schedule(
+            0.0, 2e-3, warmup_steps=100, decay_steps=max(steps, 101)),
+        seed=seed, device=dev)
+    step = make_owl_train_step(model, tok(SHAPE_CLASSES))
+    rng = np.random.default_rng(seed)
+    metrics = None
+    for _ in range(steps):
+        data = [scene_fn(rng) for _ in range(DET_BATCH)]
+        h, w = data[0][0].shape[:2]
+        boxes = np.stack([d[1] for d in data]) \
+            / np.asarray([w, h, w, h], np.float32)
+        state, metrics = step(state, *(torch.from_numpy(a).to(dev) for a in (
+            np.stack([d[0] for d in data]), boxes,
+            np.stack([d[2] for d in data]), np.stack([d[3] for d in data]))))
+    loss = float(metrics["loss"]) if metrics else None
+    return cfg, {k: v.detach() for k, v in model.state_dict().items()}, loss
+
+
+def _shape_scene128(rng):
+    """The ``detection`` mode's scene: 128 px, up to 5 non-overlapping
+    shapes of radius 10-22."""
+    from .utils.synthetic import draw_shape_scene
+
+    return draw_shape_scene(rng, hw=(128, 128), max_boxes=5, min_r=10,
+                            max_r=22, non_overlapping=True)
+
+
+def _yolo_scene64(rng):
+    """A 128 px scene downscaled 2× (cv2 ``INTER_AREA``): what
+    ``YoloService``'s resize shows the 64 px YOLO at serving."""
+    import cv2
+
+    img, gb, gl, gm = _shape_scene128(rng)
+    return (cv2.resize(img, (64, 64), interpolation=cv2.INTER_AREA),
+            gb / 2.0, gl, gm)
+
+
+def _with_query_ids(dets) -> List[Dict]:
+    """Detections labelled by query name → ``_match_detections``'s
+    ``class_id`` (-1 for a name that is not a shape class)."""
+    from .utils.synthetic import SHAPE_CLASSES
+
+    return [{"bbox": d["bbox"],
+             "class_id": SHAPE_CLASSES.index(d["query"])
+             if d.get("query") in SHAPE_CLASSES else -1} for d in dets]
+
+
+def eval_detection(seed: int = 0, steps: int = 700, owl_steps: int = 2000,
+                   device=None) -> dict:
+    """``eval.py:724``: a tiny YOLO (``steps``) and, for seeds ``seed``
+    and ``seed + 1``, the tiny OWL-ViT (``owl_steps``) trained on 128 px
+    scenes of up to 5 non-overlapping shapes; frame-level P/R of
+    ``YoloService.detect`` (conf 0.4) on 32 held-out scenes; open-vocab
+    P/R of ``UniversalDetector``'s ``owlvit`` and ``hybrid`` modes at the
+    confidence chosen by F1 on a validation split (12 scenes a
+    threshold), reported on a test split (24 scenes), as the across-seed
+    mean with min and std; video-level P/R through
+    ``SmallObjectService`` (``yolo_enhanced``, tile = frame) on a
+    24-frame ``mp4v`` video. The trained weights are served in the
+    device's compute dtype (on a card: the tiny CLIP's kernels and flash
+    at L = 65, hd = 24 in each OWL-ViT layer)."""
+    from .services.detector import YoloService
+    from .services.small_object import SmallObjectService
+    from .services.universal_detector import UniversalDetector
+    from .utils.platform import with_compute_dtype
+    from .utils.synthetic import SHAPE_CLASSES
+
+    dev = resolve_device(device)
+    cfg, yolo_sd, final_loss = _train_tiny_yolo(
+        steps, seed, scene_fn=_yolo_scene64, device=dev)
+    svc = YoloService(cfg=with_compute_dtype(cfg, dev), state_dict=yolo_sd,
+                      class_names=SHAPE_CLASSES, device=dev)
+
+    # frame-level precision / recall on held-out 128 px scenes
+    rng = np.random.default_rng(seed + 99)
+    tp = fp = fn = 0
+    for _ in range(32):
+        img, gb, gl, gm = _shape_scene128(rng)
+        dets = svc.detect(img[None], conf_threshold=0.4)[0]
+        a, b, c = _match_detections(dets, gb[gm], gl[gm])
+        tp, fp, fn = tp + a, fp + b, fn + c
+    frame_p = tp / max(tp + fp, 1)
+    frame_r = tp / max(tp + fn, 1)
+
+    # open vocabulary: each seed's trained OWL-ViT through the detector
+    engine = tiny_clip_engine(dev)
+    owl_runs, owl_loss, ud = [], None, None
+    for s in (seed, seed + 1):
+        ocfg, owl_sd, loss_s = _train_tiny_owl(owl_steps, s,
+                                               scene_fn=_shape_scene128,
+                                               device=dev)
+        ud_s = UniversalDetector(engine,
+                                 owlvit_cfg=with_compute_dtype(ocfg, dev),
+                                 owlvit_state_dict=owl_sd, yolo=svc)
+        if ud is None:          # the video path below uses the first run
+            ud, owl_loss = ud_s, loss_s
+
+        def mode_pr_at(mode: str, conf: float, rng_m, n: int):
+            tp = fp = fn = 0
+            for _ in range(n):
+                img, gb, gl, gm = _shape_scene128(rng_m)
+                dets = ud_s.detect_unlimited_objects(
+                    img[None], SHAPE_CLASSES, detection_mode=mode,
+                    conf_threshold=conf, adaptive=False)[0]
+                a, b, c = _match_detections(_with_query_ids(dets), gb[gm],
+                                            gl[gm])
+                tp, fp, fn = tp + a, fp + b, fn + c
+            return tp / max(tp + fp, 1), tp / max(tp + fn, 1)
+
+        run = {"seed": s, "final_loss": loss_s}
+        for mode in ("owlvit", "hybrid"):
+            # the operating threshold is chosen on a validation split
+            # (F1) and reported on a held-out test split
+            best_conf, best_f1 = 0.5, -1.0
+            for conf in (0.35, 0.4, 0.45, 0.5, 0.55, 0.6, 0.65, 0.7, 0.75,
+                         0.8):
+                p, r = mode_pr_at(mode, conf,
+                                  np.random.default_rng(s + 501), 12)
+                f1 = 2 * p * r / max(p + r, 1e-9)
+                if f1 > best_f1:
+                    best_conf, best_f1 = conf, f1
+            p, r = mode_pr_at(mode, best_conf, np.random.default_rng(s + 7),
+                              24)
+            run[f"{mode}_precision"] = p
+            run[f"{mode}_recall"] = r
+            run[f"{mode}_conf"] = best_conf
+        owl_runs.append(run)
+
+    mode_pr = {"owl_per_seed": owl_runs, "owl_n_seeds": len(owl_runs)}
+    for mode in ("owlvit", "hybrid"):
+        for metric in ("precision", "recall"):
+            _spread_into(mode_pr, f"{mode}_{metric}",
+                         [r[f"{mode}_{metric}"] for r in owl_runs])
+        mode_pr[f"{mode}_conf"] = [r[f"{mode}_conf"] for r in owl_runs]
+
+    # video level through the small-object service; tile = frame (64 px
+    # tiles would cut 44 px objects; tiling is the 4K mode's)
+    so = SmallObjectService(engine, detector=ud, tile=128, overlap=0)
+    gt_frames, frames = [], []
+    for _ in range(24):
+        img, gb, gl, gm = _shape_scene128(rng)
+        gt_frames.append((gb[gm], gl[gm]))
+        frames.append(img)
+    with tempfile.TemporaryDirectory(prefix="avede_det_") as tmp:
+        video = os.path.join(tmp, "shapes.mp4")
+        _write_video(video, frames, 4.0, (128, 128))
+        out = so.detect_in_video(
+            video, SHAPE_CLASSES, min_object_size=10, max_object_size=64,
+            confidence_threshold=0.4, top_k=120, sample_rate=1,
+            enable_background_independence=False,
+            detection_mode="yolo_enhanced")
+    vid_tp = vid_fp = 0
+    matched_gt = set()   # (frame, gt index) pairs found
+    total_gt = sum(len(gl) for _, gl in gt_frames)
+    for d in out["results"]:
+        gb, gl = gt_frames[d["frame_index"]]
+        labelled = _with_query_ids([d])
+        a, b, _ = _match_detections(labelled, gb, gl)
+        if a:
+            # recall bookkeeping: the first unmatched gt row it hits
+            for j in range(len(gl)):
+                if (d["frame_index"], j) not in matched_gt \
+                        and _iou_xyxy(d["bbox"], gb[j]) >= 0.5 \
+                        and labelled[0]["class_id"] == gl[j]:
+                    matched_gt.add((d["frame_index"], j))
+                    break
+        vid_tp += a
+        vid_fp += b
+    return {"frame_precision": frame_p, "frame_recall": frame_r,
+            **mode_pr,
+            "video_path_hits": vid_tp, "video_path_false": vid_fp,
+            "video_path_precision": vid_tp / max(vid_tp + vid_fp, 1),
+            "video_path_recall": len(matched_gt) / max(total_gt, 1),
+            "scene": "128px, ≤5 non-overlapping objects",
+            "train_steps": steps, "owl_train_steps": owl_steps,
+            "final_train_loss": final_loss,
+            "owl_final_loss": owl_loss}
+
+
+def _average_precision(all_dets, all_gts, iou_thr: float = 0.5) -> float:
+    """COCO-style mAP@iou (``eval.py:898``): per class, 101-point
+    interpolated precision over score-ranked detections, averaged over
+    the classes in the ground truth. all_dets: per image
+    ``[{bbox, confidence, class_id}]``; all_gts: per image (boxes
+    ``[M, 4]``, labels ``[M]``)."""
+    classes = sorted({int(c) for _, gl in all_gts for c in gl})
+    aps = []
+    for c in classes:
+        recs = []
+        npos = 0
+        for i, (dets, (gb, gl)) in enumerate(zip(all_dets, all_gts)):
+            npos += int((np.asarray(gl) == c).sum())
+            recs.extend((d["confidence"], i, d["bbox"]) for d in dets
+                        if d.get("class_id") == c)
+        if npos == 0:
+            continue
+        recs.sort(key=lambda r: -r[0])
+        matched = set()
+        tp = np.zeros(len(recs))
+        for k, (_, i, bbox) in enumerate(recs):
+            gb, gl = all_gts[i]
+            best_iou, best_j = 0.0, -1
+            for j in range(len(gl)):
+                if int(gl[j]) != c:
+                    continue
+                iou = _iou_xyxy(bbox, gb[j])
+                if iou > best_iou:
+                    best_iou, best_j = iou, j
+            if best_iou >= iou_thr and (i, best_j) not in matched:
+                tp[k] = 1
+                matched.add((i, best_j))
+        ctp = np.cumsum(tp)
+        rec = ctp / npos
+        prec = ctp / np.arange(1, len(recs) + 1)
+        ap = 0.0
+        for t in np.linspace(0, 1, 101):
+            mask = rec >= t
+            ap += (prec[mask].max() if mask.any() else 0.0) / 101
+        aps.append(ap)
+    return float(np.mean(aps)) if aps else 0.0
+
+
+# the tiled 4K geometry (``eval.py:944-949``): 256 px tiles overlapping
+# by 64, 220 a 3840 × 2160 frame
+TILE4K, OVERLAP4K = 256, 64
+
+
+def eval_detection_4k(seed: int = 0, steps: int = 1000, n_frames: int = 16,
+                      n_seeds: int = 2, device=None) -> dict:
+    """``eval.py:952``: per seed a tiny YOLO trained on 256 px tiles (up
+    to 3 shapes of radius 12-48, downscaled to 64 px), then ``n_frames``
+    3840 × 2160 frames of up to 24 shapes through
+    ``SmallObjectService.detect_in_frame`` (``yolo_enhanced``, the tiles
+    above, conf 0.35, adaptive thresholds on) → COCO mAP@0.5, the
+    across-seed mean with min and std."""
+    import cv2
+
+    from .models.owlvit import tiny_owlvit_config
+    from .ops.tiling import tile_grid
+    from .services.detector import YoloService
+    from .services.small_object import SmallObjectService
+    from .services.universal_detector import UniversalDetector
+    from .utils.platform import with_compute_dtype
+    from .utils.synthetic import SHAPE_CLASSES, draw_shape_scene
+
+    dev = resolve_device(device)
+
+    def tile_scene(r):
+        # train on tiles downscaled to YOLO's 64 px: the geometry each
+        # serving tile goes through
+        img, gb, gl, gm = draw_shape_scene(
+            r, hw=(TILE4K, TILE4K), max_boxes=3, min_r=12, max_r=48,
+            non_overlapping=True)
+        img64 = cv2.resize(img, (64, 64), interpolation=cv2.INTER_AREA)
+        return img64, gb / 4.0, gl, gm
+
+    per_seed = []
+    for s_i in range(n_seeds):
+        cfg, yolo_sd, final_loss = _train_tiny_yolo(
+            steps, seed + s_i, scene_fn=tile_scene, device=dev)
+        svc = YoloService(cfg=with_compute_dtype(cfg, dev),
+                          state_dict=yolo_sd, class_names=SHAPE_CLASSES,
+                          device=dev)
+        engine = tiny_clip_engine(dev)
+        # the tiny OWL-ViT: yolo_enhanced never runs it
+        ud = UniversalDetector(engine, yolo=svc, owlvit_cfg=with_compute_dtype(
+            tiny_owlvit_config(), dev))
+        so = SmallObjectService(engine, detector=ud, tile=TILE4K,
+                                overlap=OVERLAP4K)
+        rng = np.random.default_rng(seed + s_i + 41)
+        all_dets, all_gts = [], []
+        for _ in range(n_frames):
+            frame, gb, gl, gm = draw_shape_scene(
+                rng, hw=(2160, 3840), max_boxes=24, min_r=12, max_r=48,
+                non_overlapping=True)
+            dets = so.detect_in_frame(
+                frame, SHAPE_CLASSES, conf_threshold=0.35, enable_rpn=False,
+                enable_adaptive_thresholds=True,
+                detection_mode="yolo_enhanced")
+            all_dets.append([dict(c, confidence=d["confidence"])
+                             for d, c in zip(dets, _with_query_ids(dets))])
+            all_gts.append((gb[gm], gl[gm]))
+        per_seed.append({
+            "map50": _average_precision(all_dets, all_gts, iou_thr=0.5),
+            "objects_total": sum(len(gl) for _, gl in all_gts),
+            "detections_total": sum(len(d) for d in all_dets),
+            "final_train_loss": final_loss})
+
+    ret: dict = {}
+    _spread_into(ret, "map50", [p["map50"] for p in per_seed])
+    return {**ret,
+            "per_seed": per_seed, "n_seeds": n_seeds,
+            "frames_per_seed": n_frames, "resolution": "3840x2160",
+            "tiles_per_frame": len(tile_grid(2160, 3840, TILE4K, OVERLAP4K)),
+            "tile_size": TILE4K, "tile_overlap": OVERLAP4K,
+            "geometry_shared_with_bench": True,
+            "objects_total": sum(p["objects_total"] for p in per_seed),
+            "object_size_px": "24-96",
+            "train_steps": steps}
+
+
+# ---------------------------------------------------------------------------
+# person re-identification (``eval.py:1042-1367``)
+# ---------------------------------------------------------------------------
+
+def _train_appearance(cfg, seed: int, steps: int, batch_fn, device):
+    """``eval.py:1065-1086`` and ``:1133-1148``: an appearance encoder
+    from ``seed`` trained contrastively (adamw 1e-3, clip 1.0) for
+    ``steps`` steps on ``batch_fn(easy)``'s two views (the first eighth
+    of the steps easy: no codec round trip, no box jitter) → (trained
+    state dict, last loss)."""
+    from .parallel.train_reid import (create_reid_train_state,
+                                      make_reid_train_step)
+
+    model, state = create_reid_train_state(cfg, learning_rate=1e-3,
+                                           seed=seed, device=device)
+    step = make_reid_train_step(model)
+    metrics = None
+    for i in range(steps):
+        a, b = batch_fn(i < steps // 8)
+        state, metrics = step(state, torch.from_numpy(a).to(device),
+                              torch.from_numpy(b).to(device))
+    loss = float(metrics["loss"]) if metrics else None
+    return {k: v.detach() for k, v in model.state_dict().items()}, loss
+
+
+def _margin(embs) -> Tuple[float, float]:
+    """Per identity a block of unit embeddings → (mean cosine within an
+    identity, mean cosine across identities)."""
+    same, other = [], []
+    for i, e in enumerate(embs):
+        s = e @ e.T
+        same.extend(s[np.triu_indices(len(e), 1)])
+        for j in range(i + 1, len(embs)):
+            other.extend((e @ embs[j].T).reshape(-1))
+    return float(np.mean(same)), float(np.mean(other))
+
+
+def eval_person(seed: int = 0, reid_steps: int = 800, det_steps: int = 700,
+                device=None,
+                serve: Optional[Sequence[Tuple[str, str]]] = None) -> dict:
+    """``eval.py:1042``: four trainers, then the real person search.
+    (1) the re-id encoder on head crops of 48 synthetic identities
+    (``reid_steps``), its identity margin on 8 held-out identities;
+    (1b) a 1-class face-region YOLO on person crops (400 steps; mean IoU
+    of its top box on 32 held-out crops) and the face embedder on face
+    crops (600 steps; face margin); (2) a 1-class 128 px person YOLO on
+    crowd scenes of 1-4 people (``det_steps``); (3) ``PersonSearchService``
+    over a 48-frame crowd video (the target in alternate 6-frame blocks
+    among 3 distractors): fusion weights fitted on a validation video,
+    then the learned fusion and four ablations → rank metrics at k = the
+    target's frame count.
+
+    The models train on ``device``. ``serve`` lists the (device, dtype)
+    pairs that serve them, each on the same drawn data (the YOLOs and
+    the CLIP in that dtype, the encoders in their configs' f32); by
+    default ``device`` alone, in its compute dtype. The metrics are the
+    first pair's; with more than one, ``served_on`` holds each pair's,
+    so that weights trained on one device are scored on another. Each
+    serving pass first seeds cv2's process-wide RNG with ``seed``: the
+    body cue's GrabCut draws from it, so without the seed a pass's
+    metrics hang on every GrabCut run before it in the process (JAX's
+    eval leaves it unseeded)."""
+    from .models.appearance import AppearanceConfig, tiny_appearance_config
+    from .utils.platform import compute_dtype
+    from .utils.synthetic import (crop_bbox, draw_people, draw_person,
+                                  face_batch, face_detector_scene,
+                                  head_crop, identity_batch, make_identity,
+                                  with_outfit)
+
+    dev = resolve_device(device)
+    targets = ([(resolve_device(d), t) for d, t in serve] if serve
+               else [(dev, compute_dtype(dev))])
+    rng = np.random.default_rng(seed)
+
+    # 1) the identity encoder, contrastive on 48 synthetic identities
+    acfg = tiny_appearance_config()
+    identities = [make_identity(rng) for _ in range(48)]
+    reid_sd, reid_loss = _train_appearance(
+        acfg, seed, reid_steps, lambda easy: identity_batch(
+            identities, rng, crop_size=acfg.input_size,
+            codec_aug=not easy, box_jitter=0.0 if easy else 0.08), dev)
+
+    # held-out identities, 4 head crops each (the identity margin)
+    held = [make_identity(rng) for _ in range(8)]
+    head_crops = [[head_crop(*draw_person(ident, rng)) for _ in range(4)]
+                  for ident in held]
+
+    # 1b) the face path: a face-region detector on person crops and a
+    # face embedding on face crops
+    face_det_steps = 400
+    fd_cfg, fd_sd, fd_loss = _train_tiny_yolo(
+        face_det_steps, seed + 11, scene_fn=face_detector_scene,
+        num_classes=1, img_size=64, device=dev)
+    fd_rng = np.random.default_rng(seed + 12)
+    fd_scenes = [face_detector_scene(fd_rng) for _ in range(32)]
+
+    face_embed_steps = 600
+    fcfg = AppearanceConfig(input_size=32, widths=(16, 32, 32, 64),
+                            embed_dim=64)
+    face_sd, face_loss = _train_appearance(
+        fcfg, seed + 13, face_embed_steps, lambda easy: face_batch(
+            identities, rng, crop_size=fcfg.input_size, codec_aug=not easy,
+            box_jitter=0.0 if easy else 0.10), dev)
+    face_crops = []
+    for ident in held:
+        crops = []
+        for _ in range(4):
+            parts: Dict = {}
+            frame, _ = draw_person(ident, rng, parts=parts)
+            crops.append(crop_bbox(frame, parts["face"]))
+        face_crops.append(crops)
+
+    # 2) a 1-class person detector on crowd scenes, at its native 128 px
+    def person_scene(r):
+        n = int(r.integers(1, 5))
+        idents = [make_identity(r) for _ in range(n)]
+        frame, bbs = draw_people(idents, r, frame_hw=(128, 128))
+        boxes = np.zeros((4, 4), np.float32)
+        mask = np.zeros((4,), bool)
+        for i, bb in enumerate(bbs):
+            boxes[i] = np.asarray(bb)
+            mask[i] = True
+        return frame, boxes, np.zeros((4,), np.int32), mask
+
+    ycfg, ysd, det_loss = _train_tiny_yolo(
+        det_steps, seed, scene_fn=person_scene, num_classes=1, img_size=128,
+        device=dev)
+
+    # 3) the crowd videos of the person search; each person keeps an
+    # outfit within a video
+    target = with_outfit(held[0], rng)
+    distractors = [with_outfit(d, rng) for d in held[1:8]]
+
+    def build_crowd_video(tmp, tgt, pool_ids, tag):
+        """8 blocks × 6 frames, the target in the even blocks among 3
+        distractors → (path, the target's frames, its box a frame, a
+        reference person crop)."""
+        frames, gt_frames, gt_boxes = [], [], {}
+        for block in range(8):
+            with_target = block % 2 == 0
+            pool = [d for j, d in enumerate(pool_ids)
+                    if j % 4 != block % 4]
+            for _ in range(6):
+                idents = ([tgt] if with_target else []) \
+                    + pool[: 4 - int(with_target)]
+                frame, bbs = draw_people(idents, rng, frame_hw=(128, 128))
+                if with_target:
+                    gt_frames.append(len(frames))
+                    gt_boxes[len(frames)] = bbs[0]
+                frames.append(frame)
+        path = os.path.join(tmp, f"people_{tag}.mp4")
+        _write_video(path, frames, 4.0, (128, 128))
+        rf, rb = draw_person(tgt, rng, frame_hw=(128, 128), person_h=80)
+        x0, y0, x1, y1 = (int(v) for v in rb)
+        ref = rf[max(0, y0 - 6):y1 + 6, max(0, x0 - 6):x1 + 6]
+        return path, gt_frames, gt_boxes, ref
+
+    trained = types.SimpleNamespace(
+        seed=seed, acfg=acfg, reid_sd=reid_sd, head_crops=head_crops, fd_cfg=fd_cfg,
+        fd_sd=fd_sd, fd_scenes=fd_scenes, fcfg=fcfg, face_sd=face_sd,
+        face_crops=face_crops, ycfg=ycfg, ysd=ysd)
+    with tempfile.TemporaryDirectory(prefix="avede_person_") as tmp:
+        video, gt_target, _, ref_frame = build_crowd_video(
+            tmp, target, distractors, "test")
+        # the validation video of the fusion weights, with fresh
+        # identities
+        val_ids = [with_outfit(make_identity(rng), rng) for _ in range(8)]
+        val = build_crowd_video(tmp, val_ids[0], val_ids[1:], "val")
+        scores = [_person_served(trained, sdev, sdtype,
+                                 (video, gt_target, ref_frame), val)
+                  for sdev, sdtype in targets]
+    out = {**scores[0],
+           "scene": "128px crowd, 4 people/frame",
+           "reid_final_loss": reid_loss,
+           "face_embed_final_loss": face_loss,
+           "face_detector_final_loss": fd_loss,
+           "detector_final_loss": det_loss,
+           "reid_steps": reid_steps, "det_steps": det_steps,
+           "face_embed_steps": face_embed_steps,
+           "face_det_steps": face_det_steps}
+    if len(targets) > 1:
+        out["served_on"] = [{"device": str(sdev), "dtype": sdtype, **s}
+                            for (sdev, sdtype), s in zip(targets, scores)]
+    return out
+
+
+def _person_served(trained, dev: torch.device, dtype: str, test, val
+                   ) -> dict:
+    """``eval_person``'s trained models served on ``dev`` (the YOLOs and
+    the CLIP in ``dtype``) over its drawn data → its metrics: the
+    identity and face margins, the face detector's IoU, and the crowd
+    search's rank metrics on ``test`` (video, the target's frames,
+    reference crop) under the fusion weights fitted on ``val`` (video,
+    the target's frames, its box a frame, reference crop), with the four
+    ablations."""
+    import cv2
+
+    from .models.appearance import AppearanceEmbedder
+    from .services.detector import YoloService
+    from .services.person_detector import (PersonDetector,
+                                           PersonSearchService, _cos,
+                                           fit_fusion_weights)
+
+    t = trained
+    cv2.setRNGSeed(t.seed)
+    embedder = AppearanceEmbedder(t.acfg, state_dict=t.reid_sd, device=dev)
+    same_mean, other_mean = _margin([embedder.embed(c)
+                                     for c in t.head_crops])
+
+    face_yolo = YoloService(cfg=dataclasses.replace(t.fd_cfg, dtype=dtype),
+                            state_dict=t.fd_sd, class_names=["face"],
+                            device=dev)
+    fd_ious = []
+    for img, gtb, _, gtm in t.fd_scenes:
+        dets = face_yolo.detect(img[None], conf_threshold=0.15)[0]
+        if not dets or not gtm[0]:
+            fd_ious.append(0.0)
+            continue
+        best = max(dets, key=lambda d: d["confidence"])
+        fd_ious.append(_iou_xyxy(best["bbox"], gtb[0]))
+
+    face_embedder = AppearanceEmbedder(t.fcfg, state_dict=t.face_sd,
+                                       device=dev)
+    fsame, fother = _margin([face_embedder.embed(c) for c in t.face_crops])
+
+    yolo = YoloService(cfg=dataclasses.replace(t.ycfg, dtype=dtype),
+                       state_dict=t.ysd, class_names=["person"], device=dev)
+    engine = tiny_clip_engine(dev, dtype=dtype)
+
+    def run_search(video, gt_target, ref_frame, detector) -> dict:
+        """One feature configuration's crowd search → rank metrics; a
+        frame's score is its best match (how the product surfaces
+        hits)."""
+        search = PersonSearchService(engine, detector=detector)
+        out = search.process_video_for_person(
+            video, ref_frame, similarity_threshold=0.0, frame_skip=1,
+            temporal_consistency=False)
+        ms = sorted(out["matches"], key=lambda m: -m["similarity"])
+        k = len(gt_target)
+        topk = ms[:k]
+        correct = sum(1 for m in topk if m["frame_index"] in gt_target)
+        frame_best: dict = {}
+        for m in out["matches"]:
+            frame_best[m["frame_index"]] = max(
+                frame_best.get(m["frame_index"], 0.0), m["similarity"])
+        ranked = sorted(frame_best, key=lambda f: -frame_best[f])[:k]
+        return {
+            "precision_at_k": correct / max(len(topk), 1),
+            "frame_precision_at_k": len(set(ranked) & set(gt_target))
+            / max(len(ranked), 1),
+            "recall_at_k": len({m["frame_index"] for m in topk}
+                               & set(gt_target)) / max(k, 1),
+            "recall": len({m["frame_index"] for m in ms}
+                          & set(gt_target)) / max(k, 1),
+            "matches_found": out["total_found"],
+        }
+
+    # the fusion weights, fitted on the validation video; labels: IoU >=
+    # 0.5 with the target's box
+    val_video, _, val_boxes, val_ref = val
+    fixed_det = PersonDetector(
+        engine, yolo=yolo, appearance=embedder, face_yolo=face_yolo,
+        face_embedder=face_embedder)
+    cap = cv2.VideoCapture(val_video)
+    val_frames = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        val_frames.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    cap.release()
+    ref_feats = fixed_det.process_reference(val_ref)
+    val_feats, val_labels = [], []
+    for fi, dets in enumerate(fixed_det.detect_persons(np.stack(val_frames))):
+        if not dets:
+            continue
+        feats = fixed_det.extract_features(
+            val_frames[fi], [d["bbox"] for d in dets])
+        for f in feats:
+            conf = min(float(ref_feats.get("face_conf") or 0.0),
+                       float(f.get("face_conf") or 0.0))
+            fc = _cos(ref_feats.get("face"), f.get("face"))
+            val_feats.append({
+                "identity": _cos(ref_feats.get("identity"),
+                                 f.get("identity")),
+                # faded by the face confidence, as similarity() takes it
+                "face": conf * fc if fc is not None else None,
+                "body": _cos(ref_feats.get("body"), f.get("body")),
+                "visual": _cos(ref_feats.get("visual"), f.get("visual"))})
+            val_labels.append(
+                fi in val_boxes
+                and _iou_xyxy(f["bbox"], val_boxes[fi]) >= 0.5)
+    learned_w = fit_fusion_weights(
+        val_feats, val_labels, keys=("identity", "face", "body", "visual"))
+
+    # the learned fusion against the fixed reference weights, each
+    # identity cue alone and the untrained geometric fallback
+    detectors = {
+        "full": PersonDetector(
+            engine, yolo=yolo, appearance=embedder, face_yolo=face_yolo,
+            face_embedder=face_embedder, fusion_weights=learned_w),
+        "fixed_reference_weights": fixed_det,
+        "appearance_only": PersonDetector(engine, yolo=yolo,
+                                          appearance=embedder),
+        "face_only": PersonDetector(engine, yolo=yolo, face_yolo=face_yolo,
+                                    face_embedder=face_embedder),
+        "geometric_fallback": PersonDetector(engine, yolo=yolo)}
+    ablations = {name: run_search(*test, det)
+                 for name, det in detectors.items()}
+    full = ablations["full"]
+    return {"identity_same_mean_sim": same_mean,
+            "identity_other_mean_sim": other_mean,
+            "identity_margin": same_mean - other_mean,
+            "face_margin": fsame - fother,
+            "face_detector_iou": float(np.mean(fd_ious)),
+            "person_precision_at_k": full["precision_at_k"],
+            "person_frame_precision_at_k": full["frame_precision_at_k"],
+            "person_recall_at_k": full["recall_at_k"],
+            "person_recall": full["recall"],
+            "ablations": ablations,
+            "fusion_weights_learned": learned_w,
+            "fusion_val_candidates": len(val_feats),
+            "fusion_val_positives": int(sum(val_labels)),
+            "matches_found": full["matches_found"]}
+
+
+# ---------------------------------------------------------------------------
 # temporal grounding (``eval.py:135-265``)
 # ---------------------------------------------------------------------------
 
@@ -766,12 +1502,27 @@ def device_meta(dev: torch.device) -> dict:
     return meta
 
 
+def kernel_launches() -> Dict[str, int]:
+    """The launches so far of the kernels that the modes run: the bf16
+    flash entry's by L, the packed patch embed's by kernel and the
+    fused score + top-k entries' (all 0 on the CPU, where the wrappers
+    run their plain versions)."""
+    from .ops import attention, kernels
+
+    flash = attention.flash_attention_blhd.launches_by_length
+    patch = kernels.fused_patch_embed_i420.launches_by_kernel
+    return {**{f"flash_attention_blhd[L={n}]": c for n, c in flash.items()},
+            **{f"fused_patch_embed_i420[{k}]": c for k, c in patch.items()},
+            **{fn.__name__: fn.launches for fn in (
+                kernels.cosine_window_topk, kernels.cosine_topk_f32,
+                kernels.cosine_topk_bf16, kernels.cosine_topk_int8)}}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(
-        description="Accuracy evaluation of the PyTorch port.",
-        epilog=f"Modes of the JAX package's eval.py not offered yet: "
-               f"{', '.join(LATER_MODES)} (ROADMAP.md item 8b).")
-    parser.add_argument("--mode", choices=MODES, default="grounding")
+        description="Accuracy evaluation of the PyTorch port.")
+    parser.add_argument("--mode", choices=MODES + ("all",),
+                        default="grounding")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None,
                         help="also write the results, with the seed, date "
@@ -781,14 +1532,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
     run = {"image": eval_image_retrieval, "grounding": eval_grounding,
-           "text": eval_text_trained, "library": eval_library,
-           "caption": eval_caption, "background": eval_background}
-    out = {SECTIONS[args.mode]: run[args.mode](args.seed, device=dev)}
+           "text": eval_text_trained, "detection": eval_detection,
+           "detection4k": eval_detection_4k, "person": eval_person,
+           "caption": eval_caption, "library": eval_library,
+           "background": eval_background}
+    modes = MODES if args.mode == "all" else (args.mode,)
+    out, launches = {}, {}
+    for m in modes:
+        before = kernel_launches()
+        out[SECTIONS[m]] = run[m](args.seed, device=dev)
+        launches[m] = {k: n - before.get(k, 0)
+                       for k, n in kernel_launches().items()
+                       if n != before.get(k, 0)}
     if args.out:
         out["meta"] = {"seed": args.seed, "mode": args.mode,
                        "date": datetime.datetime.now(datetime.timezone.utc)
                        .isoformat(timespec="seconds"),
-                       **device_meta(dev)}
+                       **device_meta(dev), "kernel_launches": launches}
         Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps(out, indent=2))
     return out

@@ -35,7 +35,7 @@ from . import _build
 from .kernels import _entry, _refuse_grad, _require_cuda, _stream
 
 _HEAD_DIMS = (16, 32, 64)
-_BLHD_HEAD_DIMS = (16, 64, 88)   # the bf16 entry's instantiations
+_BLHD_HEAD_DIMS = (16, 24, 64, 88)   # the bf16 entry's instantiations
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -120,7 +120,8 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     """q, k, v: ``[B, L, H, hd]`` (each projection's ``[B, L, H·hd]``
     viewed per head, or the thirds of a fused ``[B, L, 3·H·hd]`` qkv
     output, read in place at their row stride) → ``[B, L, H·hd]``
-    (non-causal, no mask). On the card: bf16 with hd = 16, 64 or 88.
+    (non-causal, no mask). On the card: bf16 with hd = 16, 24, 64 or
+    88.
     ``launches_by_length`` counts the launches by L."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"bad shapes {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -45,6 +45,21 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.square().sum() for t in tensors]).sum().sqrt()
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Schedule:
+    """``optax.cosine_decay_schedule``: ``init_value`` times a cosine
+    from 1 down to ``alpha`` over ``decay_steps``, then flat at
+    ``alpha``."""
+    if decay_steps <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must be positive")
+
+    def schedule(count: int) -> float:
+        c = min(count, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+    return schedule
+
+
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
                                  warmup_steps: int, decay_steps: int,
                                  end_value: float = 0.0) -> Schedule:
@@ -53,18 +68,17 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     to ``end_value`` at ``decay_steps`` (counted from 0, warmup
     included), then flat."""
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-    decay_len = decay_steps - warmup_steps
-    if decay_len <= 0:
+    if decay_steps <= warmup_steps:
         raise ValueError(f"decay_steps {decay_steps} must exceed "
                          f"warmup_steps {warmup_steps}")
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                                  alpha)
 
     def schedule(count: int) -> float:
         if count < warmup_steps:
             frac = 1.0 - count / warmup_steps
             return (init_value - peak_value) * frac + peak_value
-        c = min(count - warmup_steps, decay_len)
-        cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay_len))
-        return peak_value * ((1.0 - alpha) * cosine + alpha)
+        return decay(count - warmup_steps)
     return schedule
 
 

@@ -3,13 +3,15 @@ contrastive step, the temporal-grounding head's step, BLIP's
 teacher-forced caption step, checkpoints and an overfit smoke loop.
 
 Each trainer runs on one device (``cuda`` unless the caller asks for the
-CPU) in its config's dtype, float32 by default as in the JAX package,
-and differentiates plain PyTorch, as the JAX package differentiates
-plain XLA: no hand-written kernel has a backward, so a model whose
-config asks for flash attention is refused (its kernel would drop the
-gradient). A step keeps its loss on the device; nothing is read back
-unless the caller reads it. The JAX package shards a step over a mesh
-(``COLUMN_SHARDED`` / ``ROW_SHARDED``, ``param_spec``); here ``mesh``
+CPU) in its config's dtype, float32 by default as in the JAX package
+(a step turns off cuDNN's TF32, which PyTorch allows by default, so a
+convolution is f32 too), and differentiates plain PyTorch, as the JAX
+package differentiates plain XLA: no hand-written kernel has a
+backward, so a model whose config asks for flash attention is refused
+(its kernel would drop the gradient). A step keeps its loss on the
+device; nothing is read back unless the caller reads it. The JAX package
+shards a step over a mesh (``COLUMN_SHARDED`` / ``ROW_SHARDED``,
+``param_spec``); here ``mesh``
 must be ``None`` until the multi-GPU slice of ROADMAP.md brings a mesh
 (item 7).
 
@@ -23,6 +25,7 @@ orbax checkpoint. Weights cross to the JAX package through
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -52,6 +55,22 @@ def _refuse_flash(cfg: Any) -> None:
             "training needs use_flash=False: the hand-written flash kernel "
             "has no backward (the JAX package cannot differentiate its "
             "Pallas kernel either)")
+
+
+def _f32_convs(step: Callable[..., Any]) -> Callable[..., Any]:
+    """``step`` with cuDNN's TF32 off (and restored after): its
+    convolutions, forward and backward, run in f32 as its matrix
+    products do and as the CPU runs them (PyTorch lets cuDNN round f32
+    convolutions to TF32 by default)."""
+    @functools.wraps(step)
+    def run(*args):
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return step(*args)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    return run
 
 
 @dataclasses.dataclass
@@ -150,7 +169,7 @@ def make_train_step(model: CLIPModel, mesh=None
         norm = _apply(state, loss)
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
-    return step
+    return _f32_convs(step)
 
 
 def make_grounding_train_step(model, mesh=None
@@ -169,7 +188,7 @@ def make_grounding_train_step(model, mesh=None
         norm = _apply(state, loss)
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
-    return step
+    return _f32_convs(step)
 
 
 def caption_loss(logits: torch.Tensor, ids: torch.Tensor,
@@ -197,7 +216,7 @@ def make_caption_train_step(model, pad_token_id: int, mesh=None
         norm = _apply(state, loss)
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
-    return step
+    return _f32_convs(step)
 
 
 def create_grounding_train_state(cfg=None, learning_rate: LearningRate = 1e-3,

@@ -11,7 +11,8 @@ import torch
 from ..models.appearance import (AppearanceConfig, AppearanceEncoder,
                                  init_appearance, nt_xent_loss)
 from .optim import LearningRate, adamw
-from .train import Metrics, TrainState, _apply, _no_mesh, _on_device
+from .train import (Metrics, TrainState, _apply, _f32_convs, _no_mesh,
+                    _on_device)
 
 
 def create_reid_train_state(cfg: Optional[AppearanceConfig] = None,
@@ -41,4 +42,4 @@ def make_reid_train_step(model: AppearanceEncoder, mesh=None,
         norm = _apply(state, loss)
         return state, {"loss": loss.detach(), "grad_norm": norm}
 
-    return step
+    return _f32_convs(step)

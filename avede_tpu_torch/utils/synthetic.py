@@ -1,14 +1,19 @@
-"""Synthetic people for person search (counterpart of the person half
-of ``avede_tpu/utils/synthetic.py``).
+"""Synthetic ground truth (counterpart of ``avede_tpu/utils/synthetic.py``).
 
-``draw_person`` draws a procedural person whose IDENTITY features (skin
-tone, hair colour and shape, eye spacing, build) are fixed per identity
-while nuisance (background, clothing colour, lighting, position) varies
-per view; ``draw_people`` composites several identities into one crowd
-frame. The tests and ``chip_smoke.py`` make person videos with them, and
-``head_crop`` is the head geometry the appearance encoder embeds. The
-same numpy draws in the same order as the JAX package's, so one seed
-gives the same pixels in both.
+- ``draw_shape_scene`` — frames with 1..K coloured shapes and their
+  boxes (the detector trainers and the ``detection`` / ``detection4k``
+  eval modes);
+- ``draw_person`` / ``draw_people`` — a procedural person whose IDENTITY
+  features (skin tone, hair colour and shape, eye spacing, build) are
+  fixed per identity while nuisance (background, clothing colour,
+  lighting, position) varies per view, alone or in a crowd frame;
+  ``head_crop`` is the head geometry the appearance encoder embeds;
+- ``identity_batch``, ``face_detector_scene``, ``face_batch`` — the
+  training views of the ``person`` eval mode's re-id encoder, face-region
+  detector and face embedder.
+
+The same numpy draws in the same order as the JAX package's, so one seed
+gives the same pixels (and JPEG round trips) in both.
 """
 
 from __future__ import annotations
@@ -16,6 +21,67 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+SHAPE_CLASSES = ["square", "circle", "triangle", "stripe"]
+SHAPE_COLORS = [(220, 40, 40), (40, 200, 60), (50, 80, 220),
+                (230, 220, 40)]
+
+
+def draw_shape_scene(rng: np.random.Generator, size: int = 64,
+                     max_boxes: int = 3,
+                     min_r: int = 5, max_r: int = 11,
+                     hw: Optional[Tuple[int, int]] = None,
+                     non_overlapping: bool = False
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+    """→ (img uint8 [H,W,3], boxes [M,4] xyxy, labels [M], mask [M]).
+
+    ``hw`` gives rectangular frames (e.g. 4K 2160×3840 for the tiled
+    small-object benchmark); ``non_overlapping`` rejects placements
+    whose boxes intersect an earlier one — overlap-free ground truth
+    keeps detection-assignment and greedy matching well-posed."""
+    import cv2
+
+    H, W = hw if hw is not None else (size, size)
+    img = rng.integers(20, 60, (H, W, 3)).astype(np.uint8)
+    n = int(rng.integers(1, max_boxes + 1))
+    boxes = np.zeros((max_boxes, 4), np.float32)
+    labels = np.zeros((max_boxes,), np.int32)
+    mask = np.zeros((max_boxes,), bool)
+    placed = 0
+    for _ in range(n * 8 if non_overlapping else n):
+        if placed >= n:
+            break
+        r = int(rng.integers(min_r, max_r))
+        cx = int(rng.integers(r + 2, W - r - 2))
+        cy = int(rng.integers(r + 2, H - r - 2))
+        box = (cx - r, cy - r, cx + r, cy + r)
+        if non_overlapping and any(
+                box[0] < boxes[j][2] and boxes[j][0] < box[2]
+                and box[1] < boxes[j][3] and boxes[j][1] < box[3]
+                for j in range(placed)):
+            continue
+        cls = int(rng.integers(0, len(SHAPE_CLASSES)))
+        color = SHAPE_COLORS[cls]
+        if cls == 0:
+            cv2.rectangle(img, (cx - r, cy - r), (cx + r, cy + r),
+                          color, -1)
+        elif cls == 1:
+            cv2.circle(img, (cx, cy), r, color, -1)
+        elif cls == 2:
+            pts = np.array([[cx, cy - r], [cx - r, cy + r],
+                            [cx + r, cy + r]])
+            cv2.fillPoly(img, [pts], color)
+        else:
+            stripe_h = max(3, r // 3)
+            cv2.rectangle(img, (cx - r, cy - stripe_h),
+                          (cx + r, cy + stripe_h), color, -1)
+            box = (cx - r, cy - stripe_h, cx + r, cy + stripe_h)
+        boxes[placed] = box
+        labels[placed] = cls
+        mask[placed] = True
+        placed += 1
+    return img, boxes, labels, mask
 
 
 def make_identity(rng: np.random.Generator) -> Dict:
@@ -182,3 +248,135 @@ def head_crop(frame: np.ndarray, bbox: List[float]) -> np.ndarray:
     xi1 = int(np.clip(r[2], xi0 + 1, frame.shape[1]))
     yi1 = int(np.clip(r[3], yi0 + 1, frame.shape[0]))
     return frame[yi0:yi1, xi0:xi1]
+
+
+def jitter_bbox(bbox: List[float], rng: np.random.Generator,
+                frac: float = 0.08) -> List[float]:
+    """Perturb each box edge by N(0, frac)·(w|h) — the noise profile of
+    a real detector box (the trained 128-px person detector lands at
+    mean IoU ≈0.86, i.e. edges off by 5-10% of the box dims)."""
+    x0, y0, x1, y1 = bbox
+    w, h = x1 - x0, y1 - y0
+    dx0, dy0, dx1, dy1 = rng.normal(0.0, frac, 4)
+    return [x0 + dx0 * w, y0 + dy0 * h, x1 + dx1 * w, y1 + dy1 * h]
+
+
+def identity_batch(identities: List[Dict], rng: np.random.Generator,
+                   crop_size: int = 64, codec_aug: bool = True,
+                   box_jitter: float = 0.08
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two aligned augmented HEAD-crop views per identity → (a, b)
+    float [B, S, S, 3] in [0,1] for NT-Xent training. Head crops, not
+    whole-person: clothing varies per view by design, so whole-person
+    positives would look more different than negatives and the
+    embedding collapses.
+
+    ``codec_aug`` JPEG-round-trips half the crops at quality 35-90:
+    deployed frames arrive through a lossy video codec, and an encoder
+    trained only on clean renders keys on high-frequency detail the
+    codec destroys.
+
+    ``box_jitter`` perturbs the person box before the head crop is
+    taken: at search time head crops come from DETECTOR boxes, not
+    ground truth, so the encoder must tolerate the detector's edge
+    noise (≈8% of box dims at IoU 0.86) or identity similarity
+    collapses on exactly the boxes the service produces."""
+    import cv2
+
+    views = []
+    for _ in range(2):
+        crops = []
+        for ident in identities:
+            frame, bbox = draw_person(ident, rng)
+            if box_jitter > 0:
+                bbox = jitter_bbox(bbox, rng, box_jitter)
+            crop = head_crop(frame, bbox)
+            crop = cv2.resize(crop, (crop_size, crop_size),
+                              interpolation=cv2.INTER_AREA)
+            if codec_aug and rng.random() < 0.5:
+                q = int(rng.integers(35, 90))
+                _, enc = cv2.imencode(
+                    ".jpg", crop, [cv2.IMWRITE_JPEG_QUALITY, q])
+                crop = cv2.imdecode(enc, cv2.IMREAD_COLOR)
+            crops.append(crop)
+        views.append(np.stack(crops).astype(np.float32) / 255.0)
+    return views[0], views[1]
+
+
+def crop_bbox(frame: np.ndarray, bbox: List[float]) -> np.ndarray:
+    """Clamped integer crop of a float bbox."""
+    x0 = int(np.clip(bbox[0], 0, frame.shape[1] - 2))
+    y0 = int(np.clip(bbox[1], 0, frame.shape[0] - 2))
+    x1 = int(np.clip(bbox[2], x0 + 1, frame.shape[1]))
+    y1 = int(np.clip(bbox[3], y0 + 1, frame.shape[0]))
+    return frame[y0:y1, x0:x1]
+
+
+def face_detector_scene(rng: np.random.Generator, size: int = 64
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """One training scene for the learned face-REGION detector: a
+    person crop (slightly jittered, as the serving path sees detector
+    person boxes) resized to ``size``, with the ground-truth face box
+    mapped into crop coordinates. YOLO-style (img, boxes[1,4],
+    labels[1], mask[1]) so ``_train_tiny_yolo`` machinery is reused
+    unchanged. Mirrors how ``PersonDetector.find_faces`` applies the
+    detector: on the person region, not the whole frame."""
+    import cv2
+
+    parts: Dict = {}
+    ident = make_identity(rng)
+    frame, bbox = draw_person(ident, rng, frame_hw=(128, 128),
+                              parts=parts)
+    pb = jitter_bbox(bbox, rng, 0.06)
+    x0 = int(np.clip(pb[0], 0, frame.shape[1] - 2))
+    y0 = int(np.clip(pb[1], 0, frame.shape[0] - 2))
+    x1 = int(np.clip(pb[2], x0 + 1, frame.shape[1]))
+    y1 = int(np.clip(pb[3], y0 + 1, frame.shape[0]))
+    region = frame[y0:y1, x0:x1]
+    sy = size / region.shape[0]
+    sx = size / region.shape[1]
+    img = cv2.resize(region, (size, size),
+                     interpolation=cv2.INTER_AREA)
+    fb = parts["face"]
+    face = np.array([(fb[0] - x0) * sx, (fb[1] - y0) * sy,
+                     (fb[2] - x0) * sx, (fb[3] - y0) * sy], np.float32)
+    face = np.clip(face, 0, size - 1)
+    boxes = face[None]
+    mask = np.array([face[2] > face[0] + 1 and face[3] > face[1] + 1])
+    return img, boxes, np.zeros((1,), np.int32), mask
+
+
+def face_batch(identities: List[Dict], rng: np.random.Generator,
+               crop_size: int = 32, codec_aug: bool = True,
+               box_jitter: float = 0.10
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two aligned augmented FACE-crop views per identity → (a, b)
+    float [B, S, S, 3] in [0,1] for NT-Xent training of the face
+    embedding. Same augmentation rationale as ``identity_batch`` (codec
+    round-trips, box jitter matching the face detector's edge noise),
+    but crops the ground-truth FACE box — skin tone, head aspect, eye
+    spacing and fringe line are the identity signal; torso clothing
+    never enters the crop."""
+    import cv2
+
+    views = []
+    for _ in range(2):
+        crops = []
+        for ident in identities:
+            parts: Dict = {}
+            frame, _ = draw_person(ident, rng, parts=parts)
+            fb = parts["face"]
+            if box_jitter > 0:
+                fb = jitter_bbox(fb, rng, box_jitter)
+            crop = crop_bbox(frame, fb)
+            crop = cv2.resize(crop, (crop_size, crop_size),
+                              interpolation=cv2.INTER_AREA)
+            if codec_aug and rng.random() < 0.5:
+                q = int(rng.integers(35, 90))
+                _, enc = cv2.imencode(
+                    ".jpg", crop, [cv2.IMWRITE_JPEG_QUALITY, q])
+                crop = cv2.imdecode(enc, cv2.IMREAD_COLOR)
+            crops.append(crop)
+        views.append(np.stack(crops).astype(np.float32) / 255.0)
+    return views[0], views[1]

@@ -46,7 +46,10 @@ and the script exits non-zero without printing a result:
    [32, 48, 32] → bf16 [32, 16, 64], the patch embed's simple kernel,
    which every P other than 32 and D not a multiple of 96 takes) and
    row ``flash_attention_blhd[tiny]`` (2j: [32, 17, 4, 16], the hd = 16
-   instantiation).
+   instantiation), and the ``detection`` eval mode's OWL-ViT (64 px,
+   patch 8, 4 heads of 24) at one frame: row
+   ``flash_attention_blhd[owl24]`` (2k: [1, 65, 4, 24], row stride 96,
+   the hd = 24 instantiation, padded to 32 columns in shared memory).
    The entry counts launches by L only, so the detection rows' counts
    are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
@@ -241,8 +244,13 @@ and the script exits non-zero without printing a result:
    attention, no kernel; 384 px, 577 tokens; adam 1e-4 behind clip 1.0)
    on a batch of 8 with 20-token ids and pads, 5 steps; the default
    grounding head (512 → 256, depth 4) at B = 16, N = 256 and the
-   default appearance encoder (64 px) at batch 64, 10 steps each. Each
-   run prints its step ms (CUDA events, median of steps 3 on), first and
+   default appearance encoder (64 px) at batch 64, 10 steps each; the
+   detector trainers (``train_det.py``, ``train_owl.py``): YOLOv8n at
+   640 px, 80 classes, on 16 scenes of up to 8 shapes (its BatchNorm
+   statistics must not move) and OWL-ViT B/32 at 768 px (577 tokens,
+   plain attention: no flash launch) on 4 scenes against the three
+   detection queries, 10 steps each. Each run prints its step ms (CUDA
+   events, median of steps 3 on), first and
    last loss and gradient norm, and peak memory; every loss must be
    finite and the last below the first; each trainer's first step on
    the card is held to the same step on the CPU at a small batch (loss
@@ -273,6 +281,15 @@ and the script exits non-zero without printing a result:
    ``cosine_window_topk`` must launch, the wgmma patch kernel and the
    contract entries not at all; image p@1 >= 0.75, text p@1 >= 0.875
    (EVAL.json's JAX reference less one test item).
+17. (run after phase 16) the ``detection`` eval mode's OWL-ViT (64 px,
+   patch 8, 4 heads of 24) trained on the card for 400 steps, then
+   served through ``UniversalDetector``'s ``owlvit`` and ``hybrid``
+   modes on 12 held-out 128 px scenes (path ``eval_detection``: flash
+   at L = 65 must launch 4 times a call, no contract entry at all); the
+   card's logits against the same weights in f32 on the CPU, row cosine
+   >= 0.999. The mode itself (its 700 + 2 × 2000 training steps),
+   ``detection4k`` and ``person`` run as their own
+   ``python -m avede_tpu_torch.eval`` calls.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -285,9 +302,10 @@ the ``small_object`` path, phase 11's eight the ``image_query`` path
 12's cold call the ``reranked_blip2`` path (the ``[blip2]`` row reads
 its L = 257 launches), phase 13's three calls the ``person_search``
 path, phase 14's three calls of the trained CLIP the ``train_serve``
-path, phase 15's three calls the ``convert_serve`` path and phase 16's
+path, phase 15's three calls the ``convert_serve`` path, phase 16's
 two modes the ``eval`` path (rows 1c and 2j read its simple-kernel and
-L = 17 launches).
+L = 17 launches) and phase 17's 24 calls the ``eval_detection`` path
+(row 2k reads its L = 65 launches).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -362,6 +380,11 @@ CROPS16_FLASH = "flash_attention_blhd[crops16]"
 # and 2j (flash at head dim 16)
 TINY_PATCH = "fused_patch_embed_i420[tiny]"
 TINY_FLASH = "flash_attention_blhd[tiny]"
+# the ``detection`` eval mode's OWL-ViT: 64 px in 8 px patches, plus CLS
+# (4 heads of 24, width 96): row 2k, and phase 17's path
+DET_OWL_TOKENS = (64 // 8) ** 2 + 1
+FLASH_L65 = f"flash_attention_blhd[L={DET_OWL_TOKENS}]"
+DET_FLASH = "flash_attention_blhd[owl24]"
 DETECTION_BATCH = 16
 # the port's ``utils.trace`` span names, which the profiler also records
 # as device-side ranges
@@ -413,6 +436,14 @@ IMAGE_VIDEO_ID = "image-query"
 TRAIN_CLIP, TRAIN_CAPTION = (32, 10, 4), (8, 5, 1)
 TRAIN_GROUNDING, TRAIN_REID = (16, 10, 2), (64, 10, 8)
 TRAIN_CAPTION_LEN, TRAIN_GROUNDING_N, TRAIN_SERVE_FRAMES = 20, 256, 8
+# the detector trainers at full width: YOLOv8n (640 px, 80 classes) and
+# OWL-ViT B/32 (768 px, the three DETECTION_QUERIES), scenes of up to
+# TRAIN_DET_BOXES non-overlapping shapes; OWL-ViT B/32 at adam 1e-4 (at
+# the trainer's default 1e-3, tuned for the tiny towers, its loss rose
+# from 5.9 to 8.6 and stayed above its start over 10 steps on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+TRAIN_YOLO, TRAIN_OWL, TRAIN_DET_BOXES = (16, 10, 2), (4, 10, 1), 8
+TRAIN_OWL_LR = 1e-4
 # a first step's loss and gradient norm, card against CPU (relative)
 TRAIN_LOSS_REL, TRAIN_NORM_REL = 1e-4, 1e-3
 # the grounding eval's bar: EVAL.json's JAX spread over 3 seeds (mean
@@ -426,6 +457,12 @@ EVAL_BARS = {"image": ("image_retrieval", 0.75),
 # phase 15: the converted HF checkpoint served on the card against the
 # same file on the CPU (8 frames, row cosine)
 CONVERT_FRAMES, CONVERT_MIN_COSINE = 8, 0.9999
+# phase 17: the detection mode's OWL-ViT trained on the card (steps of
+# its warmup-cosine schedule), served on held-out 128 px scenes at one
+# confidence in the ``owlvit`` and ``hybrid`` modes, its logits held to
+# the same weights in f32 on the CPU (row cosine over each frame's)
+DET_EVAL_STEPS, DET_EVAL_FRAMES, DET_EVAL_CONF = 400, 12, 0.65
+DET_EVAL_MIN_COSINE = 0.999
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
 # the largest crop bucket of ``ClipEngine.embed_pixels``
 CROP_BUCKET = 256
@@ -443,12 +480,14 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                "quantize_per_channel": "library_int8",
                BLIP_FLASH: "reranked", BLIP2_FLASH: "reranked_blip2",
                REF_FLASH: "image_query", CROPS16_FLASH: "image_query",
-               TINY_PATCH: "eval", TINY_FLASH: "eval"}
+               TINY_PATCH: "eval", TINY_FLASH: "eval",
+               DET_FLASH: "eval_detection"}
 LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, BLIP2_FLASH: FLASH_L257,
               OWL_FLASH: FLASH_L577,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
               REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50,
-              TINY_PATCH: SIMT_PATCH, TINY_FLASH: FLASH_L17}
+              TINY_PATCH: SIMT_PATCH, TINY_FLASH: FLASH_L17,
+              DET_FLASH: FLASH_L65}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
@@ -844,6 +883,9 @@ def check_kernels(torch, np, video):
                                  CLIP_TOKENS))
     rows.append(check_blhd_flash(torch, F, dev, gen, CROPS16_FLASH, 16,
                                  CLIP_TOKENS))
+    # the detection eval mode's OWL-ViT: one frame, 4 heads of 24
+    rows.append(check_blhd_flash(torch, F, dev, gen, DET_FLASH, 1,
+                                 DET_OWL_TOKENS, h=4, hd=24))
 
     # 3. cosine scores: the 1024-row bucket of a 600-frame table
     nb, dim, n_valid = 1024, 512, N_FRAMES
@@ -1029,14 +1071,15 @@ def check_blip_flash(torch, F, dev, gen, name=BLIP_FLASH,
     return row
 
 
-def check_blhd_flash(torch, F, dev, gen, name, bsz, length):
+def check_blhd_flash(torch, F, dev, gen, name, bsz, length, h=12, hd=64):
     """Phase 3, a detection row of the serving flash entry: [bsz,
-    length, 12, 64], q, k and v each a projection's own [B, L, 768]
-    output viewed per head (contiguous heads, row stride 768), as the
-    detection path runs it. Same bar as the CLIP row."""
+    length, h, hd], q, k and v each a projection's own [B, L, h·hd]
+    output viewed per head (contiguous heads, row stride h·hd), as the
+    detection path runs it: 12 heads of 64 at width 768, or the
+    ``detection`` eval mode's OWL-ViT, 4 heads of 24 (row 2k, the entry's
+    hd = 24 instantiation). Same bar as the CLIP row."""
     from avede_tpu_torch.ops import attention
 
-    h, hd = 12, 64
     q, kk, v = (torch.randn(bsz, length, h * hd, device=dev, generator=gen
                             ).to(torch.bfloat16).view(bsz, length, h, hd)
                 for _ in range(3))
@@ -1596,9 +1639,10 @@ def reset_launches(fns) -> None:
 
 def read_launches(fns) -> dict:
     """Each wrapper's count; the bf16 flash entry's, kept by L, is
-    summed, and its L = 577, 50, 257 and 17 launches are also given
-    apart, as ``FLASH_L577``, ``FLASH_L50``, ``FLASH_L257`` and
-    ``FLASH_L17``; a patch embed's are also given by kernel, as
+    summed, and its L = 577, 50, 257, 17 and 65 launches are also given
+    apart, as ``FLASH_L577``, ``FLASH_L50``, ``FLASH_L257``,
+    ``FLASH_L17`` and ``FLASH_L65``; a patch embed's are also given by
+    kernel, as
     ``<name>[wgmma]`` and ``<name>[simt]``."""
     out = {}
     for fn in fns:
@@ -1615,6 +1659,7 @@ def read_launches(fns) -> dict:
         out[FLASH_L50] = by_len[CLIP_TOKENS]
         out[FLASH_L257] = by_len[BLIP2_TOKENS]
         out[FLASH_L17] = by_len[TINY_TOKENS]
+        out[FLASH_L65] = by_len[DET_OWL_TOKENS]
     return out
 
 
@@ -3411,9 +3456,91 @@ def caption_batch(np, cfg, rows: int):
     return px, ids
 
 
+def train_detectors(torch, np) -> dict:
+    """Phase 14(f): YOLOv8n and OWL-ViT B/32 trained at full width
+    (``train_and_check``: the card's first step against the CPU's, then
+    10 steps on the fixed batch); the YOLO's BatchNorm statistics must
+    stay as they were, and neither trainer may launch the flash kernel."""
+    from avede_tpu_torch.models.owlvit import owlvit_base_patch32
+    from avede_tpu_torch.models.tokenizer import Tokenizer
+    from avede_tpu_torch.models.yolo import yolov8n
+    from avede_tpu_torch.ops import attention
+    from avede_tpu_torch.parallel.train_det import (create_yolo_train_state,
+                                                    make_yolo_train_step)
+    from avede_tpu_torch.parallel.train_owl import (create_owl_train_state,
+                                                    make_owl_train_step)
+
+    out = {}
+    yolo_cfg, owl_cfg = yolov8n(), owlvit_base_patch32()
+
+    def make_yolo(dev):
+        model, state = create_yolo_train_state(yolo_cfg, seed=0, device=dev)
+        return model, state, make_yolo_train_step(model)
+
+    def make_owl(dev):
+        model, state = create_owl_train_state(owl_cfg, TRAIN_OWL_LR, seed=0,
+                                              device=dev)
+        tok = Tokenizer(vocab_size=owl_cfg.vocab_size,
+                        context_len=owl_cfg.max_text_len)
+        return model, state, make_owl_train_step(model,
+                                                 tok(DETECTION_QUERIES))
+
+    flash_before = attention.flash_attention_blhd.launches_by_length.total()
+    model, _, _, _, out["yolo"] = train_and_check(
+        torch, np, "yolo", make_yolo,
+        detection_batch(np, TRAIN_YOLO[0], yolo_cfg.img_size,
+                        yolo_cfg.num_classes), TRAIN_YOLO[2], TRAIN_YOLO[1])
+    stats = [(n, b) for n, b in model.named_buffers() if "running" in n]
+    moved = [n for n, b in stats
+             if not torch.equal(b, torch.zeros_like(b) if "mean" in n
+                                else torch.ones_like(b))]
+    if not stats or moved:
+        fail(f"train yolo: BatchNorm statistics moved: {moved[:4]}")
+    out["yolo"].update(img_size=yolo_cfg.img_size,
+                       num_classes=yolo_cfg.num_classes,
+                       batchnorm_stats_frozen=len(stats))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    frames, boxes, labels, mask = detection_batch(
+        np, TRAIN_OWL[0], owl_cfg.image_size, len(DETECTION_QUERIES))
+    out["owl"] = train_and_check(
+        torch, np, "owl", make_owl,
+        (frames, (boxes / owl_cfg.image_size).astype(np.float32), labels,
+         mask), TRAIN_OWL[2], TRAIN_OWL[1])[-1]
+    out["owl"].update(image_size=owl_cfg.image_size,
+                      tokens=owl_cfg.num_patches + 1,
+                      queries=list(DETECTION_QUERIES))
+    if attention.flash_attention_blhd.launches_by_length.total() \
+            != flash_before:
+        fail("a detector train step launched the flash kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def detection_batch(np, rows: int, size: int, n_classes: int):
+    """Phase 14's fixed detection batch: ``rows`` seeded scenes of up to
+    ``TRAIN_DET_BOXES`` non-overlapping shapes (radius 12-48 px scaled
+    to ``size``/640), labels folded into ``n_classes`` → (uint8 frames,
+    xyxy px boxes, labels, mask)."""
+    from avede_tpu_torch.utils.synthetic import draw_shape_scene
+
+    rng = np.random.default_rng(0)
+    k = size / 640
+    data = [draw_shape_scene(rng, hw=(size, size), max_boxes=TRAIN_DET_BOXES,
+                             min_r=int(12 * k), max_r=int(48 * k),
+                             non_overlapping=True) for _ in range(rows)]
+    frames, boxes, labels, mask = (np.stack([d[i] for d in data])
+                                   for i in range(4))
+    return frames, boxes, (labels % n_classes).astype(np.int32), mask
+
+
 def drive_train(torch, np, engine, video, tmp: Path):
-    """Phase 14: the port's trainers at full width in f32 (TF32 off), then
-    the trained CLIP served through the kernels, then the grounding eval.
+    """Phase 14: the port's trainers at full width in f32 (TF32 off: phase
+    3 turned it off for the process, and each train step turns cuDNN's
+    off itself), then the trained CLIP served through the kernels, then
+    the grounding eval.
 
     (a) CLIP ViT-B/32 from seed 0, ``make_train_step`` (clip 1.0, adamw
     1e-4 / 0.05), one fixed seeded batch of 32 images (224 px) and
@@ -3422,8 +3549,14 @@ def drive_train(torch, np, engine, video, tmp: Path):
     adam 1e-4 behind clip 1.0), batch 8 of 20-token ids with pads, 5
     steps; (c) the default grounding head (512 → 256, depth 4) at B = 16,
     N = 256 and the default appearance encoder (64 px) at batch 64, 10
-    steps each. Each trainer's first step is held to the CPU's at a small
-    batch. (d) the CLIP of (a) written by ``save_params`` and served by a
+    steps each; (f) the detector trainers (``parallel/train_det.py``,
+    ``train_owl.py``): YOLOv8n at 640 px with 80 classes (adam 2e-3
+    behind clip 5.0, frozen BatchNorm statistics) on 16 scenes of up to 8
+    shapes, and OWL-ViT B/32 at 768 px (577 tokens, ``use_flash=False``)
+    on 4 scenes against the three ``DETECTION_QUERIES`` (adam 1e-4 behind
+    clip 5.0), 10 steps each. Each trainer's first step is held to the
+    CPU's at a small batch. (d) the CLIP of (a) written by
+    ``save_params`` and served by a
     ``ClipEngine`` (bf16, the kernels) on phase 5's source: one cold
     ``process_video`` and two warm queries, the launches counted as path
     ``train_serve``; its embeddings of 8 frames against the trained f32
@@ -3448,10 +3581,6 @@ def drive_train(torch, np, engine, video, tmp: Path):
     from avede_tpu_torch.pipelines.phase1 import Phase1Scan
     from avede_tpu_torch.utils.platform import resolve_device
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out = {}
 
     # (a) CLIP
@@ -3524,6 +3653,9 @@ def drive_train(torch, np, engine, video, tmp: Path):
                                   TRAIN_REID[1])[-1]
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (f) the detector trainers at full width, plain attention
+    out.update(train_detectors(torch, np))
 
     # (d) train, then serve: the trained CLIP through the kernels
     weights = tmp / "clip_trained.npz"
@@ -3603,8 +3735,6 @@ def drive_train(torch, np, engine, video, tmp: Path):
             and ev["tiou_at_0.5"] >= GROUNDING_MIN_AT_05):
         fail(f"grounding eval below EVAL.json's JAX spread: {ev}")
     out["eval_grounding"] = ev
-    torch.backends.cuda.matmul.allow_tf32, \
-        torch.backends.cudnn.allow_tf32 = tf32
     return out
 
 
@@ -3732,6 +3862,92 @@ def drive_eval(torch, np, tmp: Path):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+def drive_eval_detection(torch, np):
+    """Phase 17: the ``detection`` eval mode's OWL-ViT (64 px, patch 8,
+    4 vision layers of 4 heads of 24) trained on the card
+    (``avede_tpu_torch.eval._train_tiny_owl``: ``DET_EVAL_STEPS`` steps
+    of 16 scenes, f32, plain attention), then served through
+    ``UniversalDetector`` (bf16, flash at L = 65 with hd = 24 in every
+    vision layer; the tiny CLIP's kernels for the grid and the crops) in
+    its ``owlvit`` and ``hybrid`` modes on ``DET_EVAL_FRAMES`` held-out
+    128 px scenes, one frame a call, launches counted as path
+    ``eval_detection``: flash at L = 65 must launch 4 times a call. The
+    card's logits on those frames are held to the same weights' f32
+    forward on the CPU (row cosine over each frame's logits >=
+    ``DET_EVAL_MIN_COSINE``). P/R at ``DET_EVAL_CONF`` are reported, not
+    held (the mode's own run holds its bars)."""
+    from avede_tpu_torch import eval as port_eval
+    from avede_tpu_torch.models.owlvit import OwlViTDetector
+    from avede_tpu_torch.ops import attention, kernels, quant
+    from avede_tpu_torch.ops.preprocess import clip_preprocess
+    from avede_tpu_torch.services.universal_detector import \
+        UniversalDetector
+    from avede_tpu_torch.utils.platform import with_compute_dtype
+    from avede_tpu_torch.utils.synthetic import SHAPE_CLASSES
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, sd, loss = port_eval._train_tiny_owl(
+        DET_EVAL_STEPS, 0, scene_fn=port_eval._shape_scene128, device=dev)
+    out = {"train_steps": DET_EVAL_STEPS, "final_loss": loss,
+           "train_s": time.perf_counter() - t0}
+    ud = UniversalDetector(port_eval.tiny_clip_engine(dev),
+                           owlvit_cfg=with_compute_dtype(cfg, dev),
+                           owlvit_state_dict=sd)
+    rng = np.random.default_rng(7)
+    scenes = [port_eval._shape_scene128(rng) for _ in range(DET_EVAL_FRAMES)]
+    counted = (attention.flash_attention_blhd,
+               kernels.fused_patch_embed_i420, kernels.cosine_window_topk,
+               kernels.fused_patch_embed, attention.flash_attention,
+               kernels.cosine_scores, quant.quantize_rows)
+    reset_launches(counted)
+    calls = 0
+    for mode in ("owlvit", "hybrid"):
+        tp = fp = fn = 0
+        t0 = time.perf_counter()
+        for img, gb, gl, gm in scenes:
+            dets = ud.detect_unlimited_objects(
+                img[None], SHAPE_CLASSES, detection_mode=mode,
+                conf_threshold=DET_EVAL_CONF, adaptive=False)[0]
+            calls += 1
+            a, b, c = port_eval._match_detections(
+                port_eval._with_query_ids(dets), gb[gm], gl[gm])
+            tp, fp, fn = tp + a, fp + b, fn + c
+        out[mode] = {"precision": tp / max(tp + fp, 1),
+                     "recall": tp / max(tp + fn, 1), "detections": tp + fp,
+                     "call_ms": (time.perf_counter() - t0) * 1e3
+                     / len(scenes)}
+    launches = out["launches"] = read_launches(counted)
+    out["calls"] = calls
+    if launches[FLASH_L65] != 4 * calls:
+        fail(f"eval_detection: flash at L = {DET_OWL_TOKENS} launched "
+             f"{launches[FLASH_L65]} times in {calls} calls, not 4 a call")
+    if launches[FLASH_L17] <= 0:
+        fail(f"eval_detection: the tiny CLIP's flash never ran: {launches}")
+    if any(launches[fn.__name__] for fn in counted[3:]):
+        fail(f"eval_detection: a contract entry ran: {launches}")
+
+    # the card's logits against the same weights in f32 on the CPU
+    frames = np.stack([sc[0] for sc in scenes])
+    ids = ud.owl_tokenizer(list(SHAPE_CLASSES))
+    logits, _ = ud.owl_forward(frames, ids)
+    cpu = OwlViTDetector(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in sd.items()})
+    with torch.inference_mode():
+        ref, _ = cpu.eval()(clip_preprocess(torch.from_numpy(frames),
+                                            size=cfg.image_size),
+                            torch.from_numpy(ids))
+    n = len(frames)
+    out["card_vs_cpu_min_cosine"] = row_cosine(
+        np, logits.float().cpu().numpy().reshape(n, -1),
+        ref.numpy().reshape(n, -1))
+    if out["card_vs_cpu_min_cosine"] < DET_EVAL_MIN_COSINE:
+        fail(f"eval_detection: card logits off the CPU's: {out}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 def drive_index(torch, np, dtype: str):
     """Phase 7: a ``DeviceLibraryIndex`` at serving size, 1000 seeded
@@ -3933,6 +4149,7 @@ def main() -> None:
         convert = phase("convert", drive_convert, torch, np, video,
                         Path(tmp))
         evals = phase("eval", drive_eval, torch, np, Path(tmp))
+        eval_det = phase("eval_detection", drive_eval_detection, torch, np)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3952,6 +4169,7 @@ def main() -> None:
              "train_serve": train["train_serve"]["launches"],
              "convert_serve": convert["launches"],
              "eval": evals["launches"],
+             "eval_detection": eval_det["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:

@@ -17,6 +17,7 @@ library index's bf16 rows within 2e-3, one bf16 step).
 """
 
 import importlib.util
+import json
 from pathlib import Path
 
 import jax
@@ -52,17 +53,20 @@ def _lr(steps):
     return 1.5e-3 * steps / 50
 
 
-def _assert_params_close(got, ref, steps):
+def _assert_params_close(got, ref, steps, lr=None):
+    """``lr``: the largest learning rate of the steps (default: the CLIP
+    and BLIP trainers' warmup, ``_lr``)."""
+    lr = _lr(steps) if lr is None else lr
     assert set(got) == set(ref)
     worst = 0.0
     for k, v in ref.items():
         diff = (got[k].float() - v).abs()
         if k.endswith(("k_proj.bias", "attn.key.bias")):
-            assert float(diff.max()) <= 2 * steps * _lr(steps), k
+            assert float(diff.max()) <= 2 * steps * lr, k
             continue
         if k.endswith("qkv.bias"):
             d = diff.shape[0] // 3
-            assert float(diff[d:2 * d].max()) <= 2 * steps * _lr(steps), k
+            assert float(diff[d:2 * d].max()) <= 2 * steps * lr, k
             diff = torch.cat([diff[:d], diff[2 * d:]])
         worst = max(worst, float(diff.max()))
     assert worst <= PARAM_ABS, worst
@@ -295,18 +299,281 @@ def test_background_mode_matches_jax(jeval, trained_clip, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the detector modes (YOLO and OWL-ViT trained from JAX's seeded weights)
+# ---------------------------------------------------------------------------
+
+# detections a frame (and person boxes) in both packages' settings: a
+# detector a few steps from random weights keeps boxes everywhere, and
+# each box is a CLIP crop (and a GrabCut and a face search in the person
+# search)
+MAX_OBJECTS = 1
+
+
+def _close(got, ref, path="", tol=SCORE_ABS):
+    """Equal structure and values: numbers within ``tol``, the rest
+    exactly."""
+    if isinstance(ref, dict):
+        assert set(got) == set(ref), path
+        for k in ref:
+            _close(got[k], ref[k], f"{path}.{k}", tol)
+    elif isinstance(ref, (list, tuple)):
+        assert len(got) == len(ref), path
+        for i, (g, r) in enumerate(zip(got, ref)):
+            _close(g, r, f"{path}[{i}]", tol)
+    elif isinstance(ref, float) and not isinstance(got, bool):
+        assert abs(got - ref) <= tol, (path, got, ref)
+    else:
+        assert got == ref, (path, got, ref)
+
+
+@pytest.fixture(scope="module")
+def det_weights(jeval):
+    """JAX's ``_train_tiny_yolo`` (the ``detection`` mode's 64 px YOLO)
+    and ``_train_tiny_owl`` (its OWL-ViT), STEPS steps each from seeded
+    weights (their inits swapped in: flax's eager init takes seconds),
+    and the port's trainers from the same weights → {name: (JAX triple,
+    port triple)}."""
+    from avede_tpu.models import yolo as jyolo
+    from avede_tpu.models.owlvit import OwlViTConfig, OwlViTDetector
+    from avede_tpu.parallel import train_owl as jtrain_owl
+    from avede_tpu.utils.synthetic import draw_shape_scene
+    import jax.numpy as jnp
+
+    from tests.test_torch_detection import _filled, _yolo_variables
+
+    def jscene(r):
+        import cv2
+
+        img, gb, gl, gm = draw_shape_scene(r, hw=(128, 128), max_boxes=5,
+                                           min_r=10, max_r=22,
+                                           non_overlapping=True)
+        return (cv2.resize(img, (64, 64), interpolation=cv2.INTER_AREA),
+                gb / 2.0, gl, gm)
+
+    yvars = _yolo_variables(jyolo.YoloConfig(num_classes=4, img_size=64),
+                            seed=5)
+    owl = OwlViTDetector(OwlViTConfig(**teval.DETECTION_OWL))
+    oparams = _filled(lambda: owl.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+        jnp.zeros((4, 8), jnp.int32)), seed=6)["params"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jyolo, "init_yolo", lambda cfg, seed: yvars)
+        mp.setattr(jtrain_owl, "init_owlvit", lambda cfg, seed: (owl,
+                                                                 oparams))
+        jy = jeval._train_tiny_yolo(STEPS, 0, scene_fn=jscene, max_boxes=5)
+        jo = jeval._train_tiny_owl(STEPS, 0, scene_fn=lambda r:
+                                   draw_shape_scene(r, hw=(128, 128),
+                                                    max_boxes=5, min_r=10,
+                                                    max_r=22,
+                                                    non_overlapping=True))
+    from avede_tpu_torch.parallel import train_det, train_owl
+
+    def carried_init(init, sd):
+        def build(cfg, seed):
+            model = init(cfg, seed)
+            model.load_state_dict(sd)
+            return model
+        return build
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_det, "init_yolo", carried_init(
+            train_det.init_yolo, params_from_jax(_np(yvars[1]))))
+        mp.setattr(train_owl, "init_owlvit", carried_init(
+            train_owl.init_owlvit, params_from_jax(_np(oparams))))
+        ty = teval._train_tiny_yolo(STEPS, 0, scene_fn=teval._yolo_scene64,
+                                    device="cpu")
+        to = teval._train_tiny_owl(STEPS, 0,
+                                   scene_fn=teval._shape_scene128,
+                                   device="cpu")
+    return {"yolo": (jy, ty), "owl": (jo, to)}
+
+
+def test_detector_trainers_match_jax(det_weights):
+    """The eval's two detector trainers from JAX's weights: the last loss
+    within 1e-5, the parameters within 1e-4 (the YOLO's BatchNorm
+    statistics exactly: frozen in both), key biases within 2 · steps ·
+    lr (the OWL-ViT's warmup reaches 2e-3 · STEPS / 100)."""
+    (jcfg, jvars, jloss), (cfg, sd, loss) = det_weights["yolo"]
+    assert (cfg.num_classes, cfg.img_size) == (jcfg.num_classes,
+                                               jcfg.img_size)
+    assert abs(loss - jloss) <= LOSS_REL * abs(jloss)
+    ref = params_from_jax(_np(jvars))
+    _assert_params_close(sd, ref, STEPS, lr=3e-3)
+    for k in ref:
+        if "running" in k:
+            assert torch.equal(sd[k], ref[k]), k
+    (jcfg, jparams, jloss), (cfg, sd, loss) = det_weights["owl"]
+    assert cfg.grid == jcfg.grid == 8 and cfg.vision_dim == 96
+    assert abs(loss - jloss) <= LOSS_REL * abs(jloss)
+    _assert_params_close(sd, params_from_jax(_np(jparams)), STEPS,
+                         lr=2e-3 * STEPS / 100)
+
+
+@pytest.fixture()
+def carried_clip(jeval, monkeypatch):
+    """Both packages' eval on one seeded tiny CLIP (JAX's ``init_clip``
+    swapped for it, the port's engine by ``params_from_jax``), at most
+    ``MAX_OBJECTS`` detections a frame, and JAX's ``YoloService`` on the
+    port's NMS for boxes left of x = 0 (``tests/test_torch_detection.py``)
+    → the port's engine."""
+    from avede_tpu.models import clip as jclip
+    from avede_tpu.services import detector as jdetector
+    from avede_tpu.utils.config import settings as jsettings
+
+    from avede_tpu_torch.utils.config import settings as tsettings
+    from tests.test_torch_detection import _filled, _nms_per_class_left_of_zero
+
+    clip = _filled(lambda: jclip.init_clip(jclip.tiny_test_config(),
+                                           seed=0)[1])
+    monkeypatch.setattr(jclip, "init_clip", lambda cfg, seed: (None, clip))
+    monkeypatch.setattr(jdetector, "nms_per_class",
+                        _nms_per_class_left_of_zero)
+    engine = teval.tiny_clip_engine("cpu", params_from_jax(_np(clip)))
+    monkeypatch.setattr(teval, "tiny_clip_engine",
+                        lambda dev, dtype=None: engine)
+    for s in (jsettings, tsettings):
+        monkeypatch.setattr(s, "DETECTION_MAX_OBJECTS", MAX_OBJECTS)
+        # crops embed at once rather than through the batching thread
+        monkeypatch.setattr(s, "BATCHING_EXECUTOR_ENABLED", False)
+    return engine
+
+
+@pytest.fixture()
+def carried(det_weights, jeval, carried_clip, monkeypatch):
+    """``carried_clip``, and both packages' detector trainers returning
+    ``det_weights``' (JAX's trained YOLO and OWL-ViT, carried over)."""
+    jy, ty = det_weights["yolo"]
+    jo, to = det_weights["owl"]
+    monkeypatch.setattr(jeval, "_train_tiny_yolo", lambda *a, **k: jy)
+    monkeypatch.setattr(jeval, "_train_tiny_owl", lambda *a, **k: jo)
+    monkeypatch.setattr(teval, "_train_tiny_yolo", lambda *a, **k: ty)
+    monkeypatch.setattr(teval, "_train_tiny_owl", lambda *a, **k: to)
+    return carried_clip
+
+
+def _record_calls(monkeypatch, pairs):
+    """Wrap each (JAX class, port class, method) → (JAX log, port log)
+    of every call's output."""
+    jlog, tlog = [], []
+    for jcls, tcls, name in pairs:
+        _record(monkeypatch, jcls, name, jlog)
+        _record(monkeypatch, tcls, name, tlog)
+    return jlog, tlog
+
+
+def _same_detections(got, ref):
+    """Per frame the same detections in the same order: boxes within
+    1e-3 px, confidences within 1e-4, the same label."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert len(g) == len(r)
+        for a, b in zip(g, r):
+            assert max(abs(x - y) for x, y in zip(a["bbox"], b["bbox"])) \
+                <= 1e-3
+            assert abs(a["confidence"] - b["confidence"]) <= SCORE_ABS
+            assert a.get("query", a.get("class_id")) \
+                == b.get("query", b.get("class_id"))
+
+
+def test_detection_metrics_match_jax(jeval):
+    """``_match_detections``, ``_iou_xyxy`` and ``_average_precision`` on
+    seeded detections around seeded ground truth (hits, misses, wrong
+    classes, duplicates): JAX's counts and mAP exactly."""
+    rng = np.random.default_rng(8)
+    all_dets, all_gts = [], []
+    for _ in range(6):
+        gb = rng.uniform(0, 80, (4, 2))
+        gb = np.concatenate([gb, gb + rng.uniform(10, 40, (4, 2))], -1)
+        gl = rng.integers(0, 3, 4)
+        dets = [{"bbox": list(gb[j] + rng.normal(0, 3, 4)),
+                 "confidence": float(rng.uniform()),
+                 "class_id": int(gl[j] if rng.uniform() < 0.8
+                                 else rng.integers(0, 3))}
+                for j in rng.integers(0, 4, 5)]
+        assert teval._match_detections(dets, gb, gl) \
+            == jeval._match_detections(dets, gb, gl)
+        assert teval._iou_xyxy(dets[0]["bbox"], gb[0]) \
+            == jeval._iou_xyxy(dets[0]["bbox"], gb[0])
+        all_dets.append(dets)
+        all_gts.append((gb, gl))
+    ap = teval._average_precision(all_dets, all_gts)
+    assert ap == jeval._average_precision(all_dets, all_gts)
+    assert 0 < ap < 1
+
+
+def test_detection_mode_matches_jax(jeval, carried, monkeypatch):
+    """JAX's ``eval_detection`` and the port's on the same trained YOLO
+    and OWL-ViT (both seeds' runs on the one OWL-ViT) and tiny CLIP:
+    every metric, count and threshold choice equal, and every call's
+    detections the same (frame-level YOLO, the 576 ``owlvit`` and
+    ``hybrid`` calls, the video path)."""
+    from avede_tpu.services import detector as jdet
+    from avede_tpu.services import small_object as jso
+    from avede_tpu.services import universal_detector as jud
+
+    from avede_tpu_torch.services import detector as tdet
+    from avede_tpu_torch.services import small_object as tso
+    from avede_tpu_torch.services import universal_detector as tud
+
+    jlog, tlog = _record_calls(monkeypatch, [
+        (jdet.YoloService, tdet.YoloService, "detect"),
+        (jud.UniversalDetector, tud.UniversalDetector,
+         "detect_unlimited_objects")])
+    jvid, tvid = _record_calls(monkeypatch, [
+        (jso.SmallObjectService, tso.SmallObjectService,
+         "detect_in_video")])
+    ref = jeval.eval_detection(0, STEPS, STEPS)
+    got = teval.eval_detection(0, STEPS, STEPS, device="cpu")
+    _close(got, ref)
+    # 32 frame-level calls, 2 seeds × 2 modes × (10 × 12 + 24), and the
+    # video path's YOLO calls
+    assert len(jlog) >= 32 + 576
+    assert len(tlog) == len(jlog)
+    for g, r in zip(tlog, jlog):
+        _same_detections(g, r)
+    assert sum(len(f) for call in jlog for f in call) > 0
+    assert len(tvid) == len(jvid) == 1
+    _same_detections([tvid[0]["results"]], [jvid[0]["results"]])
+
+
+def test_detection_4k_mode_matches_jax(jeval, carried, monkeypatch):
+    """One 3840 × 2160 frame of 220 tiles through both packages'
+    ``SmallObjectService.detect_in_frame`` (the mode's own ``n_frames``
+    and ``n_seeds``): the same mAP@0.5, counts and detections."""
+    from avede_tpu.services import small_object as jso
+
+    from avede_tpu_torch.services import small_object as tso
+
+    jlog, tlog = _record_calls(monkeypatch, [
+        (jso.SmallObjectService, tso.SmallObjectService, "detect_in_frame")])
+    ref = jeval.eval_detection_4k(0, STEPS, n_frames=1, n_seeds=1)
+    got = teval.eval_detection_4k(0, STEPS, n_frames=1, n_seeds=1,
+                                  device="cpu")
+    _close(got, ref)
+    assert ref["tiles_per_frame"] == 220
+    assert len(tlog) == len(jlog) == 1
+    _same_detections(tlog, jlog)
+
+
+# ---------------------------------------------------------------------------
 # the command line
 # ---------------------------------------------------------------------------
 
 def test_modes_and_sections():
-    assert teval.MODES == ("image", "grounding", "text", "library",
-                           "caption", "background")
-    assert teval.LATER_MODES == ("detection", "detection4k", "person")
+    """Every mode of the JAX package's ``main``, in its order, under its
+    section names; nothing is left for later."""
+    assert teval.MODES == ("image", "grounding", "text", "detection",
+                           "detection4k", "person", "caption", "library",
+                           "background")
+    assert not hasattr(teval, "LATER_MODES")
     assert set(teval.SECTIONS) == set(teval.MODES)
+    ref = json.loads((ROOT / "EVAL.json").read_text())
+    assert set(teval.SECTIONS.values()) <= set(ref)
 
 
 @pytest.mark.parametrize("mode", ["image", "text", "library", "caption",
-                                  "background"])
+                                  "background", "detection", "detection4k",
+                                  "person", "all"])
 def test_mode_needs_a_card_unless_asked_for_the_cpu(mode, monkeypatch):
     from avede_tpu_torch.utils.errors import ConfigurationError
 
@@ -318,8 +585,6 @@ def test_mode_needs_a_card_unless_asked_for_the_cpu(mode, monkeypatch):
 def test_main_runs_a_mode_on_the_cpu(monkeypatch, tmp_path):
     """``--mode text --device cpu`` through ``main``, its steps cut by
     the test, writes its section with the device under ``meta``."""
-    import json
-
     real = teval.eval_text_trained
     monkeypatch.setattr(teval, "eval_text_trained",
                         lambda seed, device: real(seed, steps=2, n_seeds=1,
@@ -329,6 +594,8 @@ def test_main_runs_a_mode_on_the_cpu(monkeypatch, tmp_path):
                       "--out", str(out_file)])
     saved = json.loads(out_file.read_text())
     assert saved["meta"]["device"] == "cpu"
+    # the CPU runs the kernels' plain versions: no launch is counted
+    assert saved["meta"]["kernel_launches"] == {"text": {}}
     sec = saved["text_retrieval_trained"]
     assert sec == out["text_retrieval_trained"]
     ref = json.loads((ROOT / "EVAL.json").read_text())[

@@ -817,3 +817,106 @@ def test_blip_caption_train_step_on_card(cuda):
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * losses["cpu"]
     with pytest.raises(ValueError, match="use_flash=False"):
         make_caption_train_step(init_blip(tiny_blip_config()), 0)
+
+
+@pytest.mark.parametrize("bsz,L,fused", [(1, 65, False), (16, 65, True),
+                                         (3, 1, False), (2, 130, False),
+                                         (5, 17, True)])
+def test_flash_blhd_kernel_at_head_dim_24(cuda, bsz, L, fused):
+    """The ``detection`` eval mode's OWL-ViT (64 px, patch 8, 4 heads of
+    24: L = 65, one full key tile and one of a single key): hd = 24,
+    padded to 32 columns (64-byte rows) in shared memory; contiguous
+    heads (row stride 96) or the thirds of a fused qkv (row stride
+    288)."""
+    g = torch.Generator(device="cuda").manual_seed(24 + L)
+    if fused:
+        qkv = torch.randn(bsz, L, 3 * 96, device=cuda, generator=g
+                          ).to(torch.bfloat16)
+        q, k, v = (t.unflatten(-1, (4, 24)) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn(bsz, L, 96, device=cuda, generator=g
+                               ).to(torch.bfloat16).view(bsz, L, 4, 24)
+                   for _ in range(3))
+    before = tattn.flash_attention_blhd.launches_by_length[L]
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_blhd.launches_by_length[L] == before + 1
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+def test_detection_owlvit_on_card_matches_cpu(cuda):
+    """The ``detection`` mode's OWL-ViT served as ``UniversalDetector``
+    serves it (bf16, flash in each of its 4 vision layers at L = 65,
+    hd = 24) against the same weights in f32 on the CPU: each frame's
+    logits at cosine >= 0.999, boxes within 0.02."""
+    from avede_tpu_torch.eval import DETECTION_OWL
+    from avede_tpu_torch.models.owlvit import OwlViTConfig, init_owlvit
+    from avede_tpu_torch.ops.preprocess import clip_preprocess
+
+    cpu = init_owlvit(OwlViTConfig(**DETECTION_OWL), seed=0).eval()
+    card = init_owlvit(OwlViTConfig(**DETECTION_OWL, use_flash=True,
+                                    dtype="bfloat16"), seed=0)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda, torch.bfloat16).eval()
+    frames = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (3, 128, 128, 3), dtype=np.uint8))
+    ids = torch.from_numpy(np.random.default_rng(6).integers(
+        1, 255, (4, 8)).astype(np.int64))
+    before = tattn.flash_attention_blhd.launches_by_length[65]
+    with torch.inference_mode():
+        lg, bx = card(clip_preprocess(frames.to(cuda), size=64),
+                      ids.to(cuda))
+        torch.cuda.synchronize()
+        rl, rb = cpu(clip_preprocess(frames, size=64), ids)
+    assert tattn.flash_attention_blhd.launches_by_length[65] == before + 4
+    got, ref = lg.float().cpu().reshape(3, -1), rl.reshape(3, -1)
+    cos = (got * ref).sum(1) / (got.norm(dim=1) * ref.norm(dim=1))
+    assert float(cos.min()) >= 0.999, float(cos.min())
+    assert float((bx.float().cpu() - rb).abs().max()) <= 0.02
+
+
+@pytest.mark.parametrize("name", ["yolo", "owl"])
+def test_detector_train_step_on_card_matches_cpu(cuda, name, monkeypatch):
+    """One step of each detector trainer on the card and on the CPU from
+    one seed and batch, with cuDNN's TF32 at PyTorch's default (on): the
+    step's own switch keeps its convolutions in f32. Loss within 1e-4
+    relative, gradient norm within 1e-3; YOLO's BatchNorm statistics
+    unchanged; the switch restored after the step."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    from avede_tpu_torch.eval import DETECTION_OWL
+    from avede_tpu_torch.models.owlvit import OwlViTConfig
+    from avede_tpu_torch.models.yolo import YoloConfig
+    from avede_tpu_torch.parallel.train_det import (create_yolo_train_state,
+                                                    make_yolo_train_step)
+    from avede_tpu_torch.parallel.train_owl import (create_owl_train_state,
+                                                    make_owl_train_step)
+    from avede_tpu_torch.utils.synthetic import draw_shape_scene
+
+    rng = np.random.default_rng(9)
+    size = 64 if name == "yolo" else 128
+    data = [draw_shape_scene(rng, hw=(size, size), max_boxes=4)
+            for _ in range(4)]
+    batch = [np.stack([d[i] for d in data]) for i in range(4)]
+    if name == "owl":
+        batch[1] = (batch[1] / size).astype(np.float32)
+    ids = rng.integers(1, 255, (4, 8))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if name == "yolo":
+            model, state = create_yolo_train_state(
+                YoloConfig(num_classes=4, img_size=64), device=dev)
+            step = make_yolo_train_step(model)
+        else:
+            model, state = create_owl_train_state(
+                OwlViTConfig(**DETECTION_OWL), device=dev)
+            step = make_owl_train_step(model, ids)
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if "running" in k}
+        _, m = step(state, *(torch.from_numpy(a).to(dev) for a in batch))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        for k, v in stats.items():
+            assert torch.equal(model.state_dict()[k], v), k
+        assert torch.backends.cudnn.allow_tf32
+    (lc, gc), (lr, gr) = out["cuda"], out["cpu"]
+    assert abs(lc - lr) <= 1e-4 * abs(lr) and abs(gc - gr) <= 1e-3 * gr
