@@ -10,8 +10,11 @@
 //   qkv projection's [B, L, 3D] output (BLIP's vision tower), read in
 //   place. Output bf16 [B, L, H*hd] that out_proj reads as it is. No
 //   transpose or copy exists around it.
-// - avede_flash_attention_f32 (the TPU kernel's contract): f32
-//   [B*H, L, D], one thread per query row (kept from the first port).
+// - avede_flash_attention_f32 (the TPU kernel's contract, and the path
+//   of an f32 model's flash layers): f32 [B*H, L, D] in and out, D any
+//   multiple of 8 up to 128 in the template (instantiated at 16, 24,
+//   32, 64 and 88), 3xTF32 on the tensor cores; its design is described
+//   above its kernel, after the bf16 entry's.
 //
 // Replaces avede_tpu/ops/attention.py: flash_attention / _flash_kernel
 // (the pl.pallas_call at :85).
@@ -49,107 +52,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-namespace {
-
-constexpr int BQ = 64;
-constexpr int BKV = 32;
-
-template <int D>
-__global__ void __launch_bounds__(BQ)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int L, float scale) {
-  __shared__ float Ks[BKV][D];
-  __shared__ float Vs[BKV][D];
-
-  const long long base = (long long)blockIdx.x * L * D;
-  const int row = blockIdx.y * BQ + threadIdx.x;
-  const bool active = row < L;
-
-  float qr[D];
-  float acc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    qr[c] = active ? q[base + (long long)row * D + c] : 0.f;
-    acc[c] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += BKV) {
-    for (int i = threadIdx.x; i < BKV * D; i += BQ) {
-      const int r = i / D;
-      const int c = i % D;
-      const bool in = t0 + r < L;
-      const long long off = base + (long long)(t0 + r) * D + c;
-      Ks[r][c] = in ? k[off] : 0.f;
-      Vs[r][c] = in ? v[off] : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      const int nk = min(BKV, L - t0);
-      float sc[BKV];
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BKV; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) dot = fmaf(qr[c], Ks[j][c], dot);
-        sc[j] = j < nk ? dot * scale : -INFINITY;
-        tmax = fmaxf(tmax, sc[j]);
-      }
-      const float m_new = fmaxf(m, tmax);
-      const float alpha = expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BKV; ++j) {
-        sc[j] = expf(sc[j] - m_new);
-        psum += sc[j];
-      }
-      l = l * alpha + psum;
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < BKV; ++j)
-#pragma unroll
-        for (int c = 0; c < D; ++c) acc[c] = fmaf(sc[j], Vs[j][c], acc[c]);
-      m = m_new;
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int c = 0; c < D; ++c) o[base + (long long)row * D + c] = acc[c] * inv;
-  }
-}
-
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o, int bh,
-           int L, void* stream) {
-  dim3 grid(bh, (L + BQ - 1) / BQ);
-  const float scale = 1.f / sqrtf((float)D);
-  flash_attention_kernel<D><<<grid, BQ, 0, (cudaStream_t)stream>>>(
-      q, k, v, o, L, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a head
-// dimension without an instantiation.
-extern "C" int avede_flash_attention_f32(const float* q, const float* k,
-                                         const float* v, float* o, int bh,
-                                         int L, int D, void* stream) {
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, bh, L, stream);
-    case 32: return launch<32>(q, k, v, o, bh, L, stream);
-    case 64: return launch<64>(q, k, v, o, bh, L, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 [B, L, H, hd] entry (hd = 16, 24, 64 or 88)
@@ -490,4 +392,337 @@ extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
   if (D == 24) return launch_bf16<24, 32>(q, k, v, o, B, L, H, ldi, stream);
   if (D == 64) return launch_bf16<64, 64>(q, k, v, o, B, L, H, ldi, stream);
   return launch_bf16<88, 96>(q, k, v, o, B, L, H, ldi, stream);
+}
+
+// ---------------------------------------------------------------------------
+// f32 [B, H, L, D] entry (the TPU kernel's contract): 3xTF32 tensor cores
+// ---------------------------------------------------------------------------
+//
+// The block structure of the bf16 entry: 4 warps of 16 query rows (a
+// 64-row q tile), a persistent grid walking (pair, q tile) items, 64-key
+// K/V tiles brought in by 16-byte cp.async (rows past L zero-filled) and
+// double-buffered, the online softmax in the accumulator fragments with
+// quad shuffles for row max and sum, keys past L scored -inf. What
+// differs is f32 accuracy on the tensor cores:
+// - 3xTF32 on mma.sync m16n8k8 (tf32 in, f32 accumulate): each operand
+//   x is split into big = x rounded to tf32 and small = x - big, and
+//   small.big + big.small + big.big accumulate in f32, about 21 bits of
+//   mantissa. bf16 x3 (about 16 bits) would not do here: a score's
+//   error goes through exp into p, and at |s| near 10 it would sit on
+//   the entry's 1e-4 bar. The split is integer rounding and one
+//   subtraction (split_tf32), not two cvt.rna.tf32.f32: the kernel
+//   spends its time issuing the splits beside the products, and the
+//   conversions ran slower on the H100 at the same accuracy.
+// - The m16n8k8 accumulator holds columns (2t, 2t+1) of rows g and g+8,
+//   its A operand columns t and t+4, so P cannot feed P.V in the
+//   accumulator's layout as it does in m16n8k16. Rather than move P
+//   between lanes, P.V's k dimension is permuted: A column t stands for
+//   key 2t of the k8 step and column t+4 for key 2t+1, and V's B
+//   fragment reads rows 2t and 2t+1 to match. Q.K^T does the same over
+//   the head dim, so each lane reads (2t, 2t+1) of a Q or K row as one
+//   float2.
+// - Shared rows are padded so the fragment reads are conflict-free: K
+//   rows (float2 reads, rows g by lanes t) at a stride of 8 mod 16
+//   words, V rows (single floats, rows 2t and 2t+1 by column g) at 4
+//   mod 8.
+// - Q never enters shared memory: at an item's first tile each warp
+//   loads its 16 rows' fragments from global memory into registers (D/2
+//   floats, raw; split at each K/V tile), in flight while the K/V tile
+//   lands. That leaves Q, O (D/2) and S (32) in registers at D = 88, and
+//   shared memory to the K/V ring alone (72 KB at D = 64: three blocks
+//   an SM; 92 KB at D = 88: two). Staging Q beside K and V, as the bf16
+//   entry does, held D = 88 to one block an SM, which ran slower. A
+//   warp whose 16 query rows all lie past L skips the tile, and key
+//   groups of 8 past L skip their products (L = 257: the last q tile
+//   has one row, the last K/V tile one key).
+// Bound: f32 [128, 12, 50, 64] moves 78.6 MB for 0.98 GFLOP (x3 passes:
+// 0.0060 ms on the TF32 tensor cores' 495 TFLOP/s), bound by bytes;
+// [30, 16, 257, 88] moves 173.7 MB for 11.2 GFLOP (x3: 0.0677 ms), bound
+// by operations.
+
+namespace {
+
+template <int D>
+struct F32Geo {
+  static_assert(D % 8 == 0 && D >= 8 && D <= 128,
+                "head dim a multiple of 8 up to 128");
+  static constexpr int SK = D % 16 == 0 ? D + 8 : D;   // k row stride
+  static constexpr int SV = D + 4;                      // v row stride
+  static constexpr int CH = D / 4;                      // 16-byte chunks
+};
+
+template <int D>
+struct F32Stage {
+  float k[TR * F32Geo<D>::SK];
+  float v[TR * F32Geo<D>::SV];
+};
+
+// rows row0.. of a [L, D] matrix into rows of stride S; rows >= L are
+// zero-filled (src-size 0)
+template <int D, int S>
+__device__ __forceinline__ void load_f32(float* dst, const float* src,
+                                         int row0, int L) {
+  constexpr int CH = F32Geo<D>::CH;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < TR * CH; i += TT) {
+    const int r = i / CH, c = i % CH;
+    const int gr = row0 + r;
+    const bool ok = gr < L;
+    const float* g = ok ? src + (long long)gr * D + c * 4 : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst + r * S + c * 4)), "l"(g),
+                    "r"(ok ? 16 : 0) : "memory");
+  }
+}
+
+// x -> (big, small): big is x rounded to tf32 (half an ulp up in
+// magnitude, then the low 13 bits cleared), small = x - big exactly
+// (|small| <= 2^-11 |x|), passed as f32 bits: the tensor core reads the
+// top 19 bits of each operand, so small keeps about 10 more and
+// big + small = x to about 2^-21 relative
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32: the two small terms, then big.big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TT)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int bh,
+                 int L, float scale_log2) {
+  using G = F32Geo<D>;
+  constexpr int KS = D / 8;                   // Q.K^T k8 steps, P.V n8 tiles
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  F32Stage<D>* st = reinterpret_cast<F32Stage<D>*>(smem_raw);
+  const int nt = (L + TR - 1) / TR;           // q tiles = K/V tiles
+  const int items = bh * nt;
+  const int mine = (int)blockIdx.x < items
+      ? (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  const int steps = mine * nt;                // (item, kv tile) steps
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // step s's pair offset, q tile and kv tile
+  auto where = [&](int s, int& qt, int& kt) -> long long {
+    const int item = (int)blockIdx.x + (s / nt) * (int)gridDim.x;
+    kt = s % nt;
+    qt = item % nt;
+    return (long long)(item / nt) * L * D;
+  };
+  auto issue = [&](int s) {
+    int qt, kt;
+    const long long base = where(s, qt, kt);
+    F32Stage<D>& S = st[s & 1];
+    load_f32<D, G::SK>(S.k, k + base, kt * TR, L);
+    load_f32<D, G::SV>(S.v, v + base, kt * TR, L);
+  };
+
+  if (steps > 0) issue(0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // Q fragments, raw: qf[kk] = rows (g, g+8) x dims (8kk+2t, 8kk+2t+1)
+  float qf[KS][4];
+  float acc[KS][4];
+  float m[2], l[2];
+
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) issue(s + 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    int qt, kt;
+    const long long base = where(s, qt, kt);
+    const int row = qt * TR + warp * 16 + g;  // this lane's first q row
+    const bool live = qt * TR + warp * 16 < L;  // the warp has a live row
+    if (live && kt == 0) {
+      // a new item: its Q fragments straight from global memory into
+      // registers, in flight while the K/V tile lands
+      const float* q0 = q + base + (long long)row * D + 2 * t;
+      const float2 zero = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const float2 r0 = row < L
+            ? *reinterpret_cast<const float2*>(q0 + 8 * kk) : zero;
+        const float2 r1 = row + 8 < L
+            ? *reinterpret_cast<const float2*>(q0 + 8 * D + 8 * kk) : zero;
+        qf[kk][0] = r0.x; qf[kk][1] = r1.x;
+        qf[kk][2] = r0.y; qf[kk][3] = r1.y;
+      }
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const F32Stage<D>& S = st[s & 1];
+
+    if (live) {
+      const int keys = L - kt * TR;           // live keys of this tile
+
+      // scores: 16 query rows x 64 keys per warp
+      float sc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(qf[kk][e], ab[e], as[e]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (8 * j < keys) {
+            const float2 kv = *reinterpret_cast<const float2*>(
+                &S.k[(8 * j + g) * G::SK + 8 * kk + 2 * t]);
+            mma_3xtf32(sc[j], ab, as, kv.x, kv.y);
+          }
+        }
+      }
+      const int key0 = kt * TR + 2 * t;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (key0 + 8 * j + (e & 1) >= L) sc[j][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      }
+      float alpha[2], ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        alpha[i] = exp2f((m[i] - mx[i]) * scale_log2);
+        ms[i] = mx[i] * scale_log2;
+        m[i] = mx[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2f(fmaf(sc[j][e], scale_log2, -ms[e >> 1]));
+          rs[e >> 1] += sc[j][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+      }
+
+      // P.V, 8 keys a step: A column t is key 2t, column t+4 key 2t+1,
+      // so P's accumulator fragment is the A fragment as it stands
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if (8 * kk < keys) {
+          uint32_t pb[4], ps[4];
+          split_tf32(sc[kk][0], pb[0], ps[0]);
+          split_tf32(sc[kk][2], pb[1], ps[1]);
+          split_tf32(sc[kk][1], pb[2], ps[2]);
+          split_tf32(sc[kk][3], pb[3], ps[3]);
+          const float* v0 = &S.v[(8 * kk + 2 * t) * G::SV + g];
+#pragma unroll
+          for (int n = 0; n < KS; ++n)
+            mma_3xtf32(acc[n], pb, ps, v0[8 * n], v0[G::SV + 8 * n]);
+        }
+      }
+
+      if (kt == nt - 1) {
+        float inv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float r = l[i];
+          r += __shfl_xor_sync(0xffffffffu, r, 1);
+          r += __shfl_xor_sync(0xffffffffu, r, 2);
+          inv[i] = 1.f / r;
+        }
+        float* o0 = o + base + (long long)row * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          if (row < L)
+            *reinterpret_cast<float2*>(o0 + 8 * n) =
+                make_float2(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+          if (row + 8 < L)
+            *reinterpret_cast<float2*>(o0 + 8 * D + 8 * n) =
+                make_float2(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int bh, int L, void* stream) {
+  static int grid_cap = 0;
+  const int smem = 2 * (int)sizeof(F32Stage<D>);
+  if (grid_cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_f32_kernel<D>, TT, smem);
+    if (err != cudaSuccess) return (int)err;
+    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int items = bh * ((L + TR - 1) / TR);
+  const int grid = items < grid_cap ? items : grid_cap;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  flash_f32_kernel<D><<<grid, TT, smem, (cudaStream_t)stream>>>(
+      q, k, v, o, bh, L, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, o: contiguous f32 [B*H, L, D], each pointer 16-byte aligned.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a head
+// dimension without an instantiation.
+extern "C" int avede_flash_attention_f32(const float* q, const float* k,
+                                         const float* v, float* o, int bh,
+                                         int L, int D, void* stream) {
+  switch (D) {
+    case 16: return launch_f32<16>(q, k, v, o, bh, L, stream);
+    case 24: return launch_f32<24>(q, k, v, o, bh, L, stream);
+    case 32: return launch_f32<32>(q, k, v, o, bh, L, stream);
+    case 64: return launch_f32<64>(q, k, v, o, bh, L, stream);
+    case 88: return launch_f32<88>(q, k, v, o, bh, L, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

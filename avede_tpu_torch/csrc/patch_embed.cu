@@ -46,13 +46,14 @@
 // P is 32 (K step = 2 rows x 32 px); D must be a multiple of 96.
 //
 // Every other shape (any P that divides S, any D: the tiny 32 px CLIP's
-// P = 8, D = 64) takes a second, simple kernel with the same three
-// entries (avede_patch_embed_any_*): SIMT, a block of 256 threads for
-// 32 patches x 64 output channels, one (pixel row, channel) K slice of
-// P values at a time staged in shared memory (the pixels unpacked and
-// split hi/lo, the W' slice read from the same split bf16 operands), the
-// same three bf16 products a term accumulated in f32. At the tiny shape
-// (K = 192) it is bound by launch and bytes, not operations.
+// P = 8, D = 64) takes a second kernel with the same three entries
+// (avede_patch_embed_any_*), on mma.sync m16n8k16 over the same split
+// bf16 operands and three products: 16 patches x 32 output channels a
+// block (64 blocks at the tiny CLIP's 32-frame batch, M = 512, D = 64),
+// the block's whole K (192 there) staged once in shared memory, then one
+// barrier and the products (its design is described above it). At the
+// tiny shape it moves 0.16 MB for 12.6 MFLOP (x3): bound by its launch
+// and latency, far from bytes or operations.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -503,27 +504,45 @@ int launch(const void* frames, const void* w_hi, const void* w_lo,
 }
 
 // ---------------------------------------------------------------------------
-// Any P that divides S, any D: the simple kernel
+// Any P that divides S, any D: mma.sync on the split operands
 // ---------------------------------------------------------------------------
+//
+// A block computes 16 patches x 32 output channels, one m16 tile: each of
+// its 4 warps one n8 tile of them, on mma.sync m16n8k16 (bf16 in, f32
+// accumulate) over the same three products as the wgmma kernel. The
+// block stages its K whole (up to ANY_KC values; past that, in chunks of
+// whole row pairs) and once: the A hi/lo tile [16, K] built from the
+// frames, each pixel unpacked once for its three channels, and the W'
+// hi/lo tile [32, K] from split_patch_weights' operands by 16-byte
+// cp.async where P % 4 == 0 (K and each chunk a multiple of 8), else by
+// 2-byte loads; K is zero-padded to a multiple of 16 (P = 7: 147 ->
+// 160), then one barrier. Rows are padded by 8 bf16 so the 32-bit
+// fragment reads (rows g by lanes t) are conflict-free. Ragged D columns
+// read zero weights and are masked on store; the bias is added in f32.
 
-constexpr int ANY_ROWS = 32;            // patches a block
-constexpr int ANY_COLS = 64;            // output channels a block
-constexpr int ANY_THREADS = 256;        // 4 groups of 8 patches x 64 columns
-constexpr int ANY_PER = ANY_ROWS * ANY_COLS / ANY_THREADS;
+constexpr int ANY_BM = 16;              // patches a block (one m16 tile)
+constexpr int ANY_BN = 32;              // output channels a block
+constexpr int ANY_THREADS = 128;        // 4 warps, one n8 tile each
+constexpr int ANY_KC = 192;             // K staged at once (P = 8: all)
 
-// K position of (pixel row py, channel c, px) in split_patch_weights'
-// order (row pair, channel, row, px); an odd P's last pair has one row
-__device__ __forceinline__ int kpos(int py, int c, int px, int p) {
-  const int pair = py >> 1;
-  const int rows = min(2, p - 2 * pair);
-  return pair * 6 * p + (c * rows + (py & 1)) * p + px;
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// channel c of pixel (y, x) of image img, 0..255, as the wgmma producers
-// compute it
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the three channels of pixel (y, x) of image img, 0..255, as the wgmma
+// producers compute them
 template <int MODE>
-__device__ __forceinline__ float pixel(const void* frames, long long img,
-                                       int y, int x, int c, int s) {
+__device__ __forceinline__ void pixel3(const void* frames, long long img,
+                                       int y, int x, int s, float (&c)[3]) {
   if (MODE == I420) {
     const uint8_t* f = static_cast<const uint8_t*>(frames)
                      + img * (long long)s * s * 3 / 2;
@@ -531,101 +550,169 @@ __device__ __forceinline__ float pixel(const void* frames, long long img,
     const long long coff = (long long)(y / 2) * (s / 2) + x / 2;
     const float u = (float)f[(long long)s * s + coff] - 128.f;
     const float v = (float)f[(long long)s * s * 5 / 4 + coff] - 128.f;
-    return c == 0 ? yuv_channel<0>(yv, u, v)
-         : c == 1 ? yuv_channel<1>(yv, u, v) : yuv_channel<2>(yv, u, v);
+    c[0] = yuv_channel<0>(yv, u, v);
+    c[1] = yuv_channel<1>(yv, u, v);
+    c[2] = yuv_channel<2>(yv, u, v);
+    return;
   }
-  const long long at = ((img * s + y) * (long long)s + x) * 3 + c;
-  if (MODE == RGB_U8) return (float)static_cast<const uint8_t*>(frames)[at];
-  return static_cast<const float*>(frames)[at];
+  const long long at = ((img * s + y) * (long long)s + x) * 3;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    c[i] = MODE == RGB_U8
+        ? (float)static_cast<const uint8_t*>(frames)[at + i]
+        : static_cast<const float*>(frames)[at + i];
 }
 
+// pc: row pairs a chunk; ks: the shared row stride in bf16 elements
 template <int MODE, typename OutT>
 __global__ void __launch_bounds__(ANY_THREADS)
 patch_embed_any_kernel(const void* __restrict__ frames,
                        const __nv_bfloat16* __restrict__ w_hi,
                        const __nv_bfloat16* __restrict__ w_lo,
                        const float* __restrict__ bias, OutT* __restrict__ out,
-                       int n, int s, int d, int p) {
-  // a_hi, a_lo [ANY_ROWS][p]; w_hi, w_lo [p][ANY_COLS] (column-fastest,
-  // so a warp's 32 columns read 32 banks)
-  extern __shared__ float any_smem[];
-  float* a_hi = any_smem;
-  float* a_lo = a_hi + ANY_ROWS * p;
-  float* wh = a_lo + ANY_ROWS * p;
-  float* wl = wh + p * ANY_COLS;
-  const int g = s / p, gg = g * g, k = p * p * 3;
-  const long long m_total = (long long)n * gg;
-  const long long m0 = (long long)blockIdx.x * ANY_ROWS;
-  const int n0 = blockIdx.y * ANY_COLS;
-  const int col = threadIdx.x % ANY_COLS, grp = threadIdx.x / ANY_COLS;
-  float acc[ANY_PER];
-#pragma unroll
-  for (int r = 0; r < ANY_PER; ++r) acc[r] = 0.f;
+                       int n, int s, int d, int p, int pc, int ks) {
+  // a_hi, a_lo [ANY_BM][ks]; w_hi, w_lo [ANY_BN][ks] (rows along K)
+  extern __shared__ __align__(16) unsigned char any_smem[];
+  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(any_smem);
+  __nv_bfloat16* a_lo = a_hi + ANY_BM * ks;
+  __nv_bfloat16* wh = a_lo + ANY_BM * ks;
+  __nv_bfloat16* wl = wh + ANY_BN * ks;
+  __shared__ long long img_of[ANY_BM];  // -1 past the last patch
+  __shared__ int y_of[ANY_BM], x_of[ANY_BM];
+  constexpr bool kLo = MODE != RGB_U8;  // a_lo = 0 for uint8 pixels
 
-  for (int py = 0; py < p; ++py) {
-    for (int c = 0; c < 3; ++c) {
-      for (int i = threadIdx.x; i < ANY_ROWS * p; i += ANY_THREADS) {
-        const int r = i / p, px = i % p;
-        const long long m = m0 + r;
-        float x = 0.f;
-        if (m < m_total) {
-          const int cell = (int)(m % gg);
-          x = pixel<MODE>(frames, m / gg, (cell / g) * p + py,
-                          (cell % g) * p + px, c, s);
-        }
-        const float hi = __bfloat162float(__float2bfloat16_rn(x));
-        a_hi[i] = hi;
-        a_lo[i] = __bfloat162float(__float2bfloat16_rn(x - hi));
-      }
-      const int k0 = kpos(py, c, 0, p);
-      for (int i = threadIdx.x; i < ANY_COLS * p; i += ANY_THREADS) {
-        const int dd = i / p, px = i % p;
-        const bool ok = n0 + dd < d;
-        const long long at = (long long)(n0 + dd) * k + k0 + px;
-        wh[px * ANY_COLS + dd] = ok ? __bfloat162float(w_hi[at]) : 0.f;
-        wl[px * ANY_COLS + dd] = ok ? __bfloat162float(w_lo[at]) : 0.f;
-      }
-      __syncthreads();
-      for (int px = 0; px < p; ++px) {
-        const float bh = wh[px * ANY_COLS + col];
-        const float bl = wl[px * ANY_COLS + col];
-#pragma unroll
-        for (int r = 0; r < ANY_PER; ++r) {
-          const int at = (grp * ANY_PER + r) * p + px;
-          acc[r] = fmaf(a_hi[at], bh, acc[r]);
-          acc[r] = fmaf(a_hi[at], bl, acc[r]);
-          acc[r] = fmaf(a_lo[at], bh, acc[r]);
-        }
-      }
-      __syncthreads();
-    }
+  const int g = s / p, gg = g * g, k = 3 * p * p, pairs = (p + 1) / 2;
+  const long long m_total = (long long)n * gg;
+  const long long m0 = (long long)blockIdx.x * ANY_BM;
+  const int n0 = blockIdx.y * ANY_BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const bool vec = p % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(w_hi) | reinterpret_cast<uintptr_t>(w_lo))
+       & 15) == 0;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+
+  if (tid < ANY_BM) {
+    const long long m = m0 + tid;
+    const int cell = (int)((m < m_total ? m : 0) % gg);
+    img_of[tid] = m < m_total ? m / gg : -1;
+    y_of[tid] = (cell / g) * p;
+    x_of[tid] = (cell % g) * p;
   }
-  const int dc = n0 + col;
-  if (dc >= d) return;
-  const float b = bias[dc];
-#pragma unroll
-  for (int r = 0; r < ANY_PER; ++r) {
-    const long long m = m0 + grp * ANY_PER + r;
-    if (m >= m_total) break;
-    if constexpr (sizeof(OutT) == 2) {
-      out[m * d + dc] = __float2bfloat16_rn(acc[r] + b);
+  __syncthreads();
+
+  float acc0[4] = {0.f, 0.f, 0.f, 0.f};   // a_hi.w_hi
+  float acc1[4] = {0.f, 0.f, 0.f, 0.f};   // a_hi.w_lo + a_lo.w_hi
+  for (int pa = 0; pa < pairs; pa += pc) {
+    const int pb = min(pa + pc, pairs);
+    const int k0 = pa * 6 * p, clen = min(pb * 6 * p, k) - k0;
+    const int kp = (clen + 15) & ~15;
+    // W' rows n0.., K positions k0.. (zero past D and past clen)
+    if (vec) {
+      const int cpr = kp / 8;
+      for (int i = tid; i < ANY_BN * cpr; i += ANY_THREADS) {
+        const int r = i / cpr, c = i % cpr;
+        const bool ok = n0 + r < d && 8 * c < clen;
+        const long long at = ok ? (long long)(n0 + r) * k + k0 + 8 * c : 0;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(smem_u32(wh + r * ks + 8 * c)), "l"(w_hi + at),
+                        "r"(ok ? 16 : 0) : "memory");
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(smem_u32(wl + r * ks + 8 * c)), "l"(w_lo + at),
+                        "r"(ok ? 16 : 0) : "memory");
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     } else {
-      out[m * d + dc] = acc[r] + b;
+      for (int i = tid; i < ANY_BN * kp; i += ANY_THREADS) {
+        const int r = i / kp, c = i % kp;
+        const bool ok = n0 + r < d && c < clen;
+        const long long at = (long long)(n0 + r) * k + k0 + c;
+        wh[r * ks + c] = ok ? w_hi[at] : zero;
+        wl[r * ks + c] = ok ? w_lo[at] : zero;
+      }
+    }
+    // the A tile: the K pad, then each pixel of the chunk's rows once,
+    // its channels at (row pair, channel, row, px) positions
+    for (int i = tid; i < ANY_BM * (kp - clen); i += ANY_THREADS) {
+      const int r = i / (kp - clen), c = clen + i % (kp - clen);
+      a_hi[r * ks + c] = zero;
+      a_lo[r * ks + c] = zero;
+    }
+    const int py0 = 2 * pa, nr = min(2 * pb, p) - py0;
+    for (int i = tid; i < ANY_BM * nr * p; i += ANY_THREADS) {
+      const int px = i % p, rest = i / p;
+      const int py = py0 + rest % nr, r = rest / nr;
+      float x[3] = {0.f, 0.f, 0.f};
+      if (img_of[r] >= 0)
+        pixel3<MODE>(frames, img_of[r], y_of[r] + py, x_of[r] + px, s, x);
+      const int pair = py >> 1, rows = min(2, p - 2 * pair);
+      const int at = r * ks + pair * 6 * p + (py & 1) * p + px - k0;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const __nv_bfloat16 hi = __float2bfloat16_rn(x[c]);
+        a_hi[at + c * rows * p] = hi;
+        if (kLo)
+          a_lo[at + c * rows * p] =
+              __float2bfloat16_rn(x[c] - __bfloat162float(hi));
+      }
+    }
+    if (vec) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // warp w: output channels n0 + 8w .. + 8 of the 16 patches
+    const __nv_bfloat16* wr_hi = wh + (8 * warp + gq) * ks + 2 * t;
+    const __nv_bfloat16* wr_lo = wl + (8 * warp + gq) * ks + 2 * t;
+    const int ra = gq * ks + 2 * t, rb = ra + 8 * ks;
+    for (int kk = 0; kk < kp; kk += 16) {
+      const uint32_t ah[4] = {ld32(a_hi + ra + kk), ld32(a_hi + rb + kk),
+                              ld32(a_hi + ra + kk + 8),
+                              ld32(a_hi + rb + kk + 8)};
+      const uint32_t bh0 = ld32(wr_hi + kk), bh1 = ld32(wr_hi + kk + 8);
+      mma_bf16(acc0, ah, bh0, bh1);
+      mma_bf16(acc1, ah, ld32(wr_lo + kk), ld32(wr_lo + kk + 8));
+      if (kLo) {
+        const uint32_t al[4] = {ld32(a_lo + ra + kk), ld32(a_lo + rb + kk),
+                                ld32(a_lo + ra + kk + 8),
+                                ld32(a_lo + rb + kk + 8)};
+        mma_bf16(acc1, al, bh0, bh1);
+      }
+    }
+    __syncthreads();
+  }
+
+  // accumulator: rows gq and gq + 8, columns 2t and 2t + 1 of the n8 tile
+  const int col = n0 + 8 * warp + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long m = m0 + gq + 8 * h;
+    if (m >= m_total) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (col + e >= d) continue;
+      const float x = acc0[2 * h + e] + acc1[2 * h + e] + bias[col + e];
+      if constexpr (sizeof(OutT) == 2) {
+        out[m * d + col + e] = __float2bfloat16_rn(x);
+      } else {
+        out[m * d + col + e] = x;
+      }
     }
   }
 }
 
 // cudaErrorInvalidValue for a P that does not divide S (or an odd S for
-// I420) or a P whose slices overflow shared memory, else the CUDA error
-// of the set-up or of the launch.
+// I420) or a P whose row pair overflows shared memory, else the CUDA
+// error of the set-up or of the launch.
 template <int MODE, typename OutT>
 int launch_any(const void* frames, const void* w_hi, const void* w_lo,
                const float* bias, OutT* out, int n, int s, int d, int p,
                void* stream) {
   if (p < 1 || s % p != 0 || (MODE == I420 && s % 2 != 0) || d < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = (2 * ANY_ROWS + 2 * ANY_COLS) * p * (int)sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int pc = ANY_KC / (6 * p) > 1 ? ANY_KC / (6 * p) : 1;
+  const int chunk = pc * 6 * p < 3 * p * p ? pc * 6 * p : 3 * p * p;
+  const int ks = ((chunk + 15) & ~15) + 8;
+  const int smem = 2 * (ANY_BM + ANY_BN) * ks * (int)sizeof(__nv_bfloat16);
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         patch_embed_any_kernel<MODE, OutT>,
@@ -633,12 +720,13 @@ int launch_any(const void* frames, const void* w_hi, const void* w_lo,
     if (err != cudaSuccess) return (int)err;
   }
   const long long m = (long long)n * (s / p) * (s / p);
-  const dim3 grid((unsigned)((m + ANY_ROWS - 1) / ANY_ROWS),
-                  (unsigned)((d + ANY_COLS - 1) / ANY_COLS));
+  const dim3 grid((unsigned)((m + ANY_BM - 1) / ANY_BM),
+                  (unsigned)((d + ANY_BN - 1) / ANY_BN));
   patch_embed_any_kernel<MODE, OutT>
       <<<grid, ANY_THREADS, smem, (cudaStream_t)stream>>>(
           frames, static_cast<const __nv_bfloat16*>(w_hi),
-          static_cast<const __nv_bfloat16*>(w_lo), bias, out, n, s, d, p);
+          static_cast<const __nv_bfloat16*>(w_lo), bias, out, n, s, d, p,
+          pc, ks);
   return (int)cudaGetLastError();
 }
 
@@ -670,7 +758,7 @@ extern "C" int avede_patch_embed_f32(const float* frames, const void* w_hi,
                                 stream);
 }
 
-// The simple kernel's entries: any p that divides s, any d; w_hi, w_lo
+// The any-shape kernel's entries: any p that divides s, any d; w_hi, w_lo
 // bf16 [d, p*p*3] from split_patch_weights. Return 0 or an error code
 // (see launch_any).
 extern "C" int avede_patch_embed_any_i420(const uint8_t* packed,

@@ -4,16 +4,19 @@
 Parameter names follow the JAX package's (``q_proj``, ``layer_norm1``,
 ``mlp.fc1``, ``layers.<i>``) so ``models/convert.py`` maps one onto the
 other. Unmasked, non-causal self-attention — every layer of the CLIP
-vision tower — goes through the hand-written ``flash_attention_blhd``
-when ``use_flash`` is set: the projections' outputs go in as they are,
+vision tower — goes through a hand-written flash kernel when
+``use_flash`` is set. A bf16 model's goes through
+``flash_attention_blhd``: the projections' outputs go in as they are,
 viewed per head, and its ``[B, L, D]`` output goes to ``out_proj``, with
 no cast or transpose copy around it (the JAX package casts to f32 and
 transposes for its Pallas kernel; bf16 → f32 is exact, so the values
-agree up to accumulation order). Causal or masked attention (the text
-tower, the grounding head) stays plain torch with an f32 softmax, as
-the JAX package left it to einsum; masked keys score ``finfo.min``, not
-``-inf``, so an all-masked row (a padded window) gets a uniform softmax
-as in JAX instead of NaN.
+agree up to accumulation order). An f32 model's goes through the f32
+entry ``flash_attention``, transposed to ``[B, H, L, hd]`` and back as
+the JAX layer does; any other dtype raises. Causal or masked attention
+(the text tower, the grounding head) stays plain torch with an f32
+softmax, as the JAX package left it to einsum; masked keys score
+``finfo.min``, not ``-inf``, so an all-masked row (a padded window) gets
+a uniform softmax as in JAX instead of NaN.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention_blhd
+from ..ops.attention import flash_attention, flash_attention_blhd
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -108,7 +111,15 @@ class MultiHeadAttention(nn.Module):
         k = self.k_proj(x).view(heads)
         v = self.v_proj(x).view(heads)
         if self.use_flash and not causal and mask is None:
-            return self.out_proj(flash_attention_blhd(q, k, v))
+            if q.dtype == torch.bfloat16:
+                return self.out_proj(flash_attention_blhd(q, k, v))
+            if q.dtype != torch.float32:
+                raise ValueError(f"use_flash takes a float32 or bfloat16 "
+                                 f"model, not {q.dtype}")
+            out = flash_attention(*(t.transpose(1, 2).contiguous()
+                                    for t in (q, k, v)))    # [B, H, L, hd]
+            return self.out_proj(out.transpose(1, 2).reshape(b, length,
+                                                             self.dim))
         keep = None
         if causal:
             keep = torch.ones(length, length, dtype=torch.bool,

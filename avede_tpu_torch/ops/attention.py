@@ -4,7 +4,8 @@ Both entries launch ``csrc/flash_attention.cu``, which replaces
 ``flash_attention`` / ``_flash_kernel`` (``avede_tpu/ops/attention.py:
 29-98``): non-causal, unmasked softmax attention with an online softmax
 over K/V tiles. Any L works: the kernel masks K rows past L itself, so
-nothing is padded. Bound by bytes on the H100.
+nothing is padded. Bound by bytes on the H100, but for the f32 entry at
+BLIP-2's ViT-g shape ([30, 16, 257, 88]: by its three TF32 passes).
 
 - ``flash_attention_blhd`` serves every layer of the CLIP vision tower
   (L = 50, hd = 64 at ViT-B/32), of BLIP's (L = 577 at 384 px, patch
@@ -15,12 +16,20 @@ nothing is padded. Bound by bytes on the H100.
   (BLIP's are the three thirds of its fused qkv output, read in place at
   a row stride of 3·D: no copy), bf16 ``[B, L, H·hd]`` out, tensor-core
   products with f32 softmax and accumulation.
-- ``flash_attention`` is the TPU kernel's contract: f32 ``[B, H, L, D]``.
+- ``flash_attention`` is the TPU kernel's contract: f32 ``[B, H, L, D]``
+  in and out, D one of ``_HEAD_DIMS`` (16, 24, 32, 64, 88: every head
+  dim a model of either package runs, and 32), on the tensor cores in
+  3xTF32 (each operand split into two TF32 terms, three products
+  accumulated in f32). ``models.layers.MultiHeadAttention(use_flash=
+  True)`` sends its f32 q, k, v here, transposed to ``[B, H, L, hd]``
+  and back as the JAX layer does; its bf16 ones go to
+  ``flash_attention_blhd``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. ``flash_attention.launches``
-counts kernel launches; ``flash_attention_blhd.launches_by_length`` counts
-them by L (their sum is the entry's count).
+counts kernel launches, ``flash_attention.launches_by_dim`` the same by
+head dim; ``flash_attention_blhd.launches_by_length`` counts them by L
+(their sum is the entry's count).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 from . import _build
 from .kernels import _entry, _refuse_grad, _require_cuda, _stream
 
-_HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS = (16, 24, 32, 64, 88)    # the f32 entry's instantiations
 _BLHD_HEAD_DIMS = (16, 24, 64, 88)   # the bf16 entry's instantiations
 
 
@@ -47,7 +56,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: f32 [B, H, L, D] → [B, H, L, D] (non-causal, no mask)."""
+    """q, k, v: f32 [B, H, L, D] → [B, H, L, D] (non-causal, no mask);
+    on the card D must be one of ``_HEAD_DIMS``."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"bad shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
@@ -60,6 +70,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention takes float32 q, k, v")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: pointer not 16-byte aligned")
     _refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if q.numel() == 0:
@@ -71,10 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     out.data_ptr(), b * h, length, d, _stream(q)),
                  "avede_flash_attention_f32")
     flash_attention.launches += 1
+    flash_attention.launches_by_dim[d] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dim = collections.Counter()
 
 
 def flash_attention_blhd_plain(q: torch.Tensor, k: torch.Tensor,

@@ -13,7 +13,8 @@
   bf16 ×3 (``split_patch_weights`` splits ``W'`` once) at P = 32 and D a
   multiple of 96, bound by operations on the H100; any other P that
   divides S and any D (the tiny CLIP's P = 8, D = 64) takes the same
-  source's simple SIMT kernel on the same bf16 ×3 operands.
+  source's second kernel (``mma.sync``, 16 patches × 32 channels a
+  block, its whole K staged once) on the same bf16 ×3 operands.
 - ``cosine_window_topk`` and ``cosine_topk_f32`` / ``_bf16`` /
   ``_int8`` — ``csrc/cosine_scores.cu``'s serving entries, replacing
   ``cosine_scores_pallas`` / ``_score_kernel`` (``:125-147``) together
@@ -162,7 +163,7 @@ def fused_patch_embed_plain(frames: torch.Tensor, w2: torch.Tensor,
 
 def _patch_launch(mode, frames, size, split, b2, out, patch, wrapper):
     """Launch the ``wgmma`` kernel (P = 32, D a multiple of 96) or, for
-    any other P and D, the simple kernel; ``wrapper.launches`` counts
+    any other P and D, the ``mma.sync`` kernel; ``wrapper.launches`` counts
     both, ``wrapper.launches_by_kernel`` each."""
     w_hi, w_lo = split
     d = out.shape[-1]
@@ -178,7 +179,7 @@ def _patch_launch(mode, frames, size, split, b2, out, patch, wrapper):
         return out
     args = [frames.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
             b2.data_ptr(), out.data_ptr(), n, size, d]
-    kernel = "wgmma" if patch == 32 and d % 96 == 0 else "simt"
+    kernel = "wgmma" if patch == 32 and d % 96 == 0 else "mma"
     if kernel == "wgmma":
         name = f"avede_patch_embed_{mode}"
     else:

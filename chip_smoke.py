@@ -43,13 +43,18 @@ and the script exits non-zero without printing a result:
    4224; the entry's hd = 88 instantiation). The eval modes' tiny
    towers (32 px, patch 8, width 64, 4 heads of 16) at the eval path's
    batch of 32: row ``fused_patch_embed_i420[tiny]`` (1c: packed I420
-   [32, 48, 32] → bf16 [32, 16, 64], the patch embed's simple kernel,
+   [32, 48, 32] → bf16 [32, 16, 64], the patch embed's mma.sync kernel,
    which every P other than 32 and D not a multiple of 96 takes) and
    row ``flash_attention_blhd[tiny]`` (2j: [32, 17, 4, 16], the hd = 16
    instantiation), and the ``detection`` eval mode's OWL-ViT (64 px,
    patch 8, 4 heads of 24) at one frame: row
    ``flash_attention_blhd[owl24]`` (2k: [1, 65, 4, 24], row stride 96,
    the hd = 24 instantiation, padded to 32 columns in shared memory).
+   The f32 entry (3xTF32 on the tensor cores) runs at CLIP's vision
+   shape (row ``flash_attention``, 2b: [128, 12, 50, 64]) and at BLIP-2's
+   ViT-g shape in f32 (row ``flash_attention[hd88]``: [30, 16, 257,
+   88]), SDPA on the same f32 tensors its library call, and untimed at
+   hd = 16, 24 and 32 (L = 17, 65, 70), all to the f32 bar.
    The entry counts launches by L only, so the detection rows' counts
    are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
@@ -276,9 +281,10 @@ and the script exits non-zero without printing a result:
    same file on the CPU in f32, row cosine >= 0.9999.
 16. (run after phase 15) the eval modes ``image`` (2 seeds) and
    ``text`` (2 seeds of 700 training steps) through
-   ``avede_tpu_torch.eval.main`` on the card, path ``eval``: the simple
-   patch kernel (``fused_patch_embed_i420[simt]``), flash at L = 17 and
-   ``cosine_window_topk`` must launch, the wgmma patch kernel and the
+   ``avede_tpu_torch.eval.main`` on the card, path ``eval``: the
+   mma.sync patch kernel (``fused_patch_embed_i420[mma]``), flash at
+   L = 17 and ``cosine_window_topk`` must launch, the wgmma patch kernel
+   and the
    contract entries not at all; image p@1 >= 0.75, text p@1 >= 0.875
    (EVAL.json's JAX reference less one test item).
 17. (run after phase 16) the ``detection`` eval mode's OWL-ViT (64 px,
@@ -290,6 +296,13 @@ and the script exits non-zero without printing a result:
    >= 0.999. The mode itself (its 700 + 2 × 2000 training steps),
    ``detection4k`` and ``person`` run as their own
    ``python -m avede_tpu_torch.eval`` calls.
+18. (run after phase 3, before the CLIP engine is built) CLIP ViT-B/32's
+   vision tower at full width (768 x 12, L = 50, hd = 64; random
+   weights from seed 0) in f32 with ``use_flash=True`` on 16 seeded
+   frames (path ``f32_flash``): every layer's attention launches the
+   f32 flash entry (3xTF32), 12 launches, and no other kernel runs; the
+   embeddings within ``1e-4 * max|plain| + 1e-5`` of the same model's
+   plain path on the card (TF32 off).
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -303,9 +316,11 @@ the ``small_object`` path, phase 11's eight the ``image_query`` path
 its L = 257 launches), phase 13's three calls the ``person_search``
 path, phase 14's three calls of the trained CLIP the ``train_serve``
 path, phase 15's three calls the ``convert_serve`` path, phase 16's
-two modes the ``eval`` path (rows 1c and 2j read its simple-kernel and
-L = 17 launches) and phase 17's 24 calls the ``eval_detection`` path
-(row 2k reads its L = 65 launches).
+two modes the ``eval`` path (rows 1c and 2j read its mma.sync-kernel
+and L = 17 launches), phase 17's 24 calls the ``eval_detection`` path
+(row 2k reads its L = 65 launches) and phase 18's tower the
+``f32_flash`` path (row 2b reads its hd = 64 launches, the hd = 88 row
+its hd = 88 ones: none, as no model runs f32 at that width).
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -331,6 +346,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+TF32_TENSOR_FLOP_PER_S = 495e12
 TOL_REL, TOL_ABS = 1e-4, 1e-5
 
 N_FRAMES, FRAME_H, FRAME_W, FPS = 600, 288, 512, 30.0
@@ -365,8 +381,15 @@ FLASH_L50 = f"flash_attention_blhd[L={CLIP_TOKENS}]"
 FLASH_L257 = f"flash_attention_blhd[L={BLIP2_TOKENS}]"
 FLASH_L17 = f"flash_attention_blhd[L={TINY_TOKENS}]"
 # the patch embed counts its launches by kernel too: the wgmma kernel
-# (P = 32, D a multiple of 96) and the simple one (any other P and D)
-SIMT_PATCH = "fused_patch_embed_i420[simt]"
+# (P = 32, D a multiple of 96) and the mma.sync one (any other P and D)
+MMA_PATCH = "fused_patch_embed_i420[mma]"
+# the f32 flash entry counts its launches by head dim too: row 2b's
+# (hd = 64, CLIP ViT-B/32's vision tower in f32 with use_flash, phase
+# 18's path) and the hd = 88 row's (BLIP-2's ViT-g shape in f32)
+F32_FLASH_D64 = "flash_attention[D=64]"
+F32_FLASH_HD88 = "flash_attention[hd88]"
+F32_FLASH_D88 = "flash_attention[D=88]"
+F32_FLASH_FRAMES = 16
 # phase 3's rows of the bf16 flash entry at each model's shape
 BLIP_FLASH = "flash_attention_blhd[blip]"
 BLIP2_FLASH = "flash_attention_blhd[blip2]"
@@ -376,7 +399,7 @@ CROP_FLASH = "flash_attention_blhd[crop]"
 # image query's small buckets: a reference image alone, a frame's crops
 REF_FLASH = "flash_attention_blhd[ref]"
 CROPS16_FLASH = "flash_attention_blhd[crops16]"
-# the eval modes' tiny shapes: rows 1c (the patch embed's simple kernel)
+# the eval modes' tiny shapes: rows 1c (the patch embed's mma.sync kernel)
 # and 2j (flash at head dim 16)
 TINY_PATCH = "fused_patch_embed_i420[tiny]"
 TINY_FLASH = "flash_attention_blhd[tiny]"
@@ -481,13 +504,15 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                BLIP_FLASH: "reranked", BLIP2_FLASH: "reranked_blip2",
                REF_FLASH: "image_query", CROPS16_FLASH: "image_query",
                TINY_PATCH: "eval", TINY_FLASH: "eval",
-               DET_FLASH: "eval_detection"}
+               DET_FLASH: "eval_detection",
+               "flash_attention": "f32_flash", F32_FLASH_HD88: "f32_flash"}
 LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, BLIP2_FLASH: FLASH_L257,
               OWL_FLASH: FLASH_L577,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
               REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50,
-              TINY_PATCH: SIMT_PATCH, TINY_FLASH: FLASH_L17,
-              DET_FLASH: FLASH_L65}
+              TINY_PATCH: MMA_PATCH, TINY_FLASH: FLASH_L17,
+              DET_FLASH: FLASH_L65, "flash_attention": F32_FLASH_D64,
+              F32_FLASH_HD88: F32_FLASH_D88}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
 QUERIES = ["a red square moving across the street",
@@ -845,28 +870,8 @@ def check_kernels(torch, np, video):
     if excess > 0:
         fail(f"flash_attention_blhd: max err {err} over its bar by {excess}")
 
-    q, kk, v = (torch.randn(bsz, h, length, hd, device=dev, generator=gen)
-                for _ in range(3))
-    got = attention.flash_attention(q, kk, v)
-    ref = attention.attention_reference(q, kk, v)
-    err, tol = max_err(torch, got, ref)
-    b, f = bound_ms(4 * 4 * q.numel(), 4.0 * bsz * h * length * length * hd)
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="avede_tpu_torch/csrc/flash_attention.cu",
-        replaces="avede_tpu/ops/attention.py:85",
-        shape=f"q,k,v f32 [{bsz},{h},{length},{hd}]",
-        max_abs_err=err, tol=tol,
-        ms=time_ms(torch, lambda: attention.flash_attention(q, kk, v)),
-        call_ms=call_ms(torch, lambda: attention.flash_attention(q, kk, v)),
-        plain_ms=time_ms(torch, lambda: attention.attention_reference(
-            q, kk, v)),
-        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kk, v)),
-        library="torch.nn.functional.scaled_dot_product_attention"))
-    if err > tol:
-        fail(f"flash_attention: max err {err} > {tol}")
+    del q, kk, v, qt, kt, vt
+    rows += check_f32_flash(torch, F, dev, gen)
     rows.append(check_blip_flash(torch, F, dev, gen))
     rows.append(check_blip_flash(torch, F, dev, gen, BLIP2_FLASH,
                                  BLIP2_TOKENS, 16, 88))
@@ -925,11 +930,74 @@ def check_kernels(torch, np, video):
     return rows
 
 
+def f32_flash_row(torch, F, dev, gen, name, bsz, h, length, hd):
+    """A row of the f32 entry (3xTF32 on the tensor cores) at f32 [B, H,
+    L, D]: the bar ``1e-4 * max|plain| + 1e-5``, times of the kernel, the
+    plain version and SDPA on the same f32 tensors (TF32 off)."""
+    from avede_tpu_torch.ops import attention
+
+    q, kk, v = (torch.randn(bsz, h, length, hd, device=dev, generator=gen)
+                for _ in range(3))
+    got = attention.flash_attention(q, kk, v)
+    ref = attention.attention_reference(q, kk, v)
+    err, tol = max_err(torch, got, ref)
+    if err > tol:
+        fail(f"{name}: max err {err} > {tol}")
+    # q.k and p.v once each, three TF32 passes apiece
+    b, f = bound_ms(4 * 4 * q.numel(),
+                    3 * 4.0 * bsz * h * length * length * hd,
+                    TF32_TENSOR_FLOP_PER_S)
+    return dict(
+        name=name, route="cuda",
+        source="avede_tpu_torch/csrc/flash_attention.cu",
+        replaces="avede_tpu/ops/attention.py:85",
+        shape=f"q,k,v f32 [{bsz},{h},{length},{hd}] (the hd = {hd} "
+              f"instantiation)",
+        max_abs_err=err, tol=tol,
+        ms=time_ms(torch, lambda: attention.flash_attention(q, kk, v)),
+        call_ms=call_ms(torch, lambda: attention.flash_attention(q, kk, v)),
+        plain_ms=time_ms(torch, lambda: attention.attention_reference(
+            q, kk, v)),
+        bound_ms=b, bound_by=f, bound_peak="tf32 tensor cores 495 TFLOP/s",
+        bound_passes=3,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kk, v)),
+        library="torch.nn.functional.scaled_dot_product_attention on the "
+                "same f32 tensors (TF32 off)")
+
+
+def check_f32_flash(torch, F, dev, gen):
+    """Phase 3, rows 2b and hd88: the f32 entry at CLIP ViT-B/32's vision
+    layer of the 128-frame bucket, [128, 12, 50, 64] (phase 18's shape at
+    16 frames), and at BLIP-2's ViT-g shape in f32, [30, 16, 257, 88];
+    then, untimed, hd = 16, 24 and 32 at L = 17, 65 and 70, held to the
+    same bar (reported on row 2b as ``also_checked``)."""
+    from avede_tpu_torch.ops import attention
+
+    rows = [f32_flash_row(torch, F, dev, gen, "flash_attention", 128, 12,
+                          CLIP_TOKENS, 64),
+            f32_flash_row(torch, F, dev, gen, F32_FLASH_HD88, 30, 16,
+                          BLIP2_TOKENS, 88)]
+    checked = []
+    for hd, length in ((16, TINY_TOKENS), (24, DET_OWL_TOKENS), (32, 70)):
+        q, kk, v = (torch.randn(3, 4, length, hd, device=dev, generator=gen)
+                    for _ in range(3))
+        err, tol = max_err(torch, attention.flash_attention(q, kk, v),
+                           attention.attention_reference(q, kk, v))
+        if err > tol:
+            fail(f"flash_attention at hd = {hd}, L = {length}: max err "
+                 f"{err} > {tol}")
+        checked.append({"shape": [3, 4, length, hd], "max_abs_err": err,
+                        "tol": tol})
+    rows[0]["also_checked"] = checked
+    return rows
+
+
 def check_tiny_kernels(torch, F, dev, gen, video):
     """Phase 3, rows 1c and 2j: the eval modes' tiny towers (32 px, patch
     8, width 64, 4 heads of 16) at the eval path's batch. 1c: the I420
     serving entry on real packed frames [N, 48, 32] → bf16 [N, 16, 64],
-    which the wgmma tile does not take (P = 8, D = 64): the simple
+    which the wgmma tile does not take (P = 8, D = 64): the mma.sync
     kernel; same bar as row 1, the same unpack + bf16 ``F.conv2d``
     yardstick. 2j: the bf16 flash entry at [N, 17, 4, 16] (contiguous
     heads, row stride 64), one key tile holding 17 keys; same bar as row
@@ -947,11 +1015,11 @@ def check_tiny_kernels(torch, F, dev, gen, video):
     w2, b2 = w2.contiguous(), b2.contiguous()
     split = kernels.split_patch_weights(w2, p)
     gg, k = (s // p) ** 2, p * p * 3
-    before = kernels.fused_patch_embed_i420.launches_by_kernel["simt"]
+    before = kernels.fused_patch_embed_i420.launches_by_kernel["mma"]
     got = kernels.fused_patch_embed_i420(packed, w2, b2, p, split)
-    if kernels.fused_patch_embed_i420.launches_by_kernel["simt"] \
+    if kernels.fused_patch_embed_i420.launches_by_kernel["mma"] \
             != before + 1:
-        fail(f"{TINY_PATCH}: the simple kernel did not launch")
+        fail(f"{TINY_PATCH}: the mma.sync kernel did not launch")
     ref = kernels.fused_patch_embed_i420_plain(packed, w2, b2, p,
                                                torch.float32)
     err, excess, unequal = bf16_err(torch, got, ref, TOL_REL)
@@ -964,7 +1032,7 @@ def check_tiny_kernels(torch, F, dev, gen, video):
         source="avede_tpu_torch/csrc/patch_embed.cu",
         replaces="avede_tpu/ops/pallas_kernels.py:95",
         shape=f"packed I420 u8 [{n},{s * 3 // 2},{s}] x W' [{k},{d}] "
-              f"-> bf16 [{n},{gg},{d}] (patch {p}: the simple kernel)",
+              f"-> bf16 [{n},{gg},{d}] (patch {p}: the mma.sync kernel)",
         max_abs_err=err, tol="1 bf16 ulp + 1e-4*max|plain| + 1e-5",
         tol_excess=excess, not_bit_equal=unequal,
         ms=time_ms(torch, lambda: kernels.fused_patch_embed_i420(
@@ -1627,14 +1695,15 @@ def drive_library(torch, np, engine, root):
 
 def reset_launches(fns) -> None:
     """Zero each wrapper's count (the bf16 flash entry's, kept by L; the
-    patch embed's by kernel too)."""
+    patch embed's by kernel and the f32 flash entry's by head dim too)."""
     for fn in fns:
         if hasattr(fn, "launches_by_length"):
             fn.launches_by_length.clear()
         else:
             fn.launches = 0
-        if hasattr(fn, "launches_by_kernel"):
-            fn.launches_by_kernel.clear()
+        for by in ("launches_by_kernel", "launches_by_dim"):
+            if hasattr(fn, by):
+                getattr(fn, by).clear()
 
 
 def read_launches(fns) -> dict:
@@ -1642,17 +1711,20 @@ def read_launches(fns) -> dict:
     summed, and its L = 577, 50, 257, 17 and 65 launches are also given
     apart, as ``FLASH_L577``, ``FLASH_L50``, ``FLASH_L257``,
     ``FLASH_L17`` and ``FLASH_L65``; a patch embed's are also given by
-    kernel, as
-    ``<name>[wgmma]`` and ``<name>[simt]``."""
+    kernel, as ``<name>[wgmma]`` and ``<name>[mma]``, and the f32 flash
+    entry's by head dim, as ``<name>[D=64]`` and ``<name>[D=88]``."""
     out = {}
     for fn in fns:
         by_len = getattr(fn, "launches_by_length", None)
         if by_len is None:
             out[fn.__name__] = fn.launches
-            for kind in ("wgmma", "simt"):
+            for kind in ("wgmma", "mma"):
                 if hasattr(fn, "launches_by_kernel"):
                     out[f"{fn.__name__}[{kind}]"] = \
                         fn.launches_by_kernel[kind]
+            for hd in (64, 88):
+                if hasattr(fn, "launches_by_dim"):
+                    out[f"{fn.__name__}[D={hd}]"] = fn.launches_by_dim[hd]
             continue
         out[fn.__name__] = by_len.total()
         out[FLASH_L577] = by_len[BLIP_TOKENS]
@@ -3827,7 +3899,7 @@ def drive_eval(torch, np, tmp: Path):
     """Phase 16: the eval modes ``image`` (two seeds, the untrained tiny
     CLIP) and ``text`` (two seeds of 700 training steps) through
     ``avede_tpu_torch.eval.main`` on the card: the tiny towers' I420
-    patch embed on its simple kernel and flash at head dim 16 (L = 17)
+    patch embed on its mma.sync kernel and flash at head dim 16 (L = 17)
     must launch, ``cosine_window_topk`` too, the wgmma patch kernel and
     every contract entry not at all; each metric is held to its bar
     (``EVAL_BARS``)."""
@@ -3853,7 +3925,7 @@ def drive_eval(torch, np, tmp: Path):
             fail(f"eval {mode}: p@1 {res['precision_at_1']} below its bar "
                  f"{bar}: {out[mode]}")
     launches = out["launches"] = read_launches(needed + contracts)
-    if launches[SIMT_PATCH] <= 0 or launches[FLASH_L17] <= 0 \
+    if launches[MMA_PATCH] <= 0 or launches[FLASH_L17] <= 0 \
             or launches["cosine_window_topk"] <= 0:
         fail(f"eval: a kernel of the path never launched: {launches}")
     if launches["fused_patch_embed_i420[wgmma]"] \
@@ -3862,6 +3934,65 @@ def drive_eval(torch, np, tmp: Path):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+def drive_f32_flash(torch, np, video):
+    """Phase 18: CLIP ViT-B/32's vision tower at full width (768 x 12,
+    L = 50, hd = 64; random weights from seed 0) in f32 with
+    ``use_flash=True`` on ``F32_FLASH_FRAMES`` seeded frames (packed I420,
+    unpacked and CLIP-normalized on the card), path ``f32_flash``: every
+    layer's attention must launch the f32 entry (12 launches, all at
+    hd = 64) and no other kernel; the embeddings are held to the same
+    model's plain path on the card (TF32 off) within ``1e-4 * max|plain|
+    + 1e-5``, and the row cosine is reported."""
+    import dataclasses
+
+    from avede_tpu_torch.models.clip import init_clip, vit_b32
+    from avede_tpu_torch.models.layers import MultiHeadAttention
+    from avede_tpu_torch.ops import attention, kernels
+    from avede_tpu_torch.ops.preprocess import (clip_preprocess_i420,
+                                                pack_frames_i420)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(vit_b32(), use_flash=True)
+    tower = init_clip(cfg, seed=0).vision.to("cuda").eval()
+    packed = torch.from_numpy(pack_frames_i420(
+        video._chunk(0, F32_FLASH_FRAMES), cfg.image_size, src="bgr")
+        ).to("cuda")
+    pixels = clip_preprocess_i420(packed)
+    fns = (attention.flash_attention, attention.flash_attention_blhd,
+           kernels.fused_patch_embed_i420, kernels.fused_patch_embed)
+    reset_launches(fns)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = tower(pixels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches(fns)
+    for m in tower.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.use_flash = False
+    with torch.inference_mode():
+        ref = tower(pixels)
+    err, tol = max_err(torch, got, ref)
+    out = {"frames": F32_FLASH_FRAMES, "shape": list(got.shape),
+           "max_abs_err": err, "tol": tol,
+           "row_cosine": row_cosine(np, got.cpu().numpy(),
+                                    ref.cpu().numpy()),
+           "first_call_s": wall, "launches": launches}
+    if launches["flash_attention"] != cfg.vision_depth \
+            or launches[F32_FLASH_D64] != cfg.vision_depth:
+        fail(f"f32 flash: want {cfg.vision_depth} f32 launches at hd = 64: "
+             f"{launches}")
+    if any(launches[fn.__name__] for fn in fns[1:]):
+        fail(f"f32 flash: a kernel off the f32 path ran: {launches}")
+    if not torch.isfinite(got).all() or err > tol:
+        fail(f"f32 flash: tower max err {err} > {tol}: {out}")
+    del tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 def drive_eval_detection(torch, np):
     """Phase 17: the ``detection`` eval mode's OWL-ViT (64 px, patch 8,
@@ -4094,6 +4225,10 @@ def main() -> None:
         {k: r.get(k) for k in ("name", "ms", "plain_ms", "bound_ms",
                                "library_ms", "max_abs_err")}
         for r in rows]}), flush=True)
+    t0 = time.perf_counter()
+    f32_flash = drive_f32_flash(torch, np, video)
+    print(json.dumps({"card": card, "f32_flash": f32_flash,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
 
     from avede_tpu_torch.parallel.embed import ClipEngine
     from avede_tpu_torch.utils.config import settings
@@ -4170,6 +4305,7 @@ def main() -> None:
              "convert_serve": convert["launches"],
              "eval": evals["launches"],
              "eval_detection": eval_det["launches"],
+             "f32_flash": f32_flash["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:

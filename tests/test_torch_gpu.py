@@ -56,6 +56,58 @@ def test_flash_kernel_matches_plain(cuda, L):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("L", [17, 50, 65, 130, 257, 577])
+@pytest.mark.parametrize("D", list(tattn._HEAD_DIMS))
+def test_flash_f32_kernel_at_every_head_dim(cuda, D, L):
+    """The f32 entry (3xTF32 tensor cores) at each instantiated head dim,
+    against f32 softmax attention: within 1e-4 of the reference's largest
+    value plus 1e-5. L = 65 and 257 leave one key in the last tile, which
+    a wrong P.V permutation of the keys would get wrong."""
+    g = torch.Generator(device="cuda").manual_seed(D * 1000 + L)
+    q, k, v = (torch.randn(2, 3, L, D, device=cuda, generator=g)
+               for _ in range(3))
+    before = tattn.flash_attention.launches
+    got = tattn.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == before + 1
+    ref = tattn.attention_reference(q, k, v)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item() + 1e-5, err
+
+
+def test_flash_f32_refuses_other_head_dims(cuda):
+    for d in (8, 40, 128):
+        q = torch.zeros(1, 2, 4, d, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            tattn.flash_attention(q, q, q)
+
+
+def test_f32_tiny_clip_tower_with_flash_on_card_matches_cpu(cuda):
+    """An f32 model with ``use_flash`` on the card: every vision layer
+    launches the f32 entry, and the tower agrees with the CPU's f32 plain
+    path on the same weights."""
+    import dataclasses
+
+    from avede_tpu_torch.models.clip import init_clip, tiny_test_config
+
+    cfg = dataclasses.replace(tiny_test_config(), use_flash=True)
+    cpu = init_clip(cfg, seed=0).eval()
+    card = init_clip(cfg, seed=0).to(cuda).eval()
+    pixels = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(6, 32, 32, 3)).astype(np.float32))
+    before = (tattn.flash_attention.launches,
+              tattn.flash_attention_blhd.launches_by_length.total())
+    with torch.inference_mode():
+        got = card.encode_image(pixels.to(cuda))
+        torch.cuda.synchronize()
+        ref = cpu.encode_image(pixels)
+    assert (tattn.flash_attention.launches,
+            tattn.flash_attention_blhd.launches_by_length.total()) \
+        == (before[0] + cfg.vision_depth, before[1])
+    err = (got.cpu() - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item() + 1e-5, err
+
+
 def _within_bf16_ulp(got, ref, rel=0.0):
     """bf16 ``got`` against the f32 ``ref`` rounded to bf16: every element
     within one bf16 ulp of it plus ``rel · max|ref| + 1e-5`` (the f32
@@ -218,7 +270,10 @@ def test_flash_blhd_kernel_at_clip_detection_shapes(cuda, bsz):
 def test_owlvit_tower_launches_flash_per_layer(cuda):
     """OWL-ViT B/32 on the card (bf16, depth 2): one flash launch at
     L = 577 per vision layer, logits and boxes against the CPU's f32
-    plain path on the same weights (row cosine >= 0.99)."""
+    plain path on the same weights (row cosine >= 0.99). In f32 its flash
+    layers take the f32 entry, one launch a layer, and agree with the
+    CPU's f32 path (row cosine >= 0.9999); with autograd recording they
+    refuse, as every kernel wrapper does."""
     import dataclasses
 
     from avede_tpu_torch.models.owlvit import (init_owlvit,
@@ -242,8 +297,18 @@ def test_owlvit_tower_launches_flash_per_layer(cuda):
         cos = torch.nn.functional.cosine_similarity(
             got.float().cpu().flatten(1), ref.flatten(1), -1)
         assert float(cos.min()) >= 0.99
-    with pytest.raises(ValueError, match="bfloat16"):
-        init_owlvit(cfg, seed=0).to(cuda).eval()(px[:1].to(cuda), ids[:1].to(cuda))
+    f32 = init_owlvit(cfg, seed=0).to(cuda).eval()
+    before = tattn.flash_attention.launches_by_dim[64]
+    with torch.inference_mode():
+        logits, boxes = f32(px.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches_by_dim[64] == before + 2
+    for got, ref in ((logits, ref_logits), (boxes, ref_boxes)):
+        cos = torch.nn.functional.cosine_similarity(
+            got.cpu().flatten(1), ref.flatten(1), -1)
+        assert float(cos.min()) >= 0.9999
+    with pytest.raises(RuntimeError, match="no backward"):
+        f32(px[:1].to(cuda), ids[:1].to(cuda))
 
 
 def test_yolo_forward_on_card_matches_cpu(cuda):
@@ -408,7 +473,7 @@ def test_flash_blhd_kernel_at_head_dim_16(cuda, bsz, L, fused):
 
 def test_tiny_clip_tower_on_card_matches_cpu(cuda):
     """The tiny CLIP (32 px, patch 8, width 64, 4 heads of 16) served in
-    bf16 on the card: the I420 patch embed's simple kernel and flash at
+    bf16 on the card: the I420 patch embed's mma.sync kernel and flash at
     hd = 16, against the CPU's f32 plain path on the same weights."""
     from avede_tpu_torch.models.clip import tiny_test_config
     from avede_tpu_torch.parallel.embed import ClipEngine
@@ -419,10 +484,10 @@ def test_tiny_clip_tower_on_card_matches_cpu(cuda):
     card = ClipEngine(cfg=with_compute_dtype(tiny_test_config(), cuda),
                       device=cuda, seed=0)
     cpu = ClipEngine(cfg=tiny_test_config(), device="cpu", seed=0)
-    counts = (tk.fused_patch_embed_i420.launches_by_kernel["simt"],
+    counts = (tk.fused_patch_embed_i420.launches_by_kernel["mma"],
               tattn.flash_attention_blhd.launches_by_length[17])
     got = card.embed_frames(frames)
-    assert tk.fused_patch_embed_i420.launches_by_kernel["simt"] \
+    assert tk.fused_patch_embed_i420.launches_by_kernel["mma"] \
         == counts[0] + 1
     assert tattn.flash_attention_blhd.launches_by_length[17] \
         == counts[1] + tiny_test_config().vision_depth
@@ -434,24 +499,28 @@ def test_tiny_clip_tower_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("entry", ["i420", "uint8", "float32"])
 @pytest.mark.parametrize("n,s,p,d", [(64, 32, 8, 64), (3, 64, 16, 100),
-                                     (2, 28, 7, 70), (1, 224, 32, 64)])
+                                     (2, 28, 7, 70), (1, 224, 32, 64),
+                                     (2, 56, 14, 100), (5, 36, 6, 33)])
 def test_patch_embed_any_shape_kernel_matches_plain(cuda, entry, n, s, p, d):
     """Shapes the wgmma tile does not take (P != 32 or D % 96 != 0) run
-    the simple kernel on the same split bf16 operands: the tiny CLIP's
-    [N, 48, 32] I420 -> [N, 16, 64] at P = 8, an odd P, a ragged D."""
+    the mma.sync kernel on the same split bf16 operands: the tiny CLIP's
+    [N, 48, 32] I420 -> [N, 16, 64] at P = 8, an odd P, a ragged D, K in
+    several chunks (P = 16, 32 and 14: BLIP-2's patch), and 3P^2 not a
+    multiple of 16 (P = 7: 147, P = 14: 588, P = 6: 108; the weights by
+    2-byte loads where P % 4 != 0)."""
     rng = np.random.default_rng(p * d)
     kernel = torch.from_numpy(
         rng.normal(0, 0.05, (p, p, 3, d)).astype(np.float32))
     w2, b2 = (t.to(cuda) for t in tk.fold_for_uint8(kernel))
     split = tk.split_patch_weights(w2, p)
-    before = (tk.fused_patch_embed_i420.launches_by_kernel["simt"],
-              tk.fused_patch_embed.launches_by_kernel["simt"])
+    before = (tk.fused_patch_embed_i420.launches_by_kernel["mma"],
+              tk.fused_patch_embed.launches_by_kernel["mma"])
     if entry == "i420":
         packed = torch.from_numpy(rng.integers(
             0, 256, (n, s * 3 // 2, s), dtype=np.uint8)).to(cuda)
         got = tk.fused_patch_embed_i420(packed, w2, b2, p, split)
         torch.cuda.synchronize()
-        assert tk.fused_patch_embed_i420.launches_by_kernel["simt"] \
+        assert tk.fused_patch_embed_i420.launches_by_kernel["mma"] \
             == before[0] + 1
         _within_bf16_ulp(got, tk.fused_patch_embed_i420_plain(
             packed, w2, b2, p, torch.float32), rel=1e-4)
@@ -462,7 +531,7 @@ def test_patch_embed_any_shape_kernel_matches_plain(cuda, entry, n, s, p, d):
         x = x.float() + torch.rand(x.shape, device=cuda)
     got = tk.fused_patch_embed(x, w2, b2, p, split)
     torch.cuda.synchronize()
-    assert tk.fused_patch_embed.launches_by_kernel["simt"] == before[1] + 1
+    assert tk.fused_patch_embed.launches_by_kernel["mma"] == before[1] + 1
     ref = tk.fused_patch_embed_plain(x, w2, b2, p)
     err = (got - ref).abs().max().item()
     assert err <= 1e-4 * ref.abs().max().item() + 1e-5, err
