@@ -34,7 +34,8 @@
 //
 // Exactness: every fused entry scores a row with the same device code as
 // the contract entry of its type (the library entries launch the contract
-// kernel itself; the mvp entry shares dot_f32 with it), so its (values,
+// kernel itself; the mvp entry shares dot_f32 with it, whose float4-chunk
+// order of FMAs depends on d alone), so its (values,
 // indices) are bit-for-bit the stable descending sort of the contract
 // entry's scores: equal scores lower index first, -inf below every finite
 // score. The order key is the float's bits with negatives inverted, -0.0
@@ -46,18 +47,21 @@
 // Bound on the H100: two FLOP per table element, so every entry is bound
 // by bytes. mvp: the W gathered rows (74 x 2 KB at 600 frames) read by
 // one block, about 150 KB, far under a microsecond: the launch costs more
-// than the work. Library: the table (1 GB bf16, 0.5 GB in int8 at 2^20 x
-// 512); the scores' scratch (written once, read by each select pass that
-// runs) is this design's overhead, not part of the bound. For one query
-// and a width that is a whole number (1-4) of 16-byte loads per lane
-// (D = 512: two in bf16, one in int8), the lowp scoring is templated on
-// that number: the bf16-rounded query sits in registers, nothing inside a
-// row is masked, and each warp has 4 KB of rows in flight per step; the
-// mask bytes and scales are loaded with the rows. An int8 value becomes a
-// float on the ALU (a byte spliced into the mantissa of 2^23, then one
-// exact subtraction) rather than through the quarter-rate
-// integer-to-float conversion. Other shapes take a plain warp-per-row
-// loop.
+// than the work. Library: the table (2 GB f32, 1 GB bf16, 0.5 GB in int8
+// at 2^20 x 512); the scores' scratch (written once, read by each select
+// pass that runs) is this design's overhead, not part of the bound. For
+// one query and a width that is a whole number of 16-byte loads per lane
+// (f32: 1-8, D = 512 four; bf16 and int8: 1-4, D = 512 two and one), the
+// scoring is templated on that number: the query (bf16-rounded for the
+// lowp tiers) sits in registers, loaded once a warp, nothing inside a row
+// is masked, each warp has 4 KB of rows in flight per step (f32: 4-warp
+// blocks, one step of every warp covering the rows, so the contract's
+// 1024 rows fill 128 SMs); the mask bytes and scales are loaded with the
+// rows. An int8 value becomes a float on the ALU (a byte
+// spliced into the mantissa of 2^23, then one exact subtraction) rather
+// than through the quarter-rate integer-to-float conversion. Other shapes
+// (several queries, an unaligned table, other widths) take a plain
+// warp-per-row loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,27 +94,62 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// A row's f32 score, the one definition both f32 kernels use: lanes
-// stride the row, FMA in column order, a butterfly sum (every lane ends
-// with the same value). At D = 512 the lane's 16 values are all loaded
-// before the first FMA (one memory round trip, not four); the sum is the
-// same sequence.
+// rows a warp loads per step in the fast kernels: 8 / STEPS (at least 1),
+// i.e. 4 KB of 16-byte loads per warp
+__host__ __device__ constexpr int fast_rows(int steps) {
+  return steps >= 8 ? 1 : 8 / steps;
+}
+
+__device__ __forceinline__ float fma4(float4 e, float4 q, float acc) {
+  acc = fmaf(e.x, q.x, acc);
+  acc = fmaf(e.y, q.y, acc);
+  acc = fmaf(e.z, q.z, acc);
+  return fmaf(e.w, q.w, acc);
+}
+
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  return vec ? *reinterpret_cast<const float4*>(p)
+             : make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// A row's f32 score, the one definition every f32 kernel uses. For d a
+// multiple of 128, lane l owns the four columns of each float4 chunk
+// 32 s + l (s = 0 .. d/128 - 1), FMA in that order from 0; other widths
+// stride the row by lanes, FMA in column order. Then a butterfly sum
+// (every lane ends with the same value). The result depends on d alone:
+// an unaligned row loads the same chunks as scalars. This form takes the
+// lane's chunks already loaded (the fast contract kernel's registers).
+template <int STEPS>
+__device__ __forceinline__ float dot_f32(const float4 (&e)[STEPS],
+                                         const float4 (&q)[STEPS]) {
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) acc = fma4(e[s], q[s], acc);
+  return warp_sum(acc);
+}
+
 __device__ __forceinline__ float dot_f32(const float* __restrict__ e,
                                          const float* __restrict__ q,
                                          int d, int lane) {
-  float acc = 0.f;
-  if (d == 512) {
-    float ev[16], qv[16];
+  if (d % 128 == 0) {
+    const bool vec = (((uintptr_t)e | (uintptr_t)q) & 15) == 0;
+    if (d == 512) {              // every load before the first FMA
+      float4 ev[4], qv[4];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      ev[i] = e[lane + 32 * i];
-      qv[i] = q[lane + 32 * i];
+      for (int s = 0; s < 4; ++s) {
+        ev[s] = load4(e + 4 * (s * 32 + lane), vec);
+        qv[s] = load4(q + 4 * (s * 32 + lane), vec);
+      }
+      return dot_f32<4>(ev, qv);
     }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc = fmaf(ev[i], qv[i], acc);
-  } else {
-    for (int c = lane; c < d; c += 32) acc = fmaf(e[c], q[c], acc);
+    float acc = 0.f;
+    for (int s = 0; s < d / 128; ++s)
+      acc = fma4(load4(e + 4 * (s * 32 + lane), vec),
+                 load4(q + 4 * (s * 32 + lane), vec), acc);
+    return warp_sum(acc);
   }
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(e[c], q[c], acc);
   return warp_sum(acc);
 }
 
@@ -175,6 +214,51 @@ __device__ __forceinline__ int pow2_at_least(int n) {
 // ---------------------------------------------------------------------------
 // f32 rows
 
+constexpr int F32_THREADS = 128;
+constexpr int F32_WARPS = F32_THREADS / 32;
+constexpr long long F32_MAX_BLOCKS = 1 << 20;   // past it, grid-stride
+
+// One query, d == STEPS * 128, 16-byte aligned table and query: the query
+// sits in registers as float4 (loaded once a warp, not once a row), and a
+// warp walks ROWS rows a step, grid-stride, with their float4 loads (4 KB)
+// and mask bytes all in flight before the first FMA.
+template <int STEPS>
+__global__ void __launch_bounds__(F32_THREADS)
+f32_scores_fast(const float* __restrict__ emb, const float* __restrict__ query,
+                const uint8_t* __restrict__ valid, float* __restrict__ out,
+                int n) {
+  constexpr int ROWS = fast_rows(STEPS), D = STEPS * 128;
+  const int lane = threadIdx.x % 32;
+  const float4* q4 = reinterpret_cast<const float4*>(query);
+  float4 q[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) q[s] = q4[s * 32 + lane];
+  const long long step = (long long)gridDim.x * F32_WARPS * ROWS;
+  for (long long row0 =
+           ((long long)blockIdx.x * F32_WARPS + threadIdx.x / 32) * ROWS;
+       row0 < n; row0 += step) {
+    float4 raw[ROWS][STEPS];
+    bool ok[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const long long row = row0 + r;
+      ok[r] = row < n && (valid == nullptr || valid[row] != 0);
+      const float4* e4 = reinterpret_cast<const float4*>(emb + row * D);
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s)
+        raw[r][s] = row < n ? e4[s * 32 + lane]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (row0 + r >= n) break;          // warp-uniform
+      const float acc = dot_f32<STEPS>(raw[r], q);
+      if (lane == 0) out[row0 + r] = ok[r] ? acc : -INFINITY;
+    }
+  }
+}
+
+// Any shape: one warp per row, each query read from global memory.
 __global__ void __launch_bounds__(THREADS)
 cosine_scores_kernel(const float* __restrict__ emb,
                      const float* __restrict__ queries,
@@ -191,11 +275,39 @@ cosine_scores_kernel(const float* __restrict__ emb,
   }
 }
 
+// the fast kernel's grid: one step of every warp covers the rows (a grid
+// of as many blocks as the SMs hold at once, walking 2^20 rows by
+// strides, was slower there)
+template <int STEPS>
+void launch_f32_fast(const float* emb, const float* query,
+                     const uint8_t* valid, float* out, int n,
+                     cudaStream_t stream) {
+  const long long per_block = (long long)F32_WARPS * fast_rows(STEPS);
+  long long blocks = ((long long)n + per_block - 1) / per_block;
+  if (blocks > F32_MAX_BLOCKS) blocks = F32_MAX_BLOCKS;
+  f32_scores_fast<STEPS><<<(int)blocks, F32_THREADS, 0, stream>>>(
+      emb, query, valid, out, n);
+}
+
 int launch_f32(const float* emb, const float* queries, const uint8_t* valid,
                float* out, int n, int d, int nq, cudaStream_t stream) {
-  const int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  cosine_scores_kernel<<<blocks, THREADS, 0, stream>>>(emb, queries, valid,
-                                                      out, n, d, nq);
+  const bool fast = nq == 1 && d % 128 == 0 &&
+                    (((uintptr_t)emb | (uintptr_t)queries) & 15) == 0;
+  switch (fast ? d / 128 : 0) {
+    case 1: launch_f32_fast<1>(emb, queries, valid, out, n, stream); break;
+    case 2: launch_f32_fast<2>(emb, queries, valid, out, n, stream); break;
+    case 3: launch_f32_fast<3>(emb, queries, valid, out, n, stream); break;
+    case 4: launch_f32_fast<4>(emb, queries, valid, out, n, stream); break;
+    case 5: launch_f32_fast<5>(emb, queries, valid, out, n, stream); break;
+    case 6: launch_f32_fast<6>(emb, queries, valid, out, n, stream); break;
+    case 7: launch_f32_fast<7>(emb, queries, valid, out, n, stream); break;
+    case 8: launch_f32_fast<8>(emb, queries, valid, out, n, stream); break;
+    default: {
+      const int blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+      cosine_scores_kernel<<<blocks, THREADS, 0, stream>>>(
+          emb, queries, valid, out, n, d, nq);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -204,12 +316,6 @@ int launch_f32(const float* emb, const float* queries, const uint8_t* valid,
 
 constexpr int LP_THREADS = 256;
 constexpr int LP_WARPS = LP_THREADS / 32;
-
-// rows a warp loads per step in the fast kernel: 8 / STEPS (at least 1),
-// i.e. 4 KB of 16-byte loads per warp
-__host__ __device__ constexpr int fast_rows(int steps) {
-  return steps >= 8 ? 1 : 8 / steps;
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

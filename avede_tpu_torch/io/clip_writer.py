@@ -116,3 +116,7 @@ class ClipWriter:
             writer.release()
         finally:
             cap.release()
+
+    def list_clips(self) -> list:
+        """Names of the ``.mp4`` clips in the clip directory, sorted."""
+        return sorted(p.name for p in self.clip_dir.glob("*.mp4"))

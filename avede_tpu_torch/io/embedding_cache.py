@@ -252,6 +252,17 @@ class EmbeddingCache:
         return self.put(video_id, merged, ts, model_tag, frame_hw,
                         sample_rate, valid=new_valid)
 
+    def invalidate(self, video_id: str) -> None:
+        """Drop a video's entry from memory and disk."""
+        self._mem_drop(video_id)
+        self._path(video_id).unlink(missing_ok=True)
+
+    def stats(self) -> dict:
+        """Entries on disk and their bytes."""
+        files = list(self.dir.glob("*.npz"))
+        return {"entries": len(files),
+                "bytes": sum(f.stat().st_size for f in files)}
+
 
 class FrameReprCache:
     """Per-frame, query-INDEPENDENT rerank representations (BLIP

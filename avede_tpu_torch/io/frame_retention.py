@@ -153,3 +153,9 @@ class FrameRetention:
             self._index = {}
             self._bytes = 0
             self._over = False
+
+    @property
+    def retained_bytes(self) -> int:
+        """Bytes of frames held now (0 once the budget was exceeded)."""
+        with self._lock:
+            return self._bytes if not self._over else 0

@@ -284,3 +284,14 @@ class Tokenizer:
                 + [self.eot]
             out[i, : len(ids)] = ids
         return out
+
+
+_DEFAULT: Optional[Tokenizer] = None
+
+
+def get_tokenizer() -> Tokenizer:
+    """The process-wide default ``Tokenizer()``, built at first use."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = Tokenizer()
+    return _DEFAULT

@@ -21,6 +21,11 @@ from .preprocess import area_resize
 SIG_SIZE = 16
 
 
+def frame_signature(frame: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] → float32 [16, 16] gray thumbnail."""
+    return _signatures(frame[None])[0]
+
+
 def _signatures(frames: np.ndarray) -> np.ndarray:
     """uint8 [N, H, W, 3] (color) or [N, H, W] (gray/luma) → float32
     [N, 16, 16]: strided subsample to ≤2×SIG grid + channel mean, then

@@ -5,7 +5,10 @@ antialiased bicubic resize and CLIP normalisation (``clip_preprocess``),
 BLIP's straight resize + normalisation (``blip_preprocess``), the same
 crop and resize with ImageNet's normalisation (``imagenet_preprocess``,
 EfficientNet's input), and the I420 unpack of the compact transfer
-codec (``clip_preprocess_i420``).
+codec (``clip_preprocess_i420``). ``fold_normalization`` folds the
+normalisation into a patch-embedding convolution's weights (f32; the
+kernels' uint8 fold, which also folds /255, is
+``kernels.fold_for_uint8``).
 
 Host side (numpy, no cv2): ``pack_frames_rgb`` and ``pack_frames_i420``
 shrink decoded frames to the model geometry before the host→device
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -63,6 +67,21 @@ def _normalize(x: torch.Tensor, mean: np.ndarray = CLIP_MEAN,
     mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
     std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
     return (x - mean) / std
+
+
+def fold_normalization(kernel: torch.Tensor, bias: torch.Tensor,
+                       mean: np.ndarray = CLIP_MEAN,
+                       std: np.ndarray = CLIP_STD
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold ``(x - mean) / std`` into a patch-embedding conv:
+    ``conv(norm(x), K, b) == conv(x, K/std, b - sum(K/std * mean))`` for
+    kernels laid out ``[ph, pw, C_in, C_out]`` (HWIO)."""
+    mean = torch.as_tensor(mean, dtype=kernel.dtype,
+                           device=kernel.device).reshape(1, 1, 3, 1)
+    std = torch.as_tensor(std, dtype=kernel.dtype,
+                          device=kernel.device).reshape(1, 1, 3, 1)
+    k2 = kernel / std
+    return k2, bias - torch.sum(k2 * mean, dim=(0, 1, 2))
 
 
 def clip_preprocess(frames: torch.Tensor, size: int = 224,

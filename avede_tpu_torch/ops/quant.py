@@ -7,13 +7,16 @@ One scheme throughout: ``scale = max(amax / 127, 1e-12)`` and
   amax over K: the contract of the TPU kernel ``quantize_kernel_pallas``
   / ``_quant_kernel`` (``avede_tpu/ops/quant.py:57-75``);
 - ``quantize_rows`` — ``[N, D]`` → (int8 ``[N, D]``, f32 ``[N]``), amax
-  over D: the layout of the library index's int8 tier, whose add-blocks
-  and growth quantize on the device;
+  over D: the layout of the library index's int8 tier, whose growth
+  quantizes on the device;
+- ``quantize_rows_into`` — the same into a row slice of the index's
+  table and scales, with the slice's ``valid`` mask written in the same
+  launch (the index's int8 add and remove write);
 - ``quantize_rows_np`` — the host numpy twin, for tables that stay on
   the host (the embedding cache's int8 entries, bound for disk);
 - ``dequantize``, ``quantized_matmul`` and ``quantize_dense_tree``.
 
-Both kernel wrappers launch ``csrc/quantize.cu`` for CUDA tensors and
+The kernel wrappers launch ``csrc/quantize.cu`` for CUDA tensors and
 take their plain PyTorch version only for tensors on the CPU. The bar
 between the two, and against numpy and eager JAX, is exact equality of
 ``q`` and the scales (IEEE division ``amax / 127``; under ``jit``, XLA
@@ -67,6 +70,17 @@ def quantize_rows_plain(x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the per-row kernel."""
     return _quantize_plain(x, 1)
+
+
+def quantize_rows_into_plain(x: torch.Tensor, q_out: torch.Tensor,
+                             s_out: torch.Tensor, valid_out: torch.Tensor,
+                             n_valid: int) -> None:
+    """Plain version of the add write: ``quantize_rows_plain`` into the
+    slices, then the mask."""
+    q, s = quantize_rows_plain(x)
+    q_out.copy_(q)
+    s_out.copy_(s)
+    valid_out.copy_(torch.arange(x.shape[0], device=x.device) < n_valid)
 
 
 def _outputs(x: torch.Tensor, q_shape, s_len: int, out: _QOut
@@ -123,8 +137,41 @@ def quantize_rows(x: torch.Tensor, out: _QOut = None
                      "avede_quantize_rows", quantize_rows)
 
 
+def quantize_rows_into(x: torch.Tensor, q_out: torch.Tensor,
+                       s_out: torch.Tensor, valid_out: torch.Tensor,
+                       n_valid: int) -> None:
+    """[N, D] f32 → int8 ``q_out`` [N, D] and f32 ``s_out`` [N], amax over
+    D, and bool ``valid_out[r] = r < n_valid`` for the block's rows, in
+    place and in one launch: the int8 index's add write (``n_valid`` =
+    the rows added) and remove write (0). The outputs are contiguous row
+    slices of the index's table, scales and mask."""
+    if x.dim() != 2:
+        raise ValueError(f"expected a 2-D tensor, got {tuple(x.shape)}")
+    rows, cols = x.shape
+    _outputs(x, (rows, cols), rows, (q_out, s_out))
+    if valid_out.shape != (rows,) or valid_out.dtype != torch.bool:
+        raise ValueError(f"valid_out must be bool [{rows}], got "
+                         f"{valid_out.dtype} {tuple(valid_out.shape)}")
+    if x.device.type == "cpu":
+        quantize_rows_into_plain(x, q_out, s_out, valid_out, n_valid)
+        return
+    _require_cuda(x, q_out, s_out, valid_out)
+    if x.dtype != torch.float32:
+        raise ValueError(f"avede_quantize_rows_into takes float32, not "
+                         f"{x.dtype}")
+    if x.numel():
+        fn = _entry("quantize", "avede_quantize_rows_into",
+                    [_P, _P, _P, _P, _I, _I, _I, _P])
+        _build.check(fn(x.data_ptr(), q_out.data_ptr(), s_out.data_ptr(),
+                        valid_out.data_ptr(), rows, cols,
+                        int(n_valid), _stream(x)),
+                     "avede_quantize_rows_into")
+        quantize_rows_into.launches += 1
+
+
 quantize_per_channel.launches = 0
 quantize_rows.launches = 0
+quantize_rows_into.launches = 0
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

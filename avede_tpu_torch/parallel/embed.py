@@ -398,3 +398,22 @@ class ClipEngine:
         vals, idx, q = self._query_topk_fn(ids, dev[0], dev[1], dev[2], k)
         self._remember_text(query, q.cpu().numpy())
         return vals.cpu().numpy(), idx.cpu().numpy()
+
+
+_DEFAULT: Optional[ClipEngine] = None
+
+
+def get_engine() -> ClipEngine:
+    """The process-wide engine (``ClipEngine()``: on the card), built at
+    first use. The port's services take their engine as an argument; this
+    is the JAX package's default for callers that pass none."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = ClipEngine()
+    return _DEFAULT
+
+
+def set_engine(engine: Optional[ClipEngine]) -> None:
+    """Replace (or with None, forget) the process-wide engine."""
+    global _DEFAULT
+    _DEFAULT = engine

@@ -189,6 +189,12 @@ class CaptionService:
         sims = self.caption_query_similarity(caps, query)
         return sims, [{"caption": c} for c in caps]
 
+    def rerank_scores(self, frames: np.ndarray, query: str
+                      ) -> Tuple[np.ndarray, List[dict]]:
+        """Caption ``frames`` and score the captions against ``query``
+        (both halves of the reranker interface in one call)."""
+        return self.scores_from_repr(self.frame_repr(frames), query)
+
 
 class Blip2RerankService:
     """BLIP-2 Q-Former ITC reranker on ``device`` (``cuda`` unless the

@@ -10,9 +10,10 @@ fused score + top-k kernel (``ops/kernels.py``: ``cosine_topk_f32``,
 ``cosine_topk_bf16`` or ``cosine_topk_int8``; padded and removed rows
 score -inf); only the top ``k`` scores and row indices leave the
 device. Adds write bucket-padded spans into the
-table in place; the int8 tier quantizes each block on the device with
-the ``quantize_rows`` kernel (``ops/quant.py``). Capacity grows by
-doubling, which also compacts the holes that removals leave.
+table in place; the int8 tier quantizes each block into the table and
+writes its valid mask in one launch (``quant.quantize_rows_into``), and
+quantizes growth's uploads with ``quant.quantize_rows``. Capacity grows
+by doubling, which also compacts the holes that removals leave.
 """
 
 from __future__ import annotations
@@ -149,12 +150,11 @@ class DeviceLibraryIndex:
             start = self._rows_end
             block = np.zeros((padded, self.dim), np.float32)
             block[:n] = emb
-            vmask = np.zeros((padded,), bool)
-            vmask[:n] = True
-            self._device_write_locked(block, vmask, start)
+            self._device_write_locked(block, n, start)
             self._shadow[start:start + padded] = \
                 block.astype(self._shadow_dtype)
-            self._shadow_valid[start:start + padded] = vmask
+            self._shadow_valid[start:start + padded] = \
+                np.arange(padded) < n
             idx = bisect.bisect_left(self._starts, start)
             self._starts.insert(idx, start)
             self._spans.insert(idx, (video_id, start, n, ts, frames))
@@ -175,9 +175,8 @@ class DeviceLibraryIndex:
         del self._starts[idx]
         del self._spans[idx]
         if device_write:
-            block = np.zeros((padded, self.dim), np.float32)
-            vmask = np.zeros((padded,), bool)
-            self._device_write_locked(block, vmask, start)
+            self._device_write_locked(
+                np.zeros((padded, self.dim), np.float32), 0, start)
         self._shadow[start:start + padded] = 0
         self._shadow_valid[start:start + padded] = False
         # holes persist until the next capacity growth, which compacts
@@ -285,15 +284,19 @@ class DeviceLibraryIndex:
                     new_cap * self.dim * row_bytes / 1e6, dev)
         self._cap = new_cap
 
-    def _device_write_locked(self, block: np.ndarray, vmask: np.ndarray,
+    def _device_write_locked(self, block: np.ndarray, n_valid: int,
                              offset: int) -> None:
-        # in place into row slices of the table: the JAX package donates
-        # its buffers to an update program; a tensor is simply written
+        """Write ``block`` at row ``offset``, its first ``n_valid`` rows
+        valid and the rest masked. In place into row slices: the JAX
+        package donates its buffers to one update program; the int8 tier
+        is one upload and one launch."""
         end = offset + len(block)
         rows = torch.from_numpy(block).to(self.device)
         if self._int8:
-            quant.quantize_rows(rows, out=(self._table[offset:end],
-                                           self._scales[offset:end]))
-        else:
-            self._table[offset:end] = rows
-        self._valid[offset:end] = torch.from_numpy(vmask).to(self.device)
+            quant.quantize_rows_into(rows, self._table[offset:end],
+                                     self._scales[offset:end],
+                                     self._valid[offset:end], n_valid)
+            return
+        self._table[offset:end] = rows
+        self._valid[offset:end] = torch.from_numpy(
+            np.arange(len(block)) < n_valid).to(self.device)

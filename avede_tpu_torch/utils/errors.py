@@ -1,14 +1,14 @@
-"""Error taxonomy, structured error log and the API error envelope
-(counterpart of ``avede_tpu/utils/errors.py``; the ``degrade``
-decorator waits for the services that use it)."""
+"""Error taxonomy, structured error log, the ``degrade`` decorator and
+the API error envelope (counterpart of ``avede_tpu/utils/errors.py``)."""
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 import traceback
 from collections import deque
-from typing import Any, Deque, Dict
+from typing import Any, Callable, Deque, Dict, Optional
 
 from .logging import get_logger
 
@@ -31,6 +31,22 @@ class VideoValidationError(AvedeError):
 
 class VideoDecodeError(AvedeError):
     code = "VIDEO_DECODE"
+
+
+class ModelLoadError(AvedeError):
+    code = "MODEL_LOAD"
+
+
+class InferenceError(AvedeError):
+    code = "INFERENCE"
+
+
+class DetectionError(AvedeError):
+    code = "DETECTION"
+
+
+class MatchingError(AvedeError):
+    code = "MATCHING"
 
 
 class ClipExtractionError(AvedeError):
@@ -79,6 +95,29 @@ class ErrorLog:
 
 
 error_log = ErrorLog()
+
+
+def degrade(default: Any = None, severity: str = "error",
+            component: Optional[str] = None,
+            exceptions: tuple = (Exception,)) -> Callable:
+    """Decorator: on one of ``exceptions``, record it in ``error_log``
+    and return ``default`` (called first when it is callable, so each
+    failure gets a fresh ``list`` or ``dict``)."""
+
+    def deco(fn: Callable) -> Callable:
+        comp = component or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args: Any, **kwargs: Any) -> Any:
+            try:
+                return fn(*args, **kwargs)
+            except exceptions as exc:  # noqa: BLE001 — deliberate degradation
+                error_log.record(exc, severity=severity, component=comp)
+                return default() if callable(default) else default
+
+        return wrapper
+
+    return deco
 
 
 def error_envelope(task_id: str, exc: BaseException) -> Dict[str, Any]:

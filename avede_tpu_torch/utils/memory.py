@@ -6,7 +6,7 @@ also feeds ``utils/system.ResourceMonitor``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Sequence, Tuple
 
 from .logging import get_logger
 
@@ -57,3 +57,10 @@ def decode_budget(n_frames: int, frame_hw: Tuple[int, int],
                     mem.available_mb)
         n_frames = budget_frames
     return n_frames, sample_rate
+
+
+def chunked(seq: Sequence, size: int) -> Iterator[Sequence]:
+    """Consecutive slices of ``seq`` of ``size`` items (the last may be
+    shorter)."""
+    for lo in range(0, len(seq), max(size, 1)):
+        yield seq[lo: lo + size]

@@ -59,11 +59,16 @@ and the script exits non-zero without printing a result:
    are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
    library's entries run at the index's serving size: the bf16 and int8
    cosine entries over 2^20 rows with a valid mask, ``quantize_rows`` at
-   an add-block (768 rows) and at growth (1,024,000 rows),
+   an add-block (768 rows) and at growth (1,024,000 rows), the index's
+   add write ``quantize_rows_into`` (q, scales and the valid mask in one
+   launch) at an add block of 768 rows into a larger table and at odd
+   shapes,
    ``quantize_per_channel`` at the TPU kernel's [3072, 768] and at odd
    shapes; quantization must equal its plain version exactly. Where no
    single PyTorch call computes a kernel's function, ``library_ms`` is
-   null and ``library`` says why;
+   null and ``library`` says why. The f32 contract entry is also timed
+   without a mask (row ``cosine_scores[nomask]``, the TPU kernel's own
+   function), ``torch.mv`` its library call;
 4. check the card's bf16 embeddings against the CPU's f32 plain path
    on the same seeded weights, on a few frames (cosine >= 0.99);
 5. drive the main path at CLIP ViT-B/32 width (random weights from a
@@ -82,15 +87,19 @@ and the script exits non-zero without printing a result:
    bfloat16, int8 and float32 tiers, each with a fresh cache and search:
    one video gets a cold ``process_video`` first, so ingest backfills
    it, the others take the dense scan; one cold search and three warm
-   ones. The kernels of ingest and of the tier (its fused top-k entry)
-   must have launched and every contract entry not at all; the
+   ones. The kernels of ingest and of the tier (its fused top-k entry;
+   the int8 tier's add write ``quantize_rows_into``) must have launched and every contract entry not at all; the
    indexed hits must rank as a numpy reference of the host path with
    the index's run collapse (near ties within 2e-3 may swap), with
    confidences within 2e-3 of the f32 tables, and the host path
    (``video_ids=``) must rank as the plain reference;
 7. build a ``DeviceLibraryIndex`` at serving size, 1000 seeded videos
    of 1000 unit rows (1,024,000 padded rows, capacity 2^20), in the
-   bfloat16 and the int8 tier: add p50, total growth time, search p50
+   bfloat16 and the int8 tier: add p50, the device operations of one int8
+   add (copies and kernels by name, from ``tools/index_add_ops.py`` in a
+   process of its own; the int8 tier's adds launch
+   ``quantize_rows_into``, its growth ``quantize_rows``, and both must
+   run), total growth time, search p50
    over 20 queries at k = 64 (the fused entry must launch, the contract
    entry not), device ms of the fused search beside its bound (and of
    the contract entry + stable sort it replaced), one search at k = 2048
@@ -303,11 +312,19 @@ and the script exits non-zero without printing a result:
    f32 flash entry (3xTF32), 12 launches, and no other kernel runs; the
    embeddings within ``1e-4 * max|plain| + 1e-5`` of the same model's
    plain path on the card (TF32 off).
+19. (run last) the U-Net segmenter (``models/segmenter.py``) at its
+   default config (128 px, base 32, depth 3) in f32, TF32 off, on a
+   seeded batch of 8: the forward within ``1e-4 * max|cpu| + 1e-5`` of
+   the same weights on the CPU, 10 steps of the port's Adam at 3e-3 on
+   "mask = box prior" (the loss must fall below half its first value),
+   then the trained model on a held-out batch held to the CPU again;
+   step ms and peak memory. It runs no kernel of the port.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
 ``launches``, those on its own path: ``mvp`` for the first slice's
-kernels, the library search of its tier for the library's, the cold
+kernels, the library search of its tier for the library's (phase 7's
+int8 index for ``quantize_rows``, which only growth launches), the cold
 ``reranked`` call for the flash entry at BLIP's L = 577, and phase 9's
 five detection calls for it at OWL-ViT's; phase 10's seven calls are
 the ``small_object`` path, phase 11's eight the ``image_query`` path
@@ -329,6 +346,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -487,8 +505,17 @@ CONVERT_FRAMES, CONVERT_MIN_COSINE = 8, 0.9999
 DET_EVAL_STEPS, DET_EVAL_FRAMES, DET_EVAL_CONF = 400, 12, 0.65
 DET_EVAL_MIN_COSINE = 0.999
 DETECTION_QUERIES = ["a red square", "a car", "a person walking"]
+# phase 7: the videos added before tools/index_add_ops.py profiles one
+# add (the operations of an add do not depend on the index's size)
+ADD_OPS_VIDEOS = 20
+# phase 19: the segmenter's batch, Adam's rate and steps ("mask = box
+# prior", the task of tests/test_models_extra.py at the default config)
+SEG_BATCH, SEG_LR, SEG_STEPS = 8, 3e-3, 10
 # the largest crop bucket of ``ClipEngine.embed_pixels``
 CROP_BUCKET = 256
+# row 3's mask-free case: the TPU kernel's own function, torch.mv its
+# library call
+NOMASK_COSINE = "cosine_scores[nomask]"
 # the path whose launches a kernel's row reports (default: mvp), and
 # the launch key it reads there (default: the row's name)
 KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
@@ -499,7 +526,8 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                "cosine_topk_bf16": "library_bfloat16",
                "cosine_scores_int8": "library_int8",
                "cosine_topk_int8": "library_int8",
-               "quantize_rows": "library_int8",
+               "quantize_rows": "index_int8",
+               "quantize_rows_into": "library_int8",
                "quantize_per_channel": "library_int8",
                BLIP_FLASH: "reranked", BLIP2_FLASH: "reranked_blip2",
                REF_FLASH: "image_query", CROPS16_FLASH: "image_query",
@@ -511,7 +539,8 @@ LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, BLIP2_FLASH: FLASH_L257,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
               REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50,
               TINY_PATCH: MMA_PATCH, TINY_FLASH: FLASH_L17,
-              DET_FLASH: FLASH_L65, "flash_attention": F32_FLASH_D64,
+              DET_FLASH: FLASH_L65, NOMASK_COSINE: "cosine_scores",
+              "flash_attention": F32_FLASH_D64,
               F32_FLASH_HD88: F32_FLASH_D88}
 NO_MASKED_MV = ("null: no single PyTorch call scores the rows and writes "
                 "-inf for the masked ones")
@@ -922,6 +951,29 @@ def check_kernels(torch, np, video):
         yardstick="torch.mv + masked_fill_ (two calls)"))
     if err > tol:
         fail(f"cosine_scores: max err {err} > {tol}")
+    # the TPU kernel's own function takes no mask: one torch.mv computes it
+    got = kernels.cosine_scores(emb, qv)
+    err, tol = max_err(torch, got, kernels.cosine_scores_plain(
+        emb, qv[None])[:, 0])
+    b, f = bound_ms(4 * (emb.numel() + dim + nb), 2.0 * nb * dim)
+    rows.append(dict(
+        name=NOMASK_COSINE, route="cuda",
+        source="avede_tpu_torch/csrc/cosine_scores.cu",
+        replaces="avede_tpu/ops/pallas_kernels.py:139",
+        shape=f"table f32 [{nb},{dim}] x query [{dim}], no mask",
+        max_abs_err=err, tol=tol,
+        ms=time_ms(torch, lambda: kernels.cosine_scores(emb, qv),
+                   iters=200),
+        call_ms=call_ms(torch, lambda: kernels.cosine_scores(emb, qv),
+                        iters=200),
+        plain_ms=time_ms(torch, lambda: kernels.cosine_scores_plain(
+            emb, qv[None]), iters=200),
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1,
+        library_ms=time_ms(torch, lambda: torch.mv(emb, qv), iters=200),
+        library="torch.mv (f32, TF32 off)"))
+    if err > tol:
+        fail(f"{NOMASK_COSINE}: max err {err} > {tol}")
     rows.append(check_window_topk(torch, F, dev, gen, emb, valid))
     del emb
 
@@ -1385,6 +1437,7 @@ def check_library_kernels(torch, F, dev, gen):
                 "symmetric int8 with its scales",
         add_block=quant_case(quant.quantize_rows, quant.quantize_rows_plain,
                              (768, dim), True, 200)))
+    rows.append(check_quantize_into(torch, dev, gen, dim))
     # the TPU kernel's own contract, on thread-block clusters; odd shapes
     # are held exact too
     for shape in ((33, 130), (1, 40), (7, 33), (5001, 70)):
@@ -1402,6 +1455,56 @@ def check_library_kernels(torch, F, dev, gen):
         library="null: no PyTorch call computes per-column amax/127 "
                 "symmetric int8 with its scales"))
     return rows
+
+
+def check_quantize_into(torch, dev, gen, dim):
+    """Phase 3, the int8 index's add write at an add block ([768, D], 700
+    rows valid) into row slices of a larger table, and at odd shapes:
+    q, scales and the mask exactly the plain version's."""
+    from avede_tpu_torch.ops import quant
+
+    def case(n, d, n_valid):
+        x = torch.randn(n, d, device=dev, generator=gen) * 0.05
+        x[n_valid:] = 0.0                         # the block's padding
+        outs = [(torch.zeros(n + 16, d, dtype=torch.int8, device=dev),
+                 torch.zeros(n + 16, device=dev),
+                 torch.zeros(n + 16, dtype=torch.bool, device=dev))
+                for _ in range(2)]
+        got, ref = ([t[8:8 + n] for t in o] for o in outs)
+        quant.quantize_rows_into(x, *got, n_valid)
+        quant.quantize_rows_into_plain(x, *ref, n_valid)
+        if not all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])):
+            fail(f"quantize_rows_into [{n}, {d}] n_valid {n_valid}: kernel "
+                 f"!= plain version")
+        return x, got, ref
+
+    odd = [[33, 100, 20], [5, 130, 5], [1000, 768, 0]]
+    for n, d, n_valid in odd:
+        case(n, d, n_valid)
+    n, n_valid = 768, 700
+    full, _, _ = case(n, dim, n)                  # no zero row
+    x, got, ref = case(n, dim, n_valid)
+    # read 4 B and write 1 B an element, plus the scales and the mask
+    b, f = bound_ms(5 * x.numel() + 5 * n, 5.0 * x.numel())
+    return dict(
+        name="quantize_rows_into", route="cuda",
+        source="avede_tpu_torch/csrc/quantize.cu",
+        replaces="avede_tpu/ops/quant.py:70",
+        shape=f"f32 [{n}, {dim}] -> row slices of int8 [{n + 16}, {dim}], "
+              f"f32 scales and the bool mask, {n_valid} rows valid",
+        max_abs_err=0.0, exact=True, odd_shapes_exact=odd,
+        ms=time_ms(torch, lambda: quant.quantize_rows_into(
+            x, *got, n_valid), iters=200),
+        call_ms=call_ms(torch, lambda: quant.quantize_rows_into(
+            x, *got, n_valid), iters=200),
+        no_zero_row_ms=time_ms(torch, lambda: quant.quantize_rows_into(
+            full, *got, n), iters=200),
+        plain_ms=time_ms(torch, lambda: quant.quantize_rows_into_plain(
+            x, *ref, n_valid), iters=20),
+        bound_ms=b, bound_by=f, bound_peak="f32 67 TFLOP/s",
+        bound_passes=1, library_ms=None,
+        library="null: no PyTorch call computes per-row amax/127 "
+                "symmetric int8 with its scales")
 
 
 def fused_topk_row(torch, name, fused, plain, contract, tables, qv, valid,
@@ -1621,9 +1724,11 @@ def drive_library(torch, np, engine, root):
     counted = (kernels.fused_patch_embed_i420, attention.flash_attention_blhd,
                kernels.cosine_window_topk, kernels.cosine_topk_f32,
                kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
-               quant.quantize_rows) + contracts
+               quant.quantize_rows, quant.quantize_rows_into) + contracts
+    # the int8 tier's adds launch quantize_rows_into (its one growth,
+    # 1024 → 2048 rows, quantize_rows: not required here)
     tier_kernels = {"bfloat16": ("cosine_topk_bf16",),
-                    "int8": ("cosine_topk_int8", "quantize_rows"),
+                    "int8": ("cosine_topk_int8", "quantize_rows_into"),
                     "float32": ("cosine_topk_f32",)}
     top_k, per_video_k, out = 10, 3, {}
     for dtype, needed in tier_kernels.items():
@@ -2207,7 +2312,8 @@ def drive_detection(torch, np, engine, video):
     counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
                kernels.cosine_window_topk, kernels.cosine_topk_f32,
                kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
-               quant.quantize_rows, kernels.fused_patch_embed,
+               quant.quantize_rows, quant.quantize_rows_into,
+               kernels.fused_patch_embed,
                attention.flash_attention, kernels.cosine_scores,
                kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
                quant.quantize_per_channel)
@@ -2481,7 +2587,8 @@ def drive_small_objects(torch, np, engine, det):
     counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
                kernels.cosine_window_topk, kernels.cosine_topk_f32,
                kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
-               quant.quantize_rows, kernels.fused_patch_embed,
+               quant.quantize_rows, quant.quantize_rows_into,
+               kernels.fused_patch_embed,
                attention.flash_attention, kernels.cosine_scores,
                kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
                quant.quantize_per_channel)
@@ -2889,7 +2996,8 @@ def drive_image_query(torch, np, engine, tmp: Path):
     counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
                kernels.cosine_window_topk, kernels.cosine_topk_f32,
                kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
-               quant.quantize_rows, kernels.fused_patch_embed,
+               quant.quantize_rows, quant.quantize_rows_into,
+               kernels.fused_patch_embed,
                attention.flash_attention, kernels.cosine_scores,
                kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
                quant.quantize_per_channel)
@@ -3238,7 +3346,8 @@ def drive_person_search(torch, np, engine, tmp: Path):
     counted = (attention.flash_attention_blhd, kernels.fused_patch_embed_i420,
                kernels.cosine_window_topk, kernels.cosine_topk_f32,
                kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
-               quant.quantize_rows, kernels.fused_patch_embed,
+               quant.quantize_rows, quant.quantize_rows_into,
+               kernels.fused_patch_embed,
                attention.flash_attention, kernels.cosine_scores,
                kernels.cosine_scores_bf16, kernels.cosine_scores_int8,
                quant.quantize_per_channel)
@@ -3743,7 +3852,8 @@ def drive_train(torch, np, engine, video, tmp: Path):
                  kernels.cosine_scores_int8, quant.quantize_per_channel)
     counted = needed + contracts + (
         kernels.cosine_topk_f32, kernels.cosine_topk_bf16,
-        kernels.cosine_topk_int8, quant.quantize_rows)
+        kernels.cosine_topk_int8, quant.quantize_rows,
+        quant.quantize_rows_into)
     scan = Phase1Scan(served, reader=video,
                       cache=EmbeddingCache(str(tmp / "train_serve")))
     path, vid = "memory://synthetic-street", "synthetic-street-trained"
@@ -4031,7 +4141,8 @@ def drive_eval_detection(torch, np):
     counted = (attention.flash_attention_blhd,
                kernels.fused_patch_embed_i420, kernels.cosine_window_topk,
                kernels.fused_patch_embed, attention.flash_attention,
-               kernels.cosine_scores, quant.quantize_rows)
+               kernels.cosine_scores, quant.quantize_rows,
+               quant.quantize_rows_into)
     reset_launches(counted)
     calls = 0
     for mode in ("owlvit", "hybrid"):
@@ -4095,7 +4206,10 @@ def drive_index(torch, np, dtype: str):
     fused = kernels.cosine_topk_int8 if int8 else kernels.cosine_topk_bf16
     contract = (kernels.cosine_scores_int8 if int8
                 else kernels.cosine_scores_bf16)
-    counted = (fused, contract) + ((quant.quantize_rows,) if int8 else ())
+    # int8: adds launch the fused add write, growth quantize_rows
+    counted = (fused, contract) + ((quant.quantize_rows,
+                                    quant.quantize_rows_into) if int8
+                                   else ())
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counted)
     index = DeviceLibraryIndex(dim, dtype=dtype, device="cuda")
@@ -4117,6 +4231,18 @@ def drive_index(torch, np, dtype: str):
         torch.cuda.synchronize()
         add_ms.append((time.perf_counter() - t0) * 1e3)
     del index._grow_locked
+    # the int8 tier: the device operations of one add, profiled in a
+    # process of its own (in this one, after the earlier phases, the
+    # profiler has reported no device work for an add)
+    ops = {}
+    if int8:
+        ops = json.loads(subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "index_add_ops.py"),
+             "--dtype", dtype, "--videos", str(ADD_OPS_VIDEOS)],
+            capture_output=True, text=True, timeout=300,
+            check=True).stdout.strip().splitlines()[-1])
+        if ops["device_ops_per_add"] <= 0:
+            fail("index (int8): the profiler saw no device work in an add")
     if (index.n_rows, index.capacity) != (INDEX_VIDEOS * INDEX_VIDEO_ROWS,
                                           INDEX_CAPACITY):
         fail(f"index ({dtype}): {index.n_rows} rows, capacity "
@@ -4188,11 +4314,92 @@ def drive_index(torch, np, dtype: str):
                 swapped += 1
     out = {"rows": index.n_rows, "capacity": index.capacity,
            "add_p50_ms": statistics.median(add_ms),
+           "add_device_ops": ops.get("device_ops_per_add"),
+           "add_device_op_names": ops.get("device_op_names"),
            "growths": len(growth_s), "growth_total_s": sum(growth_s),
            "search_p50_ms": statistics.median(search_ms),
            "near_tie_swaps": swapped, "launches": launches, **timing,
            "peak_gb": peak_gb}
     del index, table, valid, scales, tables
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_segmenter(torch, np):
+    """Phase 19: the U-Net segmenter (``models/segmenter.py``) at its
+    default config (128 px, base 32, depth 3) in f32 with TF32 off, on a
+    seeded batch of 8: the forward held to its own CPU f32 path on the
+    same weights, then the port's Adam (3e-3) for SEG_STEPS steps on
+    "mask = box prior" (the loss must fall below half of its first
+    value), then the trained model served on a held-out batch and held
+    to the CPU again. It runs no kernel of the port (neither does the
+    JAX package: its convolutions are XLA's)."""
+    from avede_tpu_torch.models import segmenter as seg
+    from avede_tpu_torch.parallel.optim import adam
+
+    cfg = seg.SegmenterConfig()
+    size, n = cfg.image_size, SEG_BATCH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(19)
+
+    def batch(boxes):
+        px = rng.random((n, size, size, 3)).astype(np.float32)
+        prior = np.stack([seg.render_box_prior((size, size), box, size)
+                          for box in boxes])
+        return torch.from_numpy(px), torch.from_numpy(prior)
+
+    def held(what, model, px, prior):
+        cpu = seg.init_segmenter(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        with torch.inference_mode():
+            got = model(px.cuda(), prior.cuda()).cpu()
+            ref = cpu(px, prior)
+        if not bool(torch.isfinite(got).all()) or got.shape != (n, size,
+                                                                size):
+            fail(f"segmenter {what}: logits {tuple(got.shape)}, not finite")
+        err = (got - ref).abs().max().item()
+        tol = TOL_REL * ref.abs().max().item() + TOL_ABS
+        if err > tol:
+            fail(f"segmenter {what}: card vs CPU max err {err} > {tol}")
+        return {"max_abs_err": err, "tol": tol}
+
+    torch.cuda.reset_peak_memory_stats()
+    model = seg.init_segmenter(cfg, seed=0, device="cuda")
+    # the JAX test's box, [8, 24) of 32 px, at this size
+    px, prior = batch([[size // 4, size // 4, 3 * size // 4,
+                        3 * size // 4]] * n)
+    served = {"init": held("forward", model, px, prior)}
+    x, target = px.cuda(), prior.cuda()
+    opt = adam(model.parameters(), SEG_LR)
+    losses, step_ms = [], []
+    for _ in range(SEG_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = seg.segmentation_loss(model(x, target), target)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())                  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not losses[-1] < 0.5 * losses[0]:
+        fail(f"segmenter: loss {losses[0]} -> {losses[-1]}, not below half")
+    # held-out pixels and boxes
+    px, prior = batch([[x0, y0, x0 + w, y0 + h] for x0, y0, w, h in
+                       rng.integers(1, size // 2, (n, 4)).tolist()])
+    served["trained"] = held("trained forward", model, px, prior)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(px.cuda(), prior.cuda())
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+    out = {"config": dataclasses.asdict(cfg), "batch": n, "lr": SEG_LR,
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_p50_after_first": statistics.median(step_ms[1:]),
+           "forward_ms": forward_ms, "served": served,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, opt, x, target
     torch.cuda.empty_cache()
     return out
 
@@ -4291,6 +4498,10 @@ def main() -> None:
     index = {dtype: drive_index(torch, np, dtype)
              for dtype in ("bfloat16", "int8")}
     print(json.dumps({"card": card, "index": index}), flush=True)
+    t0 = time.perf_counter()
+    segmenter = drive_segmenter(torch, np)
+    print(json.dumps({"card": card, "segmenter": segmenter,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
 
     # each kernel's launches on every path, each path's counts zeroed
     # just before it ran; ``launches`` is the count on the row's own path

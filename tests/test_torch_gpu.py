@@ -587,6 +587,64 @@ def test_quantize_rows_kernel_equals_plain(cuda, shape):
     assert torch.equal(out[0][8:], pq) and torch.equal(out[1][8:], ps)
 
 
+@pytest.mark.parametrize("shape,n_valid", [
+    ((768, 512), 700), ((768, 512), 0), ((768, 512), 768), ((256, 1024), 3),
+    ((33, 100), 20), ((5, 130), 5), ((1000, 768), 999)])
+def test_quantize_rows_into_equals_plain(cuda, shape, n_valid):
+    """The int8 index's add write, exact: q, scales and the mask, into row
+    slices of a larger table (the register path and the loop path)."""
+    g = torch.Generator(device="cuda").manual_seed(shape[0] + n_valid)
+    x = torch.randn(*shape, device=cuda, generator=g) * 0.05
+    x[1] = 0.0
+    rows = shape[0]
+    q = torch.full((rows + 16, shape[1]), 7, dtype=torch.int8, device=cuda)
+    s = torch.full((rows + 16,), 3.0, device=cuda)
+    v = torch.ones(rows + 16, dtype=torch.bool, device=cuda)
+    before = tq.quantize_rows_into.launches
+    tq.quantize_rows_into(x, q[8:8 + rows], s[8:8 + rows], v[8:8 + rows],
+                          n_valid)
+    torch.cuda.synchronize()
+    assert tq.quantize_rows_into.launches == before + 1
+    pq, ps = tq.quantize_rows_plain(x)
+    assert torch.equal(q[8:8 + rows], pq) and torch.equal(s[8:8 + rows], ps)
+    assert torch.equal(v[8:8 + rows].cpu(), torch.arange(rows) < n_valid)
+    # the rows around the slice are untouched
+    assert (q[:8] == 7).all() and (q[8 + rows:] == 7).all()
+    assert (s[:8] == 3.0).all() and v[:8].all() and v[8 + rows:].all()
+
+
+@pytest.mark.parametrize("n,d,nq,offset", [
+    (1024, 512, 1, 0), (1000, 768, 1, 0), (333, 1024, 1, 0),
+    (4097, 128, 1, 0), (1024, 512, 1, 1), (500, 100, 1, 0),
+    (700, 512, 3, 0), (100, 1152, 1, 0)])
+def test_cosine_f32_scorer_matches_plain(cuda, n, d, nq, offset):
+    """The f32 contract entry at every path of its dispatch (the fast
+    kernel at 1-8 float4 chunks a lane, an unaligned table, an odd width,
+    several queries, a width past the fast kernel) within the f32 bar,
+    and the mvp entry bit-equal to it on the same rows."""
+    from avede_tpu_torch.ops.similarity import topk_scores
+
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    base = torch.nn.functional.normalize(
+        torch.randn(n * d + offset, device=cuda, generator=g)[offset:]
+        .view(n, d), dim=-1)
+    emb = torch.empty(n * d + offset, device=cuda)[offset:].view(n, d)
+    emb.copy_(base)
+    q = torch.nn.functional.normalize(
+        torch.randn(nq, d, device=cuda, generator=g), dim=-1)
+    valid = torch.rand(n, device=cuda, generator=g) < 0.9
+    before = tk.cosine_scores.launches
+    got = tk.cosine_scores(emb, q, valid)
+    torch.cuda.synchronize()
+    assert tk.cosine_scores.launches == before + 1
+    torch.testing.assert_close(got, tk.cosine_scores_plain(emb, q, valid),
+                               rtol=1e-4, atol=1e-5)
+    mids = torch.randint(-1, n, (300,), device=cuda, generator=g,
+                         dtype=torch.int32)
+    _bit_equal(tk.cosine_window_topk(emb, valid, q, mids, 50),
+               topk_scores(tk.window_scores(got, mids).T, 50))
+
+
 @pytest.mark.parametrize("shape", [(3072, 768), (33, 130), (1, 40),
                                    (7, 33), (5001, 70)])
 def test_quantize_per_channel_kernel_equals_plain(cuda, shape):

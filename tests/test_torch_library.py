@@ -128,6 +128,46 @@ class TestIndexMatchesJax:
         pair.check(queries, 8)
         pair.check_tables()
 
+    def test_int8_writes_through_the_fused_entry(self, monkeypatch):
+        """The int8 tier's adds and removes are one ``quantize_rows_into``
+        each (the mask written with the block), growth quantizes through
+        ``quantize_rows``, and table, scales and valid stay equal to the
+        JAX index's after adds, a replace, a remove and two growths."""
+        from avede_tpu_torch.ops import quant as tq
+
+        calls = []
+
+        def spy(name, fn):
+            def run(*args, **kw):
+                rows = args[0].shape[0]
+                calls.append((name, rows) + ((args[4],) if len(args) > 4
+                                             else ()))
+                return fn(*args, **kw)
+            return run
+
+        monkeypatch.setattr(tq, "quantize_rows_into",
+                            spy("into", tq.quantize_rows_into))
+        monkeypatch.setattr(tq, "quantize_rows",
+                            spy("rows", tq.quantize_rows))
+        rng = np.random.default_rng(9)
+        d = 48
+        pair = _Pair(d, "int8")
+        pair.add("a", _unit(rng, 300, d), np.arange(300.0))
+        pair.add("b", _unit(rng, 70, d), np.arange(70.0))
+        pair.add("a", _unit(rng, 20, d), np.arange(20.0))      # replace
+        pair.remove("b")
+        pair.check_tables()
+        assert calls == [("into", 512, 300), ("into", 256, 70),
+                         ("into", 512, 0), ("into", 256, 20),
+                         ("into", 256, 0)]
+        calls.clear()
+        pair.add("c", _unit(rng, 1500, d), np.arange(1500.0))  # grows
+        pair.add("d", _unit(rng, 2000, d), np.arange(2000.0))  # grows
+        pair.check_tables()
+        pair.check(_unit(rng, 2, d), 10)
+        assert calls == [("rows", 256), ("into", 1536, 1500),
+                         ("rows", 1792), ("into", 2048, 2000)]
+
     @pytest.mark.parametrize("dtype", DTYPES)
     def test_zero_row_blocks_and_wide_rows(self, dtype):
         """A removal writes an all-zero block (scale 1e-12 in int8); a

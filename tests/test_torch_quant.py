@@ -89,6 +89,51 @@ def test_rows_write_into_out_slices():
         tq.quantize_rows(torch.from_numpy(x), out=(table[:5], scales[:5]))
 
 
+@pytest.mark.parametrize("width", [32, 130, 33])
+@pytest.mark.parametrize("which", ["none", "rows", "padded"])
+def test_rows_into_equals_numpy_twin_and_mask(width, which):
+    """The int8 index's add write on the CPU: a bucket-padded block (its
+    padding rows zero) quantized into row slices of the table as
+    ``quantize_rows_np`` does, with ``valid[r] = r < n_valid`` for
+    ``n_valid`` 0 (a remove), the rows added and the padded size."""
+    rng = np.random.default_rng(width)
+    n, padded = 11, 16
+    block = np.zeros((padded, width), np.float32)
+    block[:n] = rng.normal(0, 0.05, (n, width))
+    n_valid = {"none": 0, "rows": n, "padded": padded}[which]
+    table = torch.full((padded + 4, width), 9, dtype=torch.int8)
+    scales = torch.full((padded + 4,), 2.0)
+    valid = torch.ones(padded + 4, dtype=torch.bool)
+    before = tq.quantize_rows_into.launches
+    tq.quantize_rows_into(torch.from_numpy(block), table[2:-2], scales[2:-2],
+                          valid[2:-2], n_valid)
+    assert tq.quantize_rows_into.launches == before
+    jq_, js = jq.quantize_rows_np(block)
+    np.testing.assert_array_equal(table[2:-2].numpy(), jq_)
+    np.testing.assert_array_equal(scales[2:-2].numpy(), js)
+    np.testing.assert_array_equal(valid[2:-2].numpy(),
+                                  np.arange(padded) < n_valid)
+    assert (table[:2] == 9).all() and (table[-2:] == 9).all()
+    assert (scales[:2] == 2.0).all() and valid[:2].all() and valid[-2:].all()
+
+
+def test_rows_into_refuses_bad_outputs():
+    x = torch.zeros(4, 8)
+    q, s = torch.zeros(4, 8, dtype=torch.int8), torch.zeros(4)
+    with pytest.raises(ValueError, match="out must be"):
+        tq.quantize_rows_into(x, q[:3], s, torch.zeros(4, dtype=torch.bool),
+                              4)
+    with pytest.raises(ValueError, match="valid_out must be"):
+        tq.quantize_rows_into(x, q, s, torch.zeros(4, dtype=torch.uint8), 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        meta = torch.device("meta")
+        tq.quantize_rows_into(
+            torch.empty(4, 8, device=meta),
+            torch.empty(4, 8, dtype=torch.int8, device=meta),
+            torch.empty(4, device=meta),
+            torch.empty(4, dtype=torch.bool, device=meta), 4)
+
+
 def test_dequantize_and_quantized_matmul_match_jax():
     rng = np.random.default_rng(1)
     w = rng.normal(0, 0.1, (48, 24)).astype(np.float32)
