@@ -718,14 +718,19 @@ __global__ void __launch_bounds__(SEL_THREADS) select_pass(Select s) {
   }
 }
 
+// The current device's SM count, kept per device (a process may launch
+// on several cards; the caller makes the tensors' device current); 0 on
+// an error, which the launch bounds then report.
+constexpr int MAX_DEVICES = 64;
+
 int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
+  static int sms[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return 0;
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
 // The select passes after a scoring launch that wrote `scores` [n].

@@ -351,23 +351,41 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The current device's index into the per-device launch state below
+// (the shared-memory attribute and the SM count are a device's own, so a
+// process that launches on several cards keeps them per card), or -1.
+constexpr int MAX_DEVICES = 64;
+
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return -1;
+  return dev;
+}
+
 template <int HD, int HP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int L, int H, int ldi, void* stream) {
-  static int grid_cap = 0;
+  static int grid_cap[MAX_DEVICES] = {};
   const int smem = 2 * (int)sizeof(Stage<HP>);
-  if (grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(flash_bf16_kernel<HD, HP>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_bf16_kernel<HD, HP>, TT, smem);
-    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (grid_cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bf16_kernel<HD, HP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_bf16_kernel<HD, HP>, TT, smem);
+    if (err != cudaSuccess) return (int)err;
+    grid_cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
   const int items = B * H * ((L + TR - 1) / TR);
-  const int grid = items < grid_cap ? items : grid_cap;
+  const int grid = items < grid_cap[dev] ? items : grid_cap[dev];
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   flash_bf16_kernel<HD, HP><<<grid, TT, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
@@ -684,13 +702,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int bh, int L, void* stream) {
-  static int grid_cap = 0;
+  static int grid_cap[MAX_DEVICES] = {};
   const int smem = 2 * (int)sizeof(F32Stage<D>);
-  if (grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (grid_cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(flash_f32_kernel<D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -699,10 +718,10 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, flash_f32_kernel<D>, TT, smem);
     if (err != cudaSuccess) return (int)err;
-    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+    grid_cap[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
   const int items = bh * ((L + TR - 1) / TR);
-  const int grid = items < grid_cap ? items : grid_cap;
+  const int grid = items < grid_cap[dev] ? items : grid_cap[dev];
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_f32_kernel<D><<<grid, TT, smem, (cudaStream_t)stream>>>(
       q, k, v, o, bh, L, scale_log2);

@@ -72,6 +72,7 @@ constexpr int W_BYTES = BN * BK * 2;    // one bf16 W' tile
 constexpr int STAGE_BYTES = 2 * OP_BYTES + 2 * W_BYTES;  // a_hi, a_lo, w_hi, w_lo
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
 constexpr int THREADS = 512;            // 2 consumer + 2 producer warpgroups
+constexpr int MAX_DEVICES = 64;         // cards with their own launch state
 
 enum Mode { I420 = 0, RGB_U8 = 1, RGB_F32 = 2 };
 
@@ -479,24 +480,27 @@ int launch(const void* frames, const void* w_hi, const void* w_lo,
   int res = weight_map(&hi_map, w_hi, d, k);
   if (res == 0) res = weight_map(&lo_map, w_lo, d, k);
   if (res != 0) return 10000 + res;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the SM count and the shared-memory attribute are a device's own:
+  // kept per device, set on the current one (the caller makes the
+  // tensors' device current)
+  static int sms[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int count = 0;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(patch_embed_kernel<MODE, OutT>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  SMEM_BYTES);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return (int)err;
-    }
+    if (err != cudaSuccess) return (int)err;
+    sms[dev] = count;
   }
   const int g = s / P;
   const int tiles = ((n * g * g + BM - 1) / BM) * (d / BN);
-  const int grid = tiles < sms ? tiles : sms;
+  const int grid = tiles < sms[dev] ? tiles : sms[dev];
   patch_embed_kernel<MODE, OutT>
       <<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
           hi_map, lo_map, frames, bias, out, n, s, d);

@@ -17,6 +17,17 @@ the JAX layer does; any other dtype raises. Causal or masked attention
 softmax, as the JAX package left it to einsum; masked keys score
 ``finfo.min``, not ``-inf``, so an all-masked row (a padded window) gets
 a uniform softmax as in JAX instead of NaN.
+
+Tensor parallelism (``parallel/train.py::shard_params``, the JAX
+package's ``COLUMN_SHARDED`` / ``ROW_SHARDED``): once a rank's
+parameters are its slices, ``q_proj``, ``k_proj``, ``v_proj`` and
+``fc1`` hold its columns (attention: its ``heads / n_model`` heads),
+``out_proj`` and ``fc2`` its rows, and ``tp_group`` is the mesh's model
+group. Attention and the MLP then take Megatron's form: "f" at the
+region's input (identity forward, the input's gradient all-reduced
+backward; without it the LayerNorm and embedding gradients would be one
+shard's), the row-sharded product's partial sums all-reduced ("g"),
+its bias added once after.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention, flash_attention_blhd
+from ..parallel.collectives import copy_to_model, reduce_from_model
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -87,8 +99,16 @@ def masked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.softmax(s, dim=-1).to(v.dtype) @ v
 
 
+def _row_parallel(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-sharded ``layer`` on its rank's slice ``x``: the partial
+    products summed over ``group``, then the (replicated) bias."""
+    return reduce_from_model(F.linear(x, layer.weight), group) + layer.bias
+
+
 class MultiHeadAttention(nn.Module):
     """MHA with bias on q/k/v/out and scale 1/sqrt(head_dim)."""
+
+    tp_group = None        # the model group once its parameters are shards
 
     def __init__(self, dim: int, num_heads: int,
                  use_flash: bool = False) -> None:
@@ -106,20 +126,22 @@ class MultiHeadAttention(nn.Module):
         """``mask``: bool ``[B, L]``, True = attend to that key."""
         b, length, _ = x.shape
         hd = self.dim // self.num_heads
-        heads = (b, length, self.num_heads, hd)
+        width = self.q_proj.weight.shape[0]   # this rank's heads · hd
+        heads = (b, length, width // hd, hd)
+        if self.tp_group is not None:
+            x = copy_to_model(x, self.tp_group)
         q = self.q_proj(x).view(heads)
         k = self.k_proj(x).view(heads)
         v = self.v_proj(x).view(heads)
         if self.use_flash and not causal and mask is None:
             if q.dtype == torch.bfloat16:
-                return self.out_proj(flash_attention_blhd(q, k, v))
+                return self._out(flash_attention_blhd(q, k, v))
             if q.dtype != torch.float32:
                 raise ValueError(f"use_flash takes a float32 or bfloat16 "
                                  f"model, not {q.dtype}")
             out = flash_attention(*(t.transpose(1, 2).contiguous()
                                     for t in (q, k, v)))    # [B, H, L, hd]
-            return self.out_proj(out.transpose(1, 2).reshape(b, length,
-                                                             self.dim))
+            return self._out(out.transpose(1, 2).reshape(b, length, width))
         keep = None
         if causal:
             keep = torch.ones(length, length, dtype=torch.bool,
@@ -129,10 +151,17 @@ class MultiHeadAttention(nn.Module):
             keep = m if keep is None else keep & m
         out = masked_softmax_attention(*(t.transpose(1, 2) for t in (q, k, v)),
                                        keep)                # [B, H, L, hd]
-        return self.out_proj(out.transpose(1, 2).reshape(b, length, self.dim))
+        return self._out(out.transpose(1, 2).reshape(b, length, width))
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is None:
+            return self.out_proj(x)
+        return _row_parallel(self.out_proj, x, self.tp_group)
 
 
 class MLP(nn.Module):
+    tp_group = None        # the model group once its parameters are shards
+
     def __init__(self, dim: int, hidden_dim: int,
                  activation: str = "quick_gelu") -> None:
         super().__init__()
@@ -141,7 +170,10 @@ class MLP(nn.Module):
         self.act = ACTIVATIONS[activation]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        if self.tp_group is None:
+            return self.fc2(self.act(self.fc1(x)))
+        h = self.act(self.fc1(copy_to_model(x, self.tp_group)))
+        return _row_parallel(self.fc2, h, self.tp_group)
 
 
 class TransformerBlock(nn.Module):

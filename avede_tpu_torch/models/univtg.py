@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from .layers import Transformer, seeded_init
 
 
@@ -86,17 +87,24 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor
 
 def grounding_loss(saliency: torch.Tensor, offsets: torch.Tensor,
                    sal_labels: torch.Tensor, off_labels: torch.Tensor,
-                   valid: torch.Tensor) -> torch.Tensor:
+                   valid: torch.Tensor, group=None) -> torch.Tensor:
     """BCE on saliency over the valid frames + L1 on the boundary
     offsets over the foreground frames (label > 0.5), each a mean over
-    its frames (at least 1) — ``avede_tpu/models/univtg.py:89-99``."""
+    its frames (at least 1) — ``avede_tpu/models/univtg.py:89-99``.
+    With ``group`` (the data ranks of a sharded step) the inputs are one
+    shard of the batch: the frame counts are the whole batch's, summed
+    over the group, so the ranks' results add up to the whole batch's
+    loss."""
     valid = valid.bool()
     zero = saliency.new_zeros(())
-    bce = torch.where(valid, sigmoid_bce(saliency, sal_labels), zero)
-    bce = bce.sum() / valid.sum().clamp(min=1)
     fg = (sal_labels > 0.5) & valid
+    n_valid, n_fg = valid.sum(), fg.sum()
+    if group is not None:
+        n_valid, n_fg = all_reduce_sum(torch.stack([n_valid, n_fg]), group)
+    bce = torch.where(valid, sigmoid_bce(saliency, sal_labels), zero)
+    bce = bce.sum() / n_valid.clamp(min=1)
     l1 = (offsets - off_labels).abs().sum(-1)
-    l1 = torch.where(fg, l1, zero).sum() / fg.sum().clamp(min=1)
+    l1 = torch.where(fg, l1, zero).sum() / n_fg.clamp(min=1)
     return bce + l1
 
 

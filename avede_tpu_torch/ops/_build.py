@@ -10,7 +10,10 @@ once, for callers that want every kernel ready up front.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code.
+non-zero code. Every launch goes through :func:`launch`, which makes the
+tensors' device current first: an entry launches on the current device
+and keeps its per-device state (SM count, shared-memory attributes)
+under that device's index.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,6 +36,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: dict = {}       # (library, symbol) → ctypes function with argtypes set
 
 
 def _nvcc() -> str:
@@ -109,3 +115,27 @@ def check(code: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"CUDA error {code} launching {what}")
+
+
+def entry(lib_name: str, fn_name: str, argtypes) -> Callable[..., int]:
+    """The C function ``fn_name`` of ``csrc/<lib_name>.cu`` (built and
+    loaded at first use), returning an int."""
+    key = (lib_name, fn_name)
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def launch(device: torch.device, lib_name: str, symbol: str,
+           argtypes: Sequence, *args) -> None:
+    """Call the entry ``symbol`` of ``csrc/<lib_name>.cu`` with ``args``
+    and then the current stream of ``device``, with ``device`` the
+    current device during the call; raise on a non-zero code."""
+    fn = entry(lib_name, symbol, list(argtypes) + [ctypes.c_void_p])
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(code, symbol)

@@ -26,7 +26,8 @@ BLIP-2's ViT-g shape ([30, 16, 257, 88]: by its three TF32 passes).
   ``flash_attention_blhd``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises. ``flash_attention.launches``
+CUDA tensors it launches the kernel (``_build.launch``, on the tensors'
+device) or raises. ``flash_attention.launches``
 counts kernel launches, ``flash_attention.launches_by_dim`` the same by
 head dim; ``flash_attention_blhd.launches_by_length`` counts them by L
 (their sum is the entry's count).
@@ -41,7 +42,7 @@ import math
 import torch
 
 from . import _build
-from .kernels import _entry, _refuse_grad, _require_cuda, _stream
+from .kernels import _refuse_grad, _require_cuda
 
 _HEAD_DIMS = (16, 24, 32, 64, 88)    # the f32 entry's instantiations
 _BLHD_HEAD_DIMS = (16, 24, 64, 88)   # the bf16 entry's instantiations
@@ -77,11 +78,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return out
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _entry("flash_attention", "avede_flash_attention_f32",
-                [p, p, p, p, i, i, i, p])
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), b * h, length, d, _stream(q)),
-                 "avede_flash_attention_f32")
+    _build.launch(q.device, "flash_attention", "avede_flash_attention_f32",
+                  [p, p, p, p, i, i, i], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b * h, length, d)
     flash_attention.launches += 1
     flash_attention.launches_by_dim[d] += 1
     return out
@@ -156,11 +155,9 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return out
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _entry("flash_attention", "avede_flash_attention_bf16",
-                [p, p, p, p, i, i, i, i, i, p])
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), b, length, h, d, ld, _stream(q)),
-                 "avede_flash_attention_bf16")
+    _build.launch(q.device, "flash_attention", "avede_flash_attention_bf16",
+                  [p, p, p, p, i, i, i, i, i], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b, length, h, d, ld)
     flash_attention_blhd.launches_by_length[length] += 1
     return out
 

@@ -37,15 +37,16 @@
   takes them at the default settings.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises. ``<wrapper>.launches``
-counts kernel launches.
+CUDA tensors it launches the kernel, through ``_build.launch`` on the
+tensors' device, or raises. ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,22 +56,6 @@ from .preprocess import CLIP_MEAN, CLIP_STD, clip_preprocess_i420
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_fns: dict = {}       # (library, symbol) → ctypes function with argtypes set
-
-
-def _entry(lib_name: str, fn_name: str, argtypes) -> Callable[..., int]:
-    key = (lib_name, fn_name)
-    fn = _fns.get(key)
-    if fn is None:
-        fn = getattr(_build.load(lib_name), fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[key] = fn
-    return fn
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -185,9 +170,8 @@ def _patch_launch(mode, frames, size, split, b2, out, patch, wrapper):
     else:
         name = f"avede_patch_embed_any_{mode}"
         args.append(patch)
-    fn = _entry("patch_embed", name, [_P] * 5 + [_I] * (len(args) - 5)
-                + [_P])
-    _build.check(fn(*args, _stream(frames)), name)
+    _build.launch(frames.device, "patch_embed", name,
+                  [_P] * 5 + [_I] * (len(args) - 5), *args)
     wrapper.launches += 1
     wrapper.launches_by_kernel[kernel] += 1
     return out
@@ -328,12 +312,11 @@ def cosine_scores(emb: torch.Tensor, queries: torch.Tensor,
     out = torch.empty((n, q.shape[0]), dtype=torch.float32,
                       device=emb.device)
     if n and q.shape[0]:
-        fn = _entry("cosine_scores", "avede_cosine_scores_f32",
-                    [_P, _P, _P, _P, _I, _I, _I, _P])
-        _build.check(fn(emb.data_ptr(), q.data_ptr(),
-                        valid.data_ptr() if valid is not None else None,
-                        out.data_ptr(), n, d, q.shape[0], _stream(emb)),
-                     "avede_cosine_scores_f32")
+        _build.launch(emb.device, "cosine_scores", "avede_cosine_scores_f32",
+                      [_P, _P, _P, _P, _I, _I, _I], emb.data_ptr(),
+                      q.data_ptr(),
+                      valid.data_ptr() if valid is not None else None,
+                      out.data_ptr(), n, d, q.shape[0])
         cosine_scores.launches += 1
     return out[:, 0] if squeeze else out
 
@@ -392,18 +375,13 @@ def _lowp_scores(emb, scales, queries, valid, row_dtype, plain, symbol,
     out = torch.empty((n, q.shape[0]), dtype=torch.float32,
                       device=emb.device)
     if n and q.shape[0]:
-        vptr = valid.data_ptr() if valid is not None else None
-        if scales is None:
-            fn = _entry("cosine_scores", symbol,
-                        [_P, _P, _P, _P, _I, _I, _I, _P])
-            code = fn(emb.data_ptr(), q.data_ptr(), vptr, out.data_ptr(),
-                      n, d, q.shape[0], _stream(emb))
-        else:
-            fn = _entry("cosine_scores", symbol,
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _P])
-            code = fn(emb.data_ptr(), scales.data_ptr(), q.data_ptr(),
-                      vptr, out.data_ptr(), n, d, q.shape[0], _stream(emb))
-        _build.check(code, symbol)
+        ptrs = [emb.data_ptr()] + ([scales.data_ptr()] if scales is not None
+                                   else []) \
+            + [q.data_ptr(), valid.data_ptr() if valid is not None else None,
+               out.data_ptr()]
+        _build.launch(emb.device, "cosine_scores", symbol,
+                      [_P] * len(ptrs) + [_I, _I, _I], *ptrs, n, d,
+                      q.shape[0])
         wrapper.launches += 1
     return out[:, 0] if squeeze else out
 
@@ -515,12 +493,11 @@ def cosine_window_topk(emb: torch.Tensor, valid: Optional[torch.Tensor],
     vals = torch.empty((nq, k), dtype=torch.float32, device=emb.device)
     idx = torch.empty((nq, k), dtype=torch.int64, device=emb.device)
     if k and nq:                               # one block per query
-        fn = _entry("cosine_scores", "avede_window_topk_f32",
-                    [_P] * 6 + [_I] * 4 + [_P])
-        _build.check(fn(emb.data_ptr(), q.data_ptr(),
-                        valid.data_ptr() if valid is not None else None,
-                        mids.data_ptr(), vals.data_ptr(), idx.data_ptr(), d,
-                        nq, w, k, _stream(emb)), "avede_window_topk_f32")
+        _build.launch(emb.device, "cosine_scores", "avede_window_topk_f32",
+                      [_P] * 6 + [_I] * 4, emb.data_ptr(), q.data_ptr(),
+                      valid.data_ptr() if valid is not None else None,
+                      mids.data_ptr(), vals.data_ptr(), idx.data_ptr(), d,
+                      nq, w, k)
         cosine_window_topk.launches += 1
     return (vals[0], idx[0]) if squeeze else (vals, idx)
 
@@ -587,14 +564,14 @@ def _topk_library(emb, scales, query, valid, k, row_dtype, plain, unfused,
             + [query.data_ptr(), valid.data_ptr() if valid is not None
                else None]
         scores = torch.empty((n,), dtype=torch.float32, device=emb.device)
-        work_ints = _entry("cosine_scores", "avede_topk_work_ints", [])()
+        work_ints = _build.entry("cosine_scores", "avede_topk_work_ints",
+                                 [])()
         work = torch.empty((work_ints,), dtype=torch.int32,
                            device=emb.device)
-        fn = _entry("cosine_scores", symbol, [_P] * (len(ptrs) + 4)
-                    + [_I, _I, _I, _P])
-        _build.check(fn(*ptrs, scores.data_ptr(), work.data_ptr(),
-                        vals.data_ptr(), idx.data_ptr(), n, d, k,
-                        _stream(emb)), symbol)
+        _build.launch(emb.device, "cosine_scores", symbol,
+                      [_P] * (len(ptrs) + 4) + [_I, _I, _I], *ptrs,
+                      scores.data_ptr(), work.data_ptr(), vals.data_ptr(),
+                      idx.data_ptr(), n, d, k)
         wrapper.launches += 1
     return vals, idx
 

@@ -16,7 +16,8 @@ One scheme throughout: ``scale = max(amax / 127, 1e-12)`` and
   the host (the embedding cache's int8 entries, bound for disk);
 - ``dequantize``, ``quantized_matmul`` and ``quantize_dense_tree``.
 
-The kernel wrappers launch ``csrc/quantize.cu`` for CUDA tensors and
+The kernel wrappers launch ``csrc/quantize.cu`` for CUDA tensors (on
+their device, through ``_build.launch``) and
 take their plain PyTorch version only for tensors on the CPU. The bar
 between the two, and against numpy and eager JAX, is exact equality of
 ``q`` and the scales (IEEE division ``amax / 127``; under ``jit``, XLA
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .kernels import _I, _P, _entry, _require_cuda, _stream
+from .kernels import _I, _P, _require_cuda
 
 _QOut = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -114,9 +115,8 @@ def _quantize(x: torch.Tensor, dim: int, out: _QOut, plain, symbol: str,
         raise ValueError(f"{symbol} takes float32, not {x.dtype}")
     rows, cols = x.shape
     if x.numel():
-        fn = _entry("quantize", symbol, [_P, _P, _P, _I, _I, _P])
-        _build.check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), rows,
-                        cols, _stream(x)), symbol)
+        _build.launch(x.device, "quantize", symbol, [_P, _P, _P, _I, _I],
+                      x.data_ptr(), q.data_ptr(), s.data_ptr(), rows, cols)
         wrapper.launches += 1
     return q, s
 
@@ -160,12 +160,10 @@ def quantize_rows_into(x: torch.Tensor, q_out: torch.Tensor,
         raise ValueError(f"avede_quantize_rows_into takes float32, not "
                          f"{x.dtype}")
     if x.numel():
-        fn = _entry("quantize", "avede_quantize_rows_into",
-                    [_P, _P, _P, _P, _I, _I, _I, _P])
-        _build.check(fn(x.data_ptr(), q_out.data_ptr(), s_out.data_ptr(),
-                        valid_out.data_ptr(), rows, cols,
-                        int(n_valid), _stream(x)),
-                     "avede_quantize_rows_into")
+        _build.launch(x.device, "quantize", "avede_quantize_rows_into",
+                      [_P, _P, _P, _P, _I, _I, _I], x.data_ptr(),
+                      q_out.data_ptr(), s_out.data_ptr(),
+                      valid_out.data_ptr(), rows, cols, int(n_valid))
         quantize_rows_into.launches += 1
 
 

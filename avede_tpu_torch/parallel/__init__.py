@@ -1,1 +1,1 @@
-"""The frame-embedding engine."""
+"""The frame-embedding engine, the mesh, the collectives and the trainers."""

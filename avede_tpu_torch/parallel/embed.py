@@ -1,5 +1,6 @@
-"""The frame-embedding engine on one device (counterpart of
-``avede_tpu/parallel/embed.py``'s ``ClipEngine``).
+"""The frame-embedding engine (counterpart of
+``avede_tpu/parallel/embed.py``'s ``ClipEngine``), on one device or
+split over a mesh's data devices.
 
 Frames go through the fused image path only: host pack
 (``SCAN_TRANSFER``) → bucket padding (``pick_bucket``) →
@@ -12,6 +13,16 @@ weights are folded and split for the kernel once, at load time) →
 Warm queries run ``query_window_topk``: text tower → one launch of the
 fused ``cosine_window_topk`` kernel (score the window middles, mask,
 top-k).
+
+On a mesh (``parallel/mesh.py``) of ``n_data`` data devices, the weights,
+the folded patch weights and their split bf16 operands are copied once
+to each distinct data device, each frame bucket is padded to a multiple
+of ``n_data`` and split into ``n_data`` equal slices, each slice embedded
+on its device (the kernels launch once a slice), and the slices' results
+gathered in order on the first data device; the chunk cap is
+``EMBED_BATCH_PER_DEVICE × n_data``, as in the JAX package. Text, the
+warm query and the resident tables stay on the first data device. A
+1 × 1 mesh is the one-device path, with no extra copy or launch.
 
 ``embed_stream`` overlaps decode with embed: a staging thread packs,
 pads and copies each chunk into pinned host memory and issues its
@@ -29,6 +40,7 @@ which coalesces the calls of concurrent requests into one tower call.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import math
@@ -52,7 +64,8 @@ from ..ops.preprocess import (central_square_crop, clip_preprocess,
 from ..ops.similarity import make_query_window_topk, pad_table
 from ..utils.config import settings
 from ..utils.logging import get_logger
-from ..utils.platform import resolve_device, with_compute_dtype
+from ..utils.platform import with_compute_dtype
+from .mesh import MeshContext, build_mesh, get_mesh
 
 logger = get_logger(__name__)
 
@@ -118,22 +131,45 @@ def _staged(iterator: Iterable, transform: Callable,
         t.join(timeout=5.0)
 
 
-class ClipEngine:
-    """Batched CLIP inference on one device with host↔device plumbing.
+@dataclasses.dataclass
+class _Replica:
+    """The engine's weights on one data device."""
 
-    ``device`` defaults to ``cuda`` and raises without a card; pass
-    ``device="cpu"`` to run the plain versions of the kernels on the
-    CPU. Weights: ``state_dict`` (e.g. ``models.convert.params_from_jax``),
-    else ``weights_path`` / ``settings.CLIP_WEIGHTS`` (the JAX package's
-    flat ``.npz``), else random from ``seed``.
+    model: torch.nn.Module
+    w2: torch.Tensor                   # folded patch weights [P·P·3, D]
+    b2: torch.Tensor                   # folded bias [D]
+    w_split: Optional[Tuple[torch.Tensor, torch.Tensor]]  # kernel operands
+    copy_stream: Optional["torch.cuda.Stream"]
+
+
+class ClipEngine:
+    """Batched CLIP inference with host↔device plumbing, on one device
+    or over a mesh's data devices.
+
+    ``mesh`` (a local ``MeshContext``) and ``device`` exclude each other:
+    ``device`` is a 1 × 1 mesh (``"cpu"`` runs the plain versions of the
+    kernels on the CPU), and with neither the engine takes ``get_mesh()``
+    (every visible card; none raises). Weights: ``state_dict`` (e.g.
+    ``models.convert.params_from_jax``), else ``weights_path`` /
+    ``settings.CLIP_WEIGHTS`` (the JAX package's flat ``.npz``), else
+    random from ``seed``.
     """
 
     def __init__(self, cfg: Optional[CLIPConfig] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  weights_path: Optional[str] = None,
                  device: Union[str, torch.device, None] = None,
-                 seed: int = 0) -> None:
-        self.device = resolve_device(device)
+                 seed: int = 0, mesh: Optional[MeshContext] = None) -> None:
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh or device, not both")
+        if mesh is None:
+            mesh = get_mesh() if device is None \
+                else build_mesh([device], shape=(1, 1))
+        if mesh.is_distributed:
+            raise ValueError("serving takes a local mesh (build_mesh with "
+                             "devices), not a process group's")
+        self.mesh = mesh
+        self.device = mesh.data_devices[0]
         if cfg is None:
             cfg = with_compute_dtype(vit_b32(), self.device)
         # the port's serving configuration: flash attention in every
@@ -161,22 +197,36 @@ class ClipEngine:
         # fold /255 + CLIP normalisation into the patch weights once
         w2, bias_delta = fold_for_uint8(
             model.vision.patch_embedding.kernel().detach())
-        self._w2 = w2.contiguous().to(self.device)
-        self._b2 = bias_delta.contiguous().to(self.device)
-        # the kernel's bf16 hi/lo operands (the CPU runs the plain f32 path)
-        self._w_split = (split_patch_weights(self._w2, self.cfg.patch_size)
-                         if self.device.type == "cuda" else None)
-        self.model = model.to(self.device, self.cfg.torch_dtype).eval()
+        # one replica a distinct data device (virtual shards share one);
+        # the first device's takes the host model itself, last
+        devices = list(dict.fromkeys(mesh.data_devices))
+        self._replicas = {
+            dev: self._replica(copy.deepcopy(model), w2, bias_delta, dev)
+            for dev in devices[1:]}
+        self._replicas[self.device] = self._replica(model, w2, bias_delta,
+                                                    self.device)
+        first = self._replicas[self.device]
+        self.model = first.model
         self.tokenizer = Tokenizer(vocab_size=self.cfg.vocab_size,
                                    context_len=self.cfg.max_text_len)
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
         self._lock = threading.Lock()
         self._text_cache: "OrderedDict[str, np.ndarray]" = OrderedDict()
         self._table_lru: "OrderedDict[int, tuple]" = OrderedDict()
         self._table_seq = 0
         self._query_topk_fn = make_query_window_topk(self.model)
         self._batcher = None
+
+    def _replica(self, model: torch.nn.Module, w2: torch.Tensor,
+                 bias_delta: torch.Tensor, dev: torch.device) -> _Replica:
+        w2 = w2.contiguous().to(dev)
+        cuda = dev.type == "cuda"
+        return _Replica(
+            model=model.to(dev, self.cfg.torch_dtype).eval(), w2=w2,
+            b2=bias_delta.contiguous().to(dev),
+            # the kernel's bf16 hi/lo operands (the CPU runs the plain path)
+            w_split=(split_patch_weights(w2, self.cfg.patch_size)
+                     if cuda else None),
+            copy_stream=torch.cuda.Stream(dev) if cuda else None)
 
     @property
     def model_tag(self) -> str:
@@ -200,70 +250,100 @@ class ClipEngine:
         return part
 
     def _pad(self, part: np.ndarray) -> torch.Tensor:
-        """Bucket-padded uint8 host tensor (pinned when the device is a
-        card, so its copy can run asynchronously)."""
-        bucket = pick_bucket(len(part), settings.FRAME_BUCKETS)
+        """uint8 host tensor padded to a bucket that splits evenly over the
+        data devices (pinned when they are cards, so the copies can run
+        asynchronously)."""
+        bucket = self.mesh.pad_to_data(
+            pick_bucket(len(part), settings.FRAME_BUCKETS))
         host = torch.zeros((bucket,) + part.shape[1:], dtype=torch.uint8,
                            pin_memory=self.device.type == "cuda")
         host[: len(part)] = torch.from_numpy(np.ascontiguousarray(part))
         return host
 
+    def _shards(self, batch: torch.Tensor
+                ) -> List[Tuple[torch.Tensor, torch.device]]:
+        """``batch`` (its length a multiple of ``n_data``) cut into the
+        data devices' equal, contiguous slices, each with its device."""
+        per = len(batch) // self.mesh.n_data
+        return [(batch[i * per: (i + 1) * per], dev)
+                for i, dev in enumerate(self.mesh.data_devices)]
+
+    def _gather(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        """The shards' results, in order, on the first data device."""
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device, non_blocking=True)
+                          for o in outs])
+
     @torch.inference_mode()
     def _embed_device(self, x: torch.Tensor) -> torch.Tensor:
-        """Device uint8 batch → unit-norm f32 [B, D] via the fused path:
-        packed I420 [B, S*3/2, S], model-geometry RGB [B, S, S, 3], or
-        full frames [B, H, W, 3] (crop + antialiased bicubic resize)."""
+        """Device uint8 batch (one shard, on its data device) → unit-norm
+        f32 [B, D] via the fused path: packed I420 [B, S*3/2, S],
+        model-geometry RGB [B, S, S, 3], or full frames [B, H, W, 3]
+        (crop + antialiased bicubic resize)."""
+        rep = self._replicas[x.device]
         size, patch = self.cfg.image_size, self.cfg.patch_size
         if x.dim() == 3:
-            tokens = fused_patch_embed_i420(x, self._w2, self._b2, patch,
-                                            self._w_split,
+            tokens = fused_patch_embed_i420(x, rep.w2, rep.b2, patch,
+                                            rep.w_split,
                                             self.cfg.torch_dtype)
         else:
             if tuple(x.shape[1:3]) != (size, size):
                 x = resize_frames(central_square_crop(x).float(), size)
-            tokens = fused_patch_embed(x.contiguous(), self._w2, self._b2,
-                                       patch, self._w_split)
-        return self.model.encode_image_from_patches(tokens)
+            tokens = fused_patch_embed(x.contiguous(), rep.w2, rep.b2,
+                                       patch, rep.w_split)
+        return rep.model.encode_image_from_patches(tokens)
 
     def _empty(self) -> np.ndarray:
         return np.zeros((0, self.cfg.projection_dim), np.float32)
 
     def embed_frames(self, frames: np.ndarray) -> np.ndarray:
         """uint8 [N, H, W, 3] (or packed) → unit-norm float32 [N, D], in
-        bucket-padded chunks of at most ``EMBED_BATCH_PER_DEVICE``."""
+        bucket-padded chunks of at most ``EMBED_BATCH_PER_DEVICE ×
+        n_data``."""
         n = len(frames)
         if n == 0:
             return self._empty()
-        cap = settings.EMBED_BATCH_PER_DEVICE
+        cap = settings.EMBED_BATCH_PER_DEVICE * self.mesh.n_data
         return self.embed_stream(frames[lo: lo + cap]
                                  for lo in range(0, n, cap))
 
+    def _upload(self, host: torch.Tensor, dev: torch.device):
+        """Start ``host``'s copy to ``dev`` on its replica's side stream
+        → (device tensor, event that marks the copy done; None on the
+        CPU)."""
+        stream = self._replicas[dev].copy_stream
+        if stream is None:
+            return host.to(dev), None
+        with torch.cuda.stream(stream):
+            out = host.to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return out, ready
+
     def embed_stream(self, chunks: Iterable[np.ndarray]) -> np.ndarray:
         """Overlapped decode→embed over an iterator of uint8 chunks: a
-        staging thread packs, pads and starts each chunk's host→device
-        copy on a side stream while the device embeds the previous one.
-        Only the final device→host copy waits for the device."""
+        staging thread packs, pads and starts each shard's host→device
+        copy on a side stream while the devices embed the previous
+        chunk. Only the final device→host copy waits for the devices."""
         lens: List[int] = []
 
         def stage(part: np.ndarray):
             part = self._pack_transfer(part)
             host = self._pad(part)
             lens.append(len(part))
-            if self._copy_stream is None:
-                return host, None
-            with torch.cuda.stream(self._copy_stream):
-                dev = host.to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-            return dev, ready
+            return [self._upload(h, dev) for h, dev in self._shards(host)]
 
         outs: List[torch.Tensor] = []
-        for dev, ready in _staged(chunks, stage):
-            if ready is not None:
-                cur = torch.cuda.current_stream(self.device)
-                cur.wait_event(ready)
-                dev.record_stream(cur)
-            outs.append(self._embed_device(dev))
+        for shards in _staged(chunks, stage):
+            embs = []
+            for x, ready in shards:
+                if ready is not None:
+                    cur = torch.cuda.current_stream(x.device)
+                    cur.wait_event(ready)
+                    x.record_stream(cur)
+                embs.append(self._embed_device(x))
+            outs.append(self._gather(embs))
         if not outs:
             return self._empty()
         return torch.cat([e[:n] for e, n in zip(outs, lens)]
@@ -272,10 +352,12 @@ class ClipEngine:
     def embed_frames_device(self, frames: np.ndarray
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Like ``embed_frames`` (one bucket) but keeps the padded result
-        on the device → (embeddings [B, D], valid mask [B])."""
+        on the first data device → (embeddings [B, D], valid mask
+        [B])."""
         part = self._pack_transfer(frames)
         host = self._pad(part)
-        emb = self._embed_device(host.to(self.device, non_blocking=True))
+        emb = self._gather([self._embed_device(h.to(dev, non_blocking=True))
+                            for h, dev in self._shards(host)])
         valid = torch.arange(len(host), device=self.device) < len(part)
         return emb, valid
 
@@ -301,16 +383,21 @@ class ClipEngine:
                      ) -> np.ndarray:
         """Preprocessed float [N, S, S, 3] → unit-norm float32 [N, D],
         padded to a bucket of ``[1, 4, 16, 64, 256]`` (one image runs
-        alone)."""
+        alone), rounded up to a multiple of ``n_data`` and split over the
+        data devices."""
         n = len(batch)
         if n == 0:
             return self._empty()
         size = self.cfg.image_size
-        bucket = 1 if n == 1 else pick_bucket(n, [4, 16, 64, 256])
+        bucket = self.mesh.pad_to_data(
+            1 if n == 1 else pick_bucket(n, [4, 16, 64, 256]))
         padded = torch.zeros((bucket, size, size, 3), dtype=torch.float32,
                              device=self.device)
         padded[:n] = torch.as_tensor(batch, device=self.device)
-        out = self.model.encode_image(padded.to(self.cfg.torch_dtype))
+        padded = padded.to(self.cfg.torch_dtype)
+        out = self._gather([
+            self._replicas[dev].model.encode_image(x.to(dev))
+            for x, dev in self._shards(padded)])
         return out[:n].float().cpu().numpy()
 
     def _pixel_batcher(self):
@@ -323,7 +410,8 @@ class ClipEngine:
 
                     self._batcher = BatchingExecutor(
                         self.embed_pixels,
-                        max_batch=settings.EMBED_BATCH_PER_DEVICE,
+                        max_batch=settings.EMBED_BATCH_PER_DEVICE
+                        * self.mesh.n_data,
                         max_wait_ms=settings.BATCHING_MAX_WAIT_MS)
         return self._batcher
 
@@ -404,8 +492,8 @@ _DEFAULT: Optional[ClipEngine] = None
 
 
 def get_engine() -> ClipEngine:
-    """The process-wide engine (``ClipEngine()``: on the card), built at
-    first use. The port's services take their engine as an argument; this
+    """The process-wide engine (``ClipEngine()``: on ``get_mesh()``, every
+    visible card), built at first use. The port's services take their engine as an argument; this
     is the JAX package's default for callers that pass none."""
     global _DEFAULT
     if _DEFAULT is None:

@@ -3,7 +3,9 @@
 assignment, Distribution Focal Loss + IoU + BCE, on one device.
 
 Loss (YOLOv8-style, statically shaped; ground truth padded to a fixed
-``max_boxes`` per image, ``gt_mask`` marking the real rows):
+``max_boxes`` per image, ``gt_mask`` marking the real rows; every term
+is a per-image value averaged over the batch, so on a process mesh each
+rank's share is its shard's mean over ``n_data``):
 
 - assignment: an anchor is positive when its centre lies inside a
   ground-truth box; among several, the highest-IoU box wins (an all-zero
@@ -35,8 +37,8 @@ import torch.nn.functional as F
 from ..models.yolo import YoloConfig, YoloV8, init_yolo
 from ..ops.boxes import pairwise_iou
 from .optim import LearningRate, adam
-from .train import (Metrics, TrainState, _apply, _f32_convs, _no_mesh,
-                    _on_device)
+from .train import (Metrics, TrainState, _apply, _f32_convs, _global,
+                    _local_rows, _on_device, _placement)
 
 
 def _level_anchors(cfg: YoloConfig, strides: Sequence[int] = (8, 16, 32),
@@ -145,16 +147,24 @@ def make_yolo_train_step(model: YoloV8, mesh=None
     {"loss", "cls", "dfl", "iou", "grad_norm"})``: images uint8 (or
     0..255 float) ``[B, S, S, 3]`` at the config's ``img_size``, the
     ground truth as :func:`yolo_detection_loss` takes it, all on the
-    model's device."""
-    _no_mesh(mesh)
+    model's device (on a process mesh, the global batch: each rank takes
+    its data shard's rows)."""
+    mesh, _ = _placement(mesh)
     cfg = model.cfg
+    n_data = mesh.n_data if mesh is not None else 1
 
     def step(state: TrainState, images, gt_boxes, gt_labels, gt_mask
              ) -> Tuple[TrainState, Metrics]:
+        images, gt_boxes, gt_labels, gt_mask = _local_rows(
+            mesh, images, gt_boxes, gt_labels, gt_mask)
         outs = state.module(images.float() / 255.0)
         loss, parts = yolo_detection_loss(outs, cfg, gt_boxes, gt_labels,
                                           gt_mask)
-        norm = _apply(state, loss)
-        return state, {"loss": loss.detach(), **parts, "grad_norm": norm}
+        if mesh is not None:       # shard means → shares of the batch mean
+            loss = loss / n_data
+            parts = {k: _global(v / n_data, mesh) for k, v in parts.items()}
+        norm = _apply(state, loss, mesh)
+        return state, {"loss": _global(loss, mesh), **parts,
+                       "grad_norm": norm}
 
     return _f32_convs(step)

@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from ..models.owlvit import OwlViTConfig, OwlViTDetector, init_owlvit
 from ..ops.preprocess import clip_preprocess
 from .optim import LearningRate, adam
-from .train import (Metrics, TrainState, _apply, _f32_convs, _no_mesh,
-                    _on_device, _refuse_flash)
+from .train import (Metrics, TrainState, _apply, _f32_convs, _on_device,
+                    _refuse_flash)
 from .train_det import sigmoid_binary_cross_entropy
 
 POS_WEIGHT = 30.0
@@ -135,8 +135,12 @@ def make_owl_train_step(model: OwlViTDetector, query_ids, mesh=None
     preprocessed as the serving path does (``clip_preprocess``: central
     square, CLIP normalisation), the ground truth as
     :func:`owl_detection_loss` takes it. ``query_ids`` ``[Q, L]`` are the
-    fixed class-name token ids (the label space)."""
-    _no_mesh(mesh)
+    fixed class-name token ids (the label space). ``mesh`` must be None:
+    the JAX package's OWL-ViT step takes none (it trains on one
+    device)."""
+    if mesh is not None:
+        raise ValueError("make_owl_train_step takes no mesh: the JAX "
+                         "package trains OWL-ViT on one device")
     _refuse_flash(model.cfg)
     cfg = model.cfg
     ids = torch.as_tensor(query_ids,

@@ -14,21 +14,32 @@ table in place; the int8 tier quantizes each block into the table and
 writes its valid mask in one launch (``quant.quantize_rows_into``), and
 quantizes growth's uploads with ``quant.quantize_rows``. Capacity grows
 by doubling, which also compacts the holes that removals leave.
+
+On a mesh (``parallel/mesh.py``) the rows are split into ``n_data``
+contiguous shards, one on each data device (table, scales and valid
+mask), capacity rounded up to a multiple of ``n_data`` as in the JAX
+package. A write whose span crosses a shard boundary is cut there, each
+piece written on its shard (the int8 tier's pieces through
+``quantize_rows_into``); growth uploads and quantizes each shard's part.
+A search runs the tier's fused kernel on every shard, moves the shards'
+``(score, global row)`` pairs to the first data device and merges them
+exactly: by score, equal scores lower row first, the one-device order.
 """
 
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import threading
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops import kernels, quant
+from ..parallel.mesh import MeshContext, build_mesh
 from ..utils.config import settings
 from ..utils.logging import get_logger
-from ..utils.platform import resolve_device
 
 logger = get_logger(__name__)
 
@@ -47,6 +58,17 @@ def _padded(n: int) -> int:
     return -(-n // _ROW_BUCKET) * _ROW_BUCKET
 
 
+@dataclasses.dataclass
+class _Shard:
+    """One data device's contiguous rows of the table."""
+
+    device: torch.device
+    start: int                           # its first global row
+    table: torch.Tensor                  # [rows, D] tier dtype
+    scales: Optional[torch.Tensor]       # [rows] f32, int8 only
+    valid: torch.Tensor                  # [rows] bool
+
+
 class DeviceLibraryIndex:
     """Incrementally-built, device-resident ``[capacity, D]`` embedding
     table with masked rows and O(1)-amortized adds.
@@ -58,26 +80,35 @@ class DeviceLibraryIndex:
     copy), float32 for the float32 and int8 tiers so growth never
     compounds a second rounding on top of the tier's own.
 
-    ``device`` is ``cuda`` unless ``"cpu"`` is passed (then the kernels'
-    plain versions run). Sharding the table over several cards is not
-    ported yet."""
+    ``mesh`` (a local ``MeshContext``) shards the rows over its data
+    devices; ``device`` is a one-shard index there (``cuda`` unless
+    ``"cpu"`` is passed, where the kernels' plain versions run); they
+    exclude each other."""
 
     def __init__(self, dim: int, dtype: Optional[str] = None,
-                 device: Union[str, torch.device, None] = None) -> None:
+                 device: Union[str, torch.device, None] = None,
+                 mesh: Optional[MeshContext] = None) -> None:
         self.dim = dim
         self.dtype = dtype or settings.LIBRARY_INDEX_DTYPE
         if self.dtype not in _TABLE_DTYPES:
             raise ValueError(f"unknown library index dtype {self.dtype!r} "
                              f"(expected one of {sorted(_TABLE_DTYPES)})")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh or device, not both")
+        if mesh is None:
+            mesh = build_mesh(["cuda" if device is None else device],
+                              shape=(1, 1))
+        if mesh.is_distributed:
+            raise ValueError("the index takes a local mesh (build_mesh "
+                             "with devices), not a process group's")
+        self.mesh = mesh
+        self.device = mesh.data_devices[0]
         self._int8 = self.dtype == "int8"
         self._shadow_dtype = (np.float16 if self.dtype == "bfloat16"
                               else np.float32)
         self._lock = threading.Lock()
         self._cap = 0
-        self._table: Optional[torch.Tensor] = None    # [cap, D] tier dtype
-        self._scales: Optional[torch.Tensor] = None   # [cap] f32, int8 only
-        self._valid: Optional[torch.Tensor] = None    # [cap] bool
+        self._shards: List[_Shard] = []
         self._shadow: Optional[np.ndarray] = None     # host [cap, D]
         self._shadow_valid: Optional[np.ndarray] = None
         # span bookkeeping (ordered by start row)
@@ -100,6 +131,28 @@ class DeviceLibraryIndex:
     @property
     def capacity(self) -> int:
         return self._cap
+
+    @property
+    def _table(self) -> Optional[torch.Tensor]:
+        """The whole ``[capacity, D]`` table (the shards joined on the
+        first data device; one shard's own tensor)."""
+        return self._joined("table")
+
+    @property
+    def _scales(self) -> Optional[torch.Tensor]:
+        return self._joined("scales")
+
+    @property
+    def _valid(self) -> Optional[torch.Tensor]:
+        return self._joined("valid")
+
+    def _joined(self, name: str) -> Optional[torch.Tensor]:
+        parts = [getattr(sh, name) for sh in self._shards]
+        if not parts or parts[0] is None:
+            return None
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([t.to(self.device) for t in parts])
 
     def has(self, video_id: str) -> bool:
         return video_id in self._by_vid
@@ -182,14 +235,34 @@ class DeviceLibraryIndex:
         # holes persist until the next capacity growth, which compacts
 
     # ------------------------------------------------------------------
+    def _shard_topk(self, sh: _Shard, q: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self._int8:
+            return kernels.cosine_topk_int8(sh.table, sh.scales, q,
+                                            sh.valid, k)
+        if self.dtype == "bfloat16":
+            return kernels.cosine_topk_bf16(sh.table, q, sh.valid, k)
+        return kernels.cosine_topk_f32(sh.table, q, sh.valid, k)
+
     def _topk_locked(self, q: torch.Tensor, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self._int8:
-            return kernels.cosine_topk_int8(self._table, self._scales, q,
-                                            self._valid, k)
-        if self.dtype == "bfloat16":
-            return kernels.cosine_topk_bf16(self._table, q, self._valid, k)
-        return kernels.cosine_topk_f32(self._table, q, self._valid, k)
+        """The top ``k`` (scores, global rows): each shard's own top
+        ``min(k, its rows)``, merged on the first data device by score,
+        equal scores lower row first (each shard's kernel orders its ties
+        so, and a stable sort keeps the row order it is given)."""
+        if len(self._shards) == 1:
+            return self._shard_topk(self._shards[0], q, k)
+        vals, rows = [], []
+        for sh in self._shards:
+            v, i = self._shard_topk(sh, q.to(sh.device, non_blocking=True),
+                                    min(k, sh.table.shape[0]))
+            vals.append(v.to(self.device, non_blocking=True))
+            rows.append(i.to(self.device, non_blocking=True) + sh.start)
+        # the shards are in row order and each lists its ties by row, so
+        # a stable sort by descending score alone gives the global order
+        vals, rows = torch.cat(vals), torch.cat(rows)
+        vals, order = torch.sort(vals, descending=True, stable=True)
+        return vals[:k], rows[order[:k]]
 
     def search(self, query_embedding: np.ndarray, k: int
                ) -> List[Dict]:
@@ -199,7 +272,7 @@ class DeviceLibraryIndex:
         q = torch.from_numpy(np.array(query_embedding, np.float32)
                              ).to(self.device)
         with self._lock:
-            if self._table is None or not self._spans:
+            if not self._shards or not self._spans:
                 return []
             # k rounds up to a power of two, as in the JAX package (whose
             # per-k programs this bounded; here it keeps k's a handful)
@@ -241,6 +314,9 @@ class DeviceLibraryIndex:
         new_cap = max(_MIN_CAPACITY, self._cap or _MIN_CAPACITY)
         while new_cap < compacted + extra_rows:
             new_cap *= 2
+        # the rows split evenly over the data devices: round up to a
+        # multiple (doubling never reaches one for, e.g., 3 shards)
+        new_cap = self.mesh.pad_to_data(new_cap)
         shadow = np.zeros((new_cap, self.dim), self._shadow_dtype)
         shadow_valid = np.zeros((new_cap,), bool)
         new_starts: List[int] = []
@@ -258,45 +334,70 @@ class DeviceLibraryIndex:
         self._shadow, self._shadow_valid = shadow, shadow_valid
         self._starts, self._spans = new_starts, new_spans
         self._rows_end = pos
-        # drop the old table before allocating the new one; a search
-        # already enqueued on it still runs first (stream order)
-        self._table = self._scales = self._valid = None
-        dev = self.device
-        table = torch.zeros((new_cap, self.dim),
-                            dtype=_TABLE_DTYPES[self.dtype], device=dev)
-        scales = (torch.full((new_cap,), 1e-12, dtype=torch.float32,
-                             device=dev) if self._int8 else None)
-        # only the occupied prefix is uploaded (the tail is zero and
-        # masked), in chunks, so the f32 staging copy stays small; the
-        # int8 tier quantizes each chunk on the device
-        for lo in range(0, pos, _UPLOAD_ROWS):
-            hi = min(lo + _UPLOAD_ROWS, pos)
-            rows = torch.from_numpy(shadow[lo:hi]).to(dev)
-            if self._int8:
-                quant.quantize_rows(rows, out=(table[lo:hi], scales[lo:hi]))
-            else:
-                table[lo:hi] = rows
-        self._table, self._scales = table, scales
-        self._valid = torch.from_numpy(shadow_valid).to(dev)
-        row_bytes = table.element_size()
+        # drop the old shards before allocating the new ones; a search
+        # already enqueued on them still runs first (stream order)
+        self._shards = []
+        per = new_cap // self.mesh.n_data
+        for i, dev in enumerate(self.mesh.data_devices):
+            self._shards.append(self._upload_shard(
+                dev, i * per, per, shadow, shadow_valid, pos))
+        row_bytes = self._shards[0].table.element_size()
         logger.info("library index capacity -> %d rows (%s, %.0f MB on "
                     "%s)", new_cap, self.dtype,
-                    new_cap * self.dim * row_bytes / 1e6, dev)
+                    new_cap * self.dim * row_bytes / 1e6,
+                    ", ".join(str(d) for d in
+                              dict.fromkeys(self.mesh.data_devices)))
         self._cap = new_cap
+
+    def _upload_shard(self, dev: torch.device, start: int, rows: int,
+                      shadow: np.ndarray, shadow_valid: np.ndarray,
+                      occupied: int) -> _Shard:
+        """Shard ``[start, start + rows)`` on ``dev`` from the host shadow:
+        only its occupied rows (below ``occupied``) are uploaded (the
+        tail is zero and masked), in chunks, so the f32 staging copy
+        stays small; the int8 tier quantizes each chunk on the device."""
+        table = torch.zeros((rows, self.dim),
+                            dtype=_TABLE_DTYPES[self.dtype], device=dev)
+        scales = (torch.full((rows,), 1e-12, dtype=torch.float32,
+                             device=dev) if self._int8 else None)
+        for lo in range(start, min(start + rows, occupied), _UPLOAD_ROWS):
+            hi = min(lo + _UPLOAD_ROWS, start + rows, occupied)
+            x = torch.from_numpy(shadow[lo:hi]).to(dev)
+            a, b = lo - start, hi - start
+            if self._int8:
+                quant.quantize_rows(x, out=(table[a:b], scales[a:b]))
+            else:
+                table[a:b] = x
+        valid = torch.from_numpy(shadow_valid[start:start + rows]).to(dev)
+        return _Shard(dev, start, table, scales, valid)
+
+    def _pieces(self, offset: int, end: int
+                ) -> Iterator[Tuple[_Shard, int, int]]:
+        """``(shard, lo, hi)`` for each shard that global rows ``[offset,
+        end)`` touch, ``lo``/``hi`` global rows."""
+        for sh in self._shards:
+            lo = max(offset, sh.start)
+            hi = min(end, sh.start + sh.table.shape[0])
+            if lo < hi:
+                yield sh, lo, hi
 
     def _device_write_locked(self, block: np.ndarray, n_valid: int,
                              offset: int) -> None:
         """Write ``block`` at row ``offset``, its first ``n_valid`` rows
-        valid and the rest masked. In place into row slices: the JAX
-        package donates its buffers to one update program; the int8 tier
-        is one upload and one launch."""
-        end = offset + len(block)
-        rows = torch.from_numpy(block).to(self.device)
-        if self._int8:
-            quant.quantize_rows_into(rows, self._table[offset:end],
-                                     self._scales[offset:end],
-                                     self._valid[offset:end], n_valid)
-            return
-        self._table[offset:end] = rows
-        self._valid[offset:end] = torch.from_numpy(
-            np.arange(len(block)) < n_valid).to(self.device)
+        valid and the rest masked. In place into row slices, cut where
+        the span crosses a shard boundary: the JAX package donates its
+        buffers to one update program; the int8 tier is one upload and
+        one launch a piece."""
+        for sh, lo, hi in self._pieces(offset, offset + len(block)):
+            a, b = lo - sh.start, hi - sh.start
+            rows = torch.from_numpy(block[lo - offset: hi - offset]
+                                    ).to(sh.device)
+            # the valid rows are the block's first n_valid
+            n = min(max(n_valid - (lo - offset), 0), hi - lo)
+            if self._int8:
+                quant.quantize_rows_into(rows, sh.table[a:b],
+                                         sh.scales[a:b], sh.valid[a:b], n)
+                continue
+            sh.table[a:b] = rows
+            sh.valid[a:b] = torch.from_numpy(
+                np.arange(hi - lo) < n).to(sh.device)

@@ -36,8 +36,13 @@ class LibrarySearch:
         # init would race when a shared instance (ApiState) serves two
         # first searches on executor threads. The dtype is fixed here.
         engine = phase1.engine
-        self._index = DeviceLibraryIndex(engine.cfg.projection_dim,
-                                         device=engine.device)
+        # the index's rows shard over the engine's data devices (as JAX's
+        # ``mesh=getattr(engine, "mesh", None)``; an engine without a mesh
+        # gives its device)
+        mesh = getattr(engine, "mesh", None)
+        self._index = DeviceLibraryIndex(
+            engine.cfg.projection_dim, mesh=mesh,
+            device=engine.device if mesh is None else None)
         # serializes index population: without it two concurrent first
         # searches both embed every uncached video (correct, since add
         # replaces atomically, but the heavy work runs twice)

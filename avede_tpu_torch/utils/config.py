@@ -148,6 +148,9 @@ class Settings:
         default_factory=lambda: {"face": 0.6, "body": 0.3, "visual": 0.1})
 
     # --- Device execution ---
+    MESH_SHAPE: Optional[List[int]] = None   # None: every device on "data"
+    MESH_AXES: List[str] = dataclasses.field(
+        default_factory=lambda: ["data", "model"])
     COMPUTE_DTYPE: str = "bfloat16"     # on CUDA; the CPU computes in f32
     FRAME_BUCKETS: List[int] = dataclasses.field(
         default_factory=lambda: [32, 64, 128, 256, 512, 1024])

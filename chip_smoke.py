@@ -157,8 +157,8 @@ and the script exits non-zero without printing a result:
    textured background; 8 tiles of 640 px at overlap 128 a frame): the
    route's default ``process_small_object_detection`` (``clip`` mode,
    RPN, adaptive thresholds, background independence, top 20) cold and
-   warm on the first 10 frames, one ``owlvit`` call at top 5 on the
-   first 2 frames, two ``clip`` calls at threshold -1 without the
+   warm on the first 5 frames, one ``owlvit`` call at top 5 on the
+   first frame, two ``clip`` calls at threshold -1 without the
    adaptive thresholds on the
    first 2 frames (top 2), one ``process_background_independence`` with
    its defaults and one at threshold -1 on the first 4 frames; cv2 is
@@ -319,6 +319,26 @@ and the script exits non-zero without printing a result:
    "mask = box prior" (the loss must fall below half its first value),
    then the trained model on a held-out batch held to the CPU again;
    step ms and peak memory. It runs no kernel of the port.
+20. (run after phase 17, while the 1 x 1 engine is loaded) the mesh on
+   one card, over 4 virtual shards of it (``build_mesh([cuda:0] * 4)``,
+   the code path 4 cards take; times are of virtual shards, not of
+   cards): (a) a sharded ``ClipEngine`` embeds phase 5's 600 frames
+   (``embed_stream`` over the source's 256-frame chunks), its table
+   within ``MESH_EMBED_TOL`` of the 1 x 1 engine's, a warm query over
+   the same table ranked identically by both engines, and a cold and a
+   warm ``Phase1Scan.process_video`` on the shards; (b) phase 7's
+   serving-size index (1000 videos of 1000 rows, D = 512, capacity
+   2^20) built on the 4 shards with phase 7's adds, in bf16 and int8:
+   phase 7's 20 queries at k = 64 and 1024 give phase 7's hits with
+   bit-equal scores (run after phase 7, whose one-shard index, adds,
+   queries and hits are (b)'s reference); add p50, growth and search
+   p50 beside phase 7's; (c) a
+   ``torch.distributed`` NCCL group of one rank runs the dp x tp CLIP
+   step at 1 x 1 (ViT-B/32, batch 32, f32, TF32 off, 3 steps): its
+   losses within ``MESH_TRAIN_REL`` of phase 14's. The sharded runs'
+   launches are path ``mesh`` (the one-shard and 1 x 1 runs beside them
+   are not counted); the patch embed, bf16 flash, the window top-k, both
+   fused index entries and the int8 add write must launch there.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -337,7 +357,9 @@ two modes the ``eval`` path (rows 1c and 2j read its mma.sync-kernel
 and L = 17 launches), phase 17's 24 calls the ``eval_detection`` path
 (row 2k reads its L = 65 launches) and phase 18's tower the
 ``f32_flash`` path (row 2b reads its hd = 64 launches, the hd = 88 row
-its hd = 88 ones: none, as no model runs f32 at that width).
+its hd = 88 ones: none, as no model runs f32 at that width); phase 20's
+sharded runs are the ``mesh`` path, in every row's
+``launches_by_path``.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
@@ -354,6 +376,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -371,6 +394,10 @@ N_FRAMES, FRAME_H, FRAME_W, FPS = 600, 288, 512, 30.0
 # the library index at serving size: 1000 videos of 1000 frames, each
 # span padded to 1024 rows, in a table of 2^20 rows
 INDEX_VIDEOS, INDEX_VIDEO_ROWS = 1000, 1000
+# phase 20: virtual shards of the card; the sharded table's bar against
+# the 1 × 1 engine's (the bf16 tier's, LIBRARY_TOL); the NCCL step's
+MESH_SHARDS, MESH_EMBED_TOL = 4, 2e-3
+MESH_TRAIN_STEPS, MESH_TRAIN_REL = 3, 1e-6
 INDEX_ROWS, INDEX_CAPACITY = INDEX_VIDEOS * 1024, 1 << 20
 # whole-library search: three synthetic videos; indexed confidences are
 # held to the f32 host tables within the bf16/int8 tiers' rounding
@@ -433,15 +460,27 @@ TRACE_SPANS = ("phase1.", "phase2.", "phase3.", "owlvit.", "yolo.")
 # phase 10: a 1080p source of 60 frames with six planted objects
 # (kind, side px, x, y, px per frame in x and y, RGB)
 SMALL_W, SMALL_H, SMALL_FRAMES = 1920, 1080, 60
-# the default small-object calls read the first 10 of them: cut from 60,
+# the default small-object calls read the first 5 of them: cut from 60,
 # where the two took about 130 s of the phase's 238 s, then from 30,
-# where they took 85.7 s (NVIDIA H100 80GB HBM3, 700 W), to keep the
-# whole script within 600 s beside phases 12-16
-SMALL_DEFAULT_FRAMES = 10
-# the ``owlvit`` call reads the first 2: cut from 8, where it took 32 s,
-# then from 4, where it took 27.8 s (NVIDIA H100 80GB HBM3, 700 W), to
-# make room for phases 14-16
-SMALL_OWLVIT_FRAMES = 2
+# where they took 85.7 s, then from 10, where they took 20.4 s (NVIDIA
+# H100 80GB HBM3, 700 W), to keep the whole script within 600 s beside
+# phases 12-16 and 20
+SMALL_DEFAULT_FRAMES = 5
+# the ``owlvit`` call reads the first frame: cut from 8, where it took
+# 32 s, then from 4, where it took 27.8 s, then from 2, where it took
+# 24.0 s (NVIDIA H100 80GB HBM3, 700 W), to make room for phases 14-16
+# and 20
+SMALL_OWLVIT_FRAMES = 1
+# the two `clip_all` calls read the first frame (cut from 2, where they
+# took 13.0 s each), extract_features is held to the CPU on boxes around
+# the smallest and largest of the planted objects it used (cut from 4
+# boxes: 22.8 s) and the tiles' CPU reference runs the first
+# SMALL_CPU_TILES of the frame's 8 tiles (the card runs all 8, the path's
+# shape; cut from 8: 21.4 s), after a run of 632 s (NVIDIA H100 80GB
+# HBM3, 700 W) on a slower host than the 537 s one
+SMALL_ALL_FRAMES = 1
+SMALL_FEATURE_OBJECTS = (0, 5)
+SMALL_CPU_TILES = 2
 SMALL_OBJECTS = [("square", 16, 200, 150, 9, 2, (220, 30, 30)),
                  ("disc", 24, 700, 300, -6, 4, (40, 220, 60)),
                  ("square", 32, 1200, 500, 5, -3, (30, 60, 230)),
@@ -2547,12 +2586,13 @@ def drive_small_objects(torch, np, engine, det):
     source of 60 frames (8 tiles of 640 px at overlap 128 a frame):
     the route's default ``process_small_object_detection`` (``clip``
     mode, RPN, adaptive thresholds and background independence, top 20)
-    cold and warm; one ``owlvit`` call at top 5 on the first 2 frames;
-    two ``clip`` calls on the first 2 frames that keep every cell (top
-    2); one ``process_background_independence`` with its defaults and
-    one at threshold -1 on the first 4 frames (frames fitted to 512 px
-    by its reader); then ``extract_features`` on four
-    boxes around planted objects, on the card (CLIP bf16 and an
+    cold and warm on the first ``SMALL_DEFAULT_FRAMES``; one ``owlvit``
+    call at top 5 on the first ``SMALL_OWLVIT_FRAMES``;
+    two ``clip`` calls on the first ``SMALL_ALL_FRAMES`` that keep every
+    cell (top 2); one ``process_background_independence`` with its
+    defaults and one at threshold -1 on the first 4 frames (frames fitted
+    to 512 px by its reader); then ``extract_features`` on boxes around
+    the ``SMALL_FEATURE_OBJECTS``, on the card (CLIP bf16 and an
     EfficientNet-B0 of seeded random weights, f32) and on the CPU (f32
     plain path, the same weights), cv2's RNG seeded before each GrabCut
     (its GMM initialisation draws from it; it is also seeded before each
@@ -2617,8 +2657,9 @@ def drive_small_objects(torch, np, engine, det):
              ("default_warm", "small_object", SMALL_DEFAULT_FRAMES, {}),
              ("owlvit", "small_object", SMALL_OWLVIT_FRAMES,
               dict(detection_mode="owlvit", top_k=5)),
-             ("clip_all", "small_object", 2, all_cells),
-             ("clip_all_again", "small_object", 2, all_cells),
+             ("clip_all", "small_object", SMALL_ALL_FRAMES, all_cells),
+             ("clip_all_again", "small_object", SMALL_ALL_FRAMES,
+              all_cells),
              ("background", "background", SMALL_FRAMES, {}),
              ("background_all", "background", 4,
               dict(confidence_threshold=-1.0)))
@@ -2696,12 +2737,12 @@ def drive_small_objects(torch, np, engine, det):
     if not per_call["clip_all"]["host_stages_s"].get("thresholds_and_merge"):
         fail("small objects: the clip_all call merged nothing")
 
-    # extract_features on boxes around four planted objects, on the card
-    # and on the CPU (f32 plain path, the same seeded weights)
+    # extract_features on boxes around planted objects, on the card and on
+    # the CPU (f32 plain path, the same seeded weights)
     src = SmallObjectVideo(np)
     frame = src.frame(10)
     boxes = []
-    for obj in (0, 1, 3, 5):
+    for obj in SMALL_FEATURE_OBJECTS:
         x0, y0, x1, y1 = src.box(obj, 10)
         pad = (x1 - x0) // 4
         boxes.append([x0 - pad, y0 - pad, x1 + pad, y1 + pad])
@@ -2750,8 +2791,10 @@ def drive_small_objects(torch, np, engine, det):
     # the flash entry at this path's own shapes, card bf16 against the
     # CPU's f32 plain path on the same weights: the CLIP grid's cells of
     # one frame's 8 tiles ([512, 50, 12, 64]) and OWL-ViT B/32 on the
-    # same tiles ([8, 577, 12, 64])
+    # same tiles ([8, 577, 12, 64]); the CPU runs the first
+    # SMALL_CPU_TILES tiles (each tile's rows are its own)
     tiles, _ = tile_frame(frame, so.tile, so.overlap)
+    n = SMALL_CPU_TILES
     ids = det.owl_tokenizer(SMALL_QUERIES)
     t0 = time.perf_counter()
     cpu_owl = init_owlvit(dataclasses.replace(det.owl_cfg, dtype="float32"),
@@ -2759,23 +2802,23 @@ def drive_small_objects(torch, np, engine, det):
     with torch.inference_mode():
         cells = det.clip_grid.cell_embeddings(tiles).float().cpu()
         ref_cells = ClipGridDetector(cpu_clip, det.clip_grid.grid
-                                     ).cell_embeddings(tiles)
+                                     ).cell_embeddings(tiles[:n])
         logits, owl_boxes = det.owl_forward(tiles, ids)
         ref_logits, ref_boxes = cpu_owl(
-            clip_preprocess(torch.from_numpy(tiles),
+            clip_preprocess(torch.from_numpy(tiles[:n]),
                             size=det.owl_cfg.image_size),
             torch.from_numpy(ids))
-    n = len(tiles)
     tile_checks = {
         "tile_grid_cells": list(cells.shape),
         "tile_grid_cells_min_row_cosine": row_cosine(
-            np, cells.numpy(), ref_cells.numpy()),
+            np, cells[: len(ref_cells)].numpy(), ref_cells.numpy()),
         "tile_owl_logits_min_row_cosine": row_cosine(
-            np, logits.float().cpu().reshape(n, -1).numpy(),
+            np, logits[:n].float().cpu().reshape(n, -1).numpy(),
             ref_logits.reshape(n, -1).numpy()),
         "tile_owl_boxes_min_row_cosine": row_cosine(
-            np, owl_boxes.float().cpu().reshape(n, -1).numpy(),
+            np, owl_boxes[:n].float().cpu().reshape(n, -1).numpy(),
             ref_boxes.reshape(n, -1).numpy()),
+        "tiles_checked_on_cpu": n,
         "tiles_card_and_cpu_s": time.perf_counter() - t0,
     }
     if min(v for k, v in tile_checks.items() if k.endswith("cosine")) \
@@ -4191,12 +4234,13 @@ def drive_eval_detection(torch, np):
     return out
 
 
-def drive_index(torch, np, dtype: str):
+def drive_index(torch, np, dtype: str, keep: Optional[dict] = None):
     """Phase 7: a ``DeviceLibraryIndex`` at serving size, 1000 seeded
     videos of 1000 unit rows (each made when it is added), with the
     fused search timed on the device against its bound, a search above
     the fused entry's largest k, and the top 10 of 20 searches held to
-    an f32 reference."""
+    an f32 reference. ``keep[dtype]`` gets the 20 searches' hits at
+    k = 64 and at ``FUSED_MAX_K`` (phase 20's one-shard reference)."""
     from avede_tpu_torch.ops import kernels, quant
     from avede_tpu_torch.ops.similarity import topk_scores
     from avede_tpu_torch.services.library_index import DeviceLibraryIndex
@@ -4253,6 +4297,13 @@ def drive_index(torch, np, dtype: str):
         t0 = time.perf_counter()
         hits.append(index.search(q, k))
         search_ms.append((time.perf_counter() - t0) * 1e3)
+    wide_ms, hits_wide = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        hits_wide.append(index.search(q, kernels.FUSED_MAX_K))
+        wide_ms.append((time.perf_counter() - t0) * 1e3)
+    if keep is not None:
+        keep[dtype] = {k: hits, kernels.FUSED_MAX_K: hits_wide}
     launches = read_launches(counted)
     if any(v <= 0 for n, v in launches.items() if n != contract.__name__) \
             or launches[contract.__name__]:
@@ -4318,11 +4369,243 @@ def drive_index(torch, np, dtype: str):
            "add_device_op_names": ops.get("device_op_names"),
            "growths": len(growth_s), "growth_total_s": sum(growth_s),
            "search_p50_ms": statistics.median(search_ms),
+           "search_p50_ms_k1024": statistics.median(wide_ms),
            "near_tie_swaps": swapped, "launches": launches, **timing,
            "peak_gb": peak_gb}
     del index, table, valid, scales, tables
     torch.cuda.empty_cache()
     return out
+
+
+def counted_run(fns, totals: dict, fn, *args):
+    """``fn(*args)`` with the launch counts of ``fns`` zeroed just before
+    and read just after; the counts are added to ``totals`` → its
+    result."""
+    reset_launches(fns)
+    out = fn(*args)
+    for k, v in read_launches(fns).items():
+        totals[k] = totals.get(k, 0) + v
+    return out
+
+
+def mesh_counted():
+    """Every wrapper whose launches phase 20 counts (its path ``mesh``)."""
+    from avede_tpu_torch.ops import attention, kernels, quant
+
+    return (kernels.fused_patch_embed_i420, kernels.fused_patch_embed,
+            attention.flash_attention_blhd, attention.flash_attention,
+            kernels.cosine_window_topk, kernels.cosine_scores,
+            kernels.cosine_topk_bf16, kernels.cosine_topk_int8,
+            kernels.cosine_topk_f32, kernels.cosine_scores_bf16,
+            kernels.cosine_scores_int8, quant.quantize_rows,
+            quant.quantize_rows_into)
+
+
+def mesh_embed(torch, np, engine, video, tmp: Path, totals: dict) -> dict:
+    """Phase 20(a): a ``ClipEngine`` over ``MESH_SHARDS`` virtual shards
+    of the card scans phase 5's source (``embed_stream`` over its
+    256-frame chunks, and a cold and a warm ``Phase1Scan.process_video``)
+    against the 1 × 1 engine; a warm query on the same table through both
+    engines must rank the same windows with the same scores."""
+    from avede_tpu_torch.io.embedding_cache import EmbeddingCache
+    from avede_tpu_torch.ops.windows import window_middle_indices
+    from avede_tpu_torch.parallel.embed import ClipEngine
+    from avede_tpu_torch.parallel.mesh import build_mesh
+    from avede_tpu_torch.pipelines.phase1 import Phase1Scan
+    from avede_tpu_torch.utils.config import settings
+
+    fns = mesh_counted()
+    mesh = build_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    sharded = ClipEngine(mesh=mesh, seed=0)          # phase 5's weights
+    chunks = [f for f, _ in video.stream_frames("memory://mesh")]
+    t0 = time.perf_counter()
+    table = counted_run(fns, totals, sharded.embed_stream, iter(chunks))
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table_1 = engine.embed_stream(iter(chunks))
+    torch.cuda.synchronize()
+    embed_1_s = time.perf_counter() - t0
+    err = float(np.abs(table - table_1).max())
+    cos = row_cosine(np, table, table_1)
+    if table.shape != table_1.shape or not err <= MESH_EMBED_TOL:
+        fail(f"mesh: sharded table off the 1 × 1 engine's by {err} "
+             f"(bar {MESH_EMBED_TOL})")
+    mids = window_middle_indices(len(table_1), settings.WINDOW_SIZE,
+                                 settings.WINDOW_STRIDE)
+    same = {}
+    for q in QUERIES:
+        v_s, i_s = counted_run(fns, totals, sharded.query_window_topk, q,
+                               table_1, mids, 10)
+        v_1, i_1 = engine.query_window_topk(q, table_1, mids, 10)
+        if not (np.array_equal(i_s, i_1) and np.array_equal(v_s, v_1)):
+            fail(f"mesh: the warm query {q!r} ranked {i_s.tolist()} on the "
+                 f"shards, {i_1.tolist()} on one device")
+        own = sharded.query_window_topk(q, table, mids, 10)[1]
+        same[q] = bool(np.array_equal(own, i_1))
+    scan = Phase1Scan(sharded, reader=video,
+                      cache=EmbeddingCache(str(tmp / "mesh_embeddings")))
+    path, vid = "memory://synthetic-street", "synthetic-street"
+    t0 = time.perf_counter()
+    cold = counted_run(fns, totals, scan.process_video, path, QUERIES[0],
+                       10, -1.0, vid)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = counted_run(fns, totals, scan.process_video, path, QUERIES[0],
+                       10, -1.0, vid)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    conf = [r["confidence"] for r in warm]
+    if warm != cold or not conf or not np.all(np.isfinite(conf)):
+        fail("mesh: the sharded scan's warm result is not its cold one")
+    return {"shards": MESH_SHARDS, "frames": int(len(table)),
+            "table_max_abs_err": err, "table_min_row_cosine": cos,
+            "bar": MESH_EMBED_TOL, "embed_s": embed_s,
+            "embed_s_one_device": embed_1_s,
+            "own_table_topk_identical": same, "cold_scan_s": cold_s,
+            "warm_ms": warm_ms, "replicas": len(sharded._replicas)}
+
+
+def mesh_index(torch, np, dtype: str, totals: dict, reference: dict,
+               one_shard: dict) -> dict:
+    """Phase 20(b), after phase 7: phase 7's serving-size index (1000
+    videos of 1000 rows, D = 512, capacity 2^20, the same adds) built over
+    ``MESH_SHARDS`` virtual shards of the card; phase 7's 20 queries at
+    k = 64 and 1024 must give phase 7's hits (``reference``) with
+    bit-equal scores. Add, growth and search times beside phase 7's
+    (``one_shard``) are of virtual shards of one card, not of cards."""
+    from avede_tpu_torch.parallel.mesh import build_mesh
+    from avede_tpu_torch.services.library_index import DeviceLibraryIndex
+
+    fns, dim = mesh_counted(), 512
+    index = DeviceLibraryIndex(
+        dim, dtype=dtype,
+        mesh=build_mesh([torch.device("cuda", 0)] * MESH_SHARDS))
+    grow, growth_s = index._grow_locked, []
+
+    def timed_grow(extra_rows):
+        t0 = time.perf_counter()
+        grow(extra_rows)
+        torch.cuda.synchronize()
+        growth_s.append(time.perf_counter() - t0)
+
+    index._grow_locked = timed_grow
+    ts = [i / FPS for i in range(INDEX_VIDEO_ROWS)]
+    add_ms = []
+
+    def add(vid, rows):
+        t0 = time.perf_counter()
+        index.add(vid, rows, ts)
+        torch.cuda.synchronize()
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for v in range(INDEX_VIDEOS):
+        counted_run(fns, totals, add, f"video-{v:04d}",
+                    unit_rows(np, v, INDEX_VIDEO_ROWS, dim))
+    del index._grow_locked
+    if (index.capacity, index.n_rows, len(index._shards)) != (
+            INDEX_CAPACITY, INDEX_VIDEOS * INDEX_VIDEO_ROWS, MESH_SHARDS):
+        fail(f"mesh index ({dtype}): capacity {index.capacity}, "
+             f"{index.n_rows} rows, {len(index._shards)} shards")
+    queries = unit_rows(np, 1 << 20, 20, dim)
+    out = {"add_p50_ms": statistics.median(add_ms), "growths": len(growth_s),
+           "growth_total_s": sum(growth_s)}
+    for k, ref in reference.items():
+        ms = []
+
+        def search(q):
+            t0 = time.perf_counter()
+            hits = index.search(q, k)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return hits
+
+        for i, q in enumerate(queries):
+            got = counted_run(fns, totals, search, q)
+            if got != ref[i]:   # video, frame, timestamp, score: bit-equal
+                j = next(j for j, (a, b) in enumerate(zip(got, ref[i]))
+                         if a != b)
+                fail(f"mesh index ({dtype}): query {i} at k = {k} differs "
+                     f"from phase 7's one shard at hit {j}: {got[j]} vs "
+                     f"{ref[i][j]}")
+        out[f"search_p50_ms_k{k}"] = statistics.median(ms)
+    out["one_shard_phase7"] = {
+        key: one_shard[key] for key in ("add_p50_ms", "growths",
+                                        "growth_total_s", "search_p50_ms",
+                                        "search_p50_ms_k1024")}
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train(torch, np, tmp: Path, clip_losses) -> dict:
+    """Phase 20(c): a ``torch.distributed`` NCCL group of one rank runs
+    the dp × tp CLIP step at 1 × 1 (ViT-B/32, batch 32, f32, TF32 off, 3
+    steps, phase 14's seed and batch): its losses must equal phase 14's
+    within ``MESH_TRAIN_REL``."""
+    import torch.distributed as dist
+
+    from avede_tpu_torch.models.clip import vit_b32
+    from avede_tpu_torch.parallel import train as T
+    from avede_tpu_torch.parallel.mesh import build_mesh, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    init_distributed("nccl", f"file://{tmp / 'nccl_rendezvous'}", 1, 0)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = build_mesh(shape=[1, 1])
+        cfg = vit_b32()
+        model, state = T.create_train_state(cfg, mesh=mesh, seed=0)
+        step = T.make_train_step(model, mesh)
+        args = [torch.from_numpy(a).cuda()
+                for a in T.demo_batch(cfg, TRAIN_CLIP[0])]
+        losses, ms = [], []
+        for _ in range(MESH_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, *args)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        backend, world = dist.get_backend(), dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    ref = clip_losses[:MESH_TRAIN_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    if not rel <= MESH_TRAIN_REL:
+        fail(f"mesh train: losses {losses} vs phase 14's {ref}")
+    del model, state, step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"backend": backend, "world": world, "mesh": list(mesh.shape),
+            "losses": losses, "phase14_losses": list(ref),
+            "max_loss_rel_diff": rel, "bar": MESH_TRAIN_REL,
+            "step_wall_ms": ms, "init_s": init_s}
+
+
+MESH_NEEDED = ("fused_patch_embed_i420", "flash_attention_blhd",
+               "cosine_window_topk", "cosine_topk_bf16", "cosine_topk_int8",
+               "quantize_rows_into")
+MESH_CONTRACTS = ("fused_patch_embed", "flash_attention", "cosine_scores",
+                  "cosine_scores_bf16", "cosine_scores_int8")
+
+
+def drive_mesh(torch, np, engine, video, tmp: Path, clip_losses) -> dict:
+    """Phase 20, (a) and (c) (the 1 x 1 engine loaded): the sharded
+    engine, then the NCCL dp × tp step; ``launches`` are (a)'s sharded
+    runs'. (b) runs after phase 7 (``mesh_index``)."""
+    totals: dict = {}
+    out = {"embed": mesh_embed(torch, np, engine, video, tmp, totals)}
+    out["train"] = mesh_train(torch, np, tmp, clip_losses)
+    out["launches"] = totals
+    return out
+
+
+def check_mesh_launches(totals: dict) -> None:
+    """Phase 20's path ``mesh`` (its sharded runs): every serving kernel
+    of the engine and of both index tiers launched, no contract entry."""
+    if any(totals.get(n, 0) <= 0 for n in MESH_NEEDED) \
+            or any(totals.get(n, 0) for n in MESH_CONTRACTS):
+        fail(f"mesh: a serving kernel never launched on the shards or a "
+             f"contract entry ran: {totals}")
 
 
 def drive_segmenter(torch, np):
@@ -4492,12 +4775,27 @@ def main() -> None:
                         Path(tmp))
         evals = phase("eval", drive_eval, torch, np, Path(tmp))
         eval_det = phase("eval_detection", drive_eval_detection, torch, np)
+        # phase 20 while the 1 × 1 engine is loaded (its table is (a)'s
+        # reference), after phase 14 (whose losses are (c)'s)
+        mesh = phase("mesh", drive_mesh, torch, np, engine, video,
+                     Path(tmp), train["clip"]["losses"])
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    index = {dtype: drive_index(torch, np, dtype)
+    index_hits: dict = {}
+    index = {dtype: drive_index(torch, np, dtype, index_hits)
              for dtype in ("bfloat16", "int8")}
     print(json.dumps({"card": card, "index": index}), flush=True)
+    # phase 20(b): the same index over virtual shards, against phase 7's
+    t0 = time.perf_counter()
+    mesh_totals = mesh["launches"]
+    mesh["index"] = {d: mesh_index(torch, np, d, mesh_totals, index_hits[d],
+                                   index[d]) for d in ("bfloat16", "int8")}
+    del index_hits
+    check_mesh_launches(mesh_totals)
+    print(json.dumps({"card": card, "mesh_index": mesh["index"],
+                      "mesh_launches": mesh_totals,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
     t0 = time.perf_counter()
     segmenter = drive_segmenter(torch, np)
     print(json.dumps({"card": card, "segmenter": segmenter,
@@ -4517,6 +4815,7 @@ def main() -> None:
              "eval": evals["launches"],
              "eval_detection": eval_det["launches"],
              "f32_flash": f32_flash["launches"],
+             "mesh": mesh["launches"],
              **{f"library_{d}": r["launches"] for d, r in library.items()},
              **{f"index_{d}": r["launches"] for d, r in index.items()}}
     for row in rows:

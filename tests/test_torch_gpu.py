@@ -1047,3 +1047,62 @@ def test_detector_train_step_on_card_matches_cpu(cuda, name, monkeypatch):
         assert torch.backends.cudnn.allow_tf32
     (lc, gc), (lr, gr) = out["cuda"], out["cpu"]
     assert abs(lc - lr) <= 1e-4 * abs(lr) and abs(gc - gr) <= 1e-3 * gr
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sharded_index_on_card_matches_one_shard(cuda, dtype):
+    """The index over 3 virtual shards of the card (capacity rounded up
+    to a multiple of 3, spans cut at shard boundaries, growth, a
+    removal, duplicated rows in every span) against one shard: the same
+    hits with bit-equal scores (the kernels score a row by D alone)."""
+    from avede_tpu_torch.parallel.mesh import build_mesh
+    from avede_tpu_torch.services.library_index import DeviceLibraryIndex
+
+    rng = np.random.default_rng(1)
+    one = DeviceLibraryIndex(512, dtype=dtype, device="cuda")
+    sharded = DeviceLibraryIndex(
+        512, dtype=dtype, mesh=build_mesh([torch.device("cuda", 0)] * 3))
+    dup = rng.normal(size=(4, 512)).astype(np.float32)
+    dup /= np.linalg.norm(dup, axis=1, keepdims=True)
+    for i, n in enumerate((700, 300, 1200, 450, 900)):
+        emb = rng.normal(size=(n, 512)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        emb[:4], emb[-4:] = dup, dup
+        for ix in (one, sharded):
+            ix.add(f"v{i}", emb, np.arange(float(n)))
+        if i == 2:
+            for ix in (one, sharded):
+                ix.remove("v1")
+    assert sharded.capacity % 3 == 0 and sharded.capacity >= one.capacity
+    assert len(sharded._shards) == 3
+    for q in [dup[0]] + list(rng.normal(size=(3, 512)).astype(np.float32)):
+        for k in (1, 16, 64, 1024):
+            assert sharded.search(q, k) == one.search(q, k)
+
+
+def test_kernel_launches_under_its_tensors_device(cuda, monkeypatch):
+    """A wrapper makes its tensor's device current for the launch (the
+    entry launches on the current device): called with another device
+    current, where there is one, it still launches on its tensor's."""
+    from avede_tpu_torch.ops import _build
+
+    seen = []
+    entry = _build.entry
+
+    def spy(lib, symbol, argtypes):
+        fn = entry(lib, symbol, argtypes)
+
+        def call(*args):
+            seen.append(torch.cuda.current_device())
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(_build, "entry", spy)
+    x = torch.randn(300, 512, device=cuda)
+    other = 1 if torch.cuda.device_count() > 1 else 0
+    with torch.cuda.device(other):
+        q, s = tq.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert seen == [x.device.index]
+    assert torch.equal(q.cpu(), tq.quantize_rows_plain(x.cpu())[0])
+    assert torch.equal(s.cpu(), tq.quantize_rows_plain(x.cpu())[1])

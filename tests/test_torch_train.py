@@ -639,15 +639,33 @@ def _tiny_models():
 @pytest.mark.parametrize("what", ["create_train_state", "make_train_step",
                                   "make_grounding_train_step",
                                   "make_caption_train_step",
-                                  "make_reid_train_step", "train_demo"])
+                                  "make_reid_train_step", "train_demo",
+                                  "make_yolo_train_step",
+                                  "make_owl_train_step"])
 def test_a_mesh_is_refused(what):
+    """Every trainer takes ``None`` and a ``MeshContext`` (a local 1 × 1
+    mesh is its device; the process meshes run in
+    ``tests/test_torch_multichip.py``) and refuses anything else, and a
+    local mesh of several devices (no process group to reduce over);
+    ``make_owl_train_step`` refuses every mesh, as JAX's takes none."""
+    import dataclasses
+
     from avede_tpu_torch.models.clip import tiny_test_config
+    from avede_tpu_torch.models.owlvit import init_owlvit, tiny_owlvit_config
+    from avede_tpu_torch.models.yolo import YoloConfig, init_yolo
+    from avede_tpu_torch.parallel.mesh import build_mesh
+    from avede_tpu_torch.parallel.train_det import make_yolo_train_step
+    from avede_tpu_torch.parallel.train_owl import make_owl_train_step
     from avede_tpu_torch.parallel.train_reid import make_reid_train_step
 
     models = _tiny_models()
+    owl = init_owlvit(dataclasses.replace(tiny_owlvit_config(),
+                                          use_flash=False))
+    ids = np.ones((2, 16), np.int32)
+    dev = lambda m: "cpu" if m is None else None  # noqa: E731
     calls = {
         "create_train_state": lambda m: ttrain.create_train_state(
-            tiny_test_config(), mesh=m, device="cpu"),
+            tiny_test_config(), mesh=m, device=dev(m)),
         "make_train_step": lambda m: ttrain.make_train_step(models["clip"],
                                                             mesh=m),
         "make_grounding_train_step": lambda m: ttrain.make_grounding_train_step(
@@ -656,11 +674,24 @@ def test_a_mesh_is_refused(what):
             models["caption"], 0, mesh=m),
         "make_reid_train_step": lambda m: make_reid_train_step(
             models["reid"], mesh=m),
-        "train_demo": lambda m: ttrain.train_demo(mesh=m, device="cpu"),
+        "train_demo": lambda m: ttrain.train_demo(n_steps=1, mesh=m,
+                                                  device=dev(m)),
+        "make_yolo_train_step": lambda m: make_yolo_train_step(
+            init_yolo(YoloConfig(num_classes=4, img_size=64)), mesh=m),
+        "make_owl_train_step": lambda m: make_owl_train_step(owl, ids,
+                                                             mesh=m),
     }
+    one = build_mesh(["cpu"], shape=(1, 1))
     calls[what](None)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        calls[what](object())
+    if what == "make_owl_train_step":
+        with pytest.raises(ValueError, match="takes no mesh"):
+            calls[what](one)
+    else:
+        calls[what](one)
+        with pytest.raises(TypeError, match="MeshContext"):
+            calls[what](object())
+        with pytest.raises(ValueError, match="no process group"):
+            calls[what](build_mesh(["cpu", "cpu"]))
 
 
 def test_flash_configs_are_refused():
