@@ -1,11 +1,13 @@
 """Flash attention (counterpart of ``avede_tpu/ops/attention.py``).
 
-Both entries launch ``csrc/flash_attention.cu``, which replaces
-``flash_attention`` / ``_flash_kernel`` (``avede_tpu/ops/attention.py:
-29-98``): non-causal, unmasked softmax attention with an online softmax
-over K/V tiles. Any L works: the kernel masks K rows past L itself, so
-nothing is padded. Bound by bytes on the H100, but for the f32 entry at
-BLIP-2's ViT-g shape ([30, 16, 257, 88]: by its three TF32 passes).
+Both entries replace ``flash_attention`` / ``_flash_kernel``
+(``avede_tpu/ops/attention.py:29-98``): non-causal, unmasked softmax
+attention with an online softmax over K/V tiles. Any L works: the
+kernels mask K rows past L themselves, so nothing is padded. The f32
+entry and the bf16 entry's short sequences launch ``csrc/flash_attention
+.cu`` (``mma.sync``); the bf16 entry at hd = 64 or 88 and L from
+``WGMMA_MIN_LENGTH`` up launches ``csrc/flash_attention_wgmma.cu``
+(``wgmma``, TMA, an mbarrier ring; 128-row q and K/V tiles).
 
 - ``flash_attention_blhd`` serves every layer of the CLIP vision tower
   (L = 50, hd = 64 at ViT-B/32), of BLIP's (L = 577 at 384 px, patch
@@ -27,10 +29,12 @@ BLIP-2's ViT-g shape ([30, 16, 257, 88]: by its three TF32 passes).
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel (``_build.launch``, on the tensors'
-device) or raises. ``flash_attention.launches``
-counts kernel launches, ``flash_attention.launches_by_dim`` the same by
-head dim; ``flash_attention_blhd.launches_by_length`` counts them by L
-(their sum is the entry's count).
+device) or raises; there is no fallback from one kernel to another.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_dim`` the same by head dim;
+``flash_attention_blhd.launches_by_length`` counts them by L (their sum
+is the entry's count) and ``launches_by_kernel`` by kernel (``"wgmma"``,
+``"mma"``).
 """
 
 from __future__ import annotations
@@ -45,7 +49,20 @@ from . import _build
 from .kernels import _refuse_grad, _require_cuda
 
 _HEAD_DIMS = (16, 24, 32, 64, 88)    # the f32 entry's instantiations
-_BLHD_HEAD_DIMS = (16, 24, 64, 88)   # the bf16 entry's instantiations
+_BLHD_HEAD_DIMS = (16, 24, 64, 88)   # the bf16 mma.sync kernel's
+_WGMMA_HEAD_DIMS = (64, 88)          # the bf16 wgmma kernel's
+# The bf16 entry sends hd = 64 and 88 from this L up to the wgmma kernel,
+# shorter L to the mma.sync one. chip_smoke.py phase 3's crossover sweep
+# (tools/flash_rows.py, NVIDIA H100 80GB HBM3, 700 W), device ms mma.sync
+# / wgmma: at L = 50, 0.0101 / 0.0135 ([64, 50, 12, 64]) and 0.0123 /
+# 0.0125 ([30, 50, 16, 88]); at L = 65, 0.0308 / 0.0171 and 0.0296 /
+# 0.0169; wgmma ahead at every longer L measured (129, 257, 577). The
+# 128-row tiles waste most of their rows at L = 50.
+WGMMA_MIN_LENGTH = 65
+# kernel → (source under csrc/, C entry)
+_BLHD_KERNELS = {"mma": ("flash_attention", "avede_flash_attention_bf16"),
+                 "wgmma": ("flash_attention_wgmma",
+                           "avede_flash_attention_wgmma_bf16")}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -128,14 +145,32 @@ def _row_stride(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return ld
 
 
+def blhd_kernel(length: int, d: int) -> str:
+    """The kernel ``flash_attention_blhd`` launches for sequence length
+    ``length`` and head dim ``d``: ``"wgmma"`` for hd 64 or 88 at L >=
+    ``WGMMA_MIN_LENGTH``, else ``"mma"``."""
+    if d in _WGMMA_HEAD_DIMS and length >= WGMMA_MIN_LENGTH:
+        return "wgmma"
+    return "mma"
+
+
 def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """q, k, v: ``[B, L, H, hd]`` (each projection's ``[B, L, H·hd]``
     viewed per head, or the thirds of a fused ``[B, L, 3·H·hd]`` qkv
     output, read in place at their row stride) → ``[B, L, H·hd]``
     (non-causal, no mask). On the card: bf16 with hd = 16, 24, 64 or
-    88.
-    ``launches_by_length`` counts the launches by L."""
+    88, on the kernel ``blhd_kernel(L, hd)`` names."""
+    kernel = blhd_kernel(q.shape[1], q.shape[3]) if q.dim() == 4 else "mma"
+    return flash_attention_blhd_on(kernel, q, k, v)   # which checks shapes
+
+
+def flash_attention_blhd_on(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """``flash_attention_blhd`` on the named kernel (``"mma"``: hd = 16,
+    24, 64 or 88; ``"wgmma"``: hd = 64 or 88) at any L, for tests and
+    measurements that hold both kernels; counted as the entry's
+    launches."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"bad shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
@@ -145,9 +180,12 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
             or v.dtype != torch.bfloat16:
         raise ValueError("flash_attention_blhd takes bfloat16 q, k, v")
-    if d not in _BLHD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_blhd takes head dim "
-                         f"{_BLHD_HEAD_DIMS}, not {d}")
+    if kernel not in _BLHD_KERNELS:
+        raise ValueError(f"flash_attention_blhd: no kernel {kernel!r}")
+    dims = _WGMMA_HEAD_DIMS if kernel == "wgmma" else _BLHD_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"flash_attention_blhd: the {kernel} kernel takes "
+                         f"head dim {dims}, not {d}")
     ld = _row_stride(q, k, v)
     _refuse_grad("flash_attention_blhd", q, k, v)
     out = torch.empty((b, length, h * d), dtype=torch.bfloat16,
@@ -155,11 +193,13 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return out
     p, i = ctypes.c_void_p, ctypes.c_int
-    _build.launch(q.device, "flash_attention", "avede_flash_attention_bf16",
+    _build.launch(q.device, *_BLHD_KERNELS[kernel],
                   [p, p, p, p, i, i, i, i, i], q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), b, length, h, d, ld)
     flash_attention_blhd.launches_by_length[length] += 1
+    flash_attention_blhd.launches_by_kernel[kernel] += 1
     return out
 
 
 flash_attention_blhd.launches_by_length = collections.Counter()
+flash_attention_blhd.launches_by_kernel = collections.Counter()

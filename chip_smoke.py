@@ -40,7 +40,14 @@ and the script exits non-zero without printing a result:
    ``[ref]``: 1 x 50) and a frame's crops (row ``[crops16]``: 16 x 50),
    and at BLIP-2's ViT-g shape (row ``[blip2]``: 30 candidates x 257
    tokens, 16 heads of 88, the thirds of a fused qkv at row stride
-   4224; the entry's hd = 88 instantiation). The eval modes' tiny
+   4224; the entry's hd = 88 instantiation). The rows at L = 577 and
+   257 run the entry's wgmma kernel (``csrc/flash_attention_wgmma.cu``;
+   ``mma_ms`` times the mma.sync kernel on the same inputs), and so does
+   row ``[edge]`` (1 x 193 tokens, 5 heads of 88, fused qkv: a 65-row
+   last q tile and a 65-key last K/V tile); the crossover sweep times
+   both kernels and SDPA at L = 50, 65, 129, 257 and 577 (hd 64: [64, L,
+   12, 64]; hd 88: [30, L, 16, 88], fused), the wgmma kernel held to the
+   plain version at each (the line ``flash_crossover``). The eval modes' tiny
    towers (32 px, patch 8, width 64, 4 heads of 16) at the eval path's
    batch of 32: row ``fused_patch_embed_i420[tiny]`` (1c: packed I420
    [32, 48, 32] → bf16 [32, 16, 64], the patch embed's mma.sync kernel,
@@ -55,8 +62,9 @@ and the script exits non-zero without printing a result:
    ViT-g shape in f32 (row ``flash_attention[hd88]``: [30, 16, 257,
    88]), SDPA on the same f32 tensors its library call, and untimed at
    hd = 16, 24 and 32 (L = 17, 65, 70), all to the f32 bar.
-   The entry counts launches by L only, so the detection rows' counts
-   are its L = 577 (OWL-ViT) and L = 50 (grid and crops) launches. The
+   The entry counts launches by L and by kernel: the detection rows'
+   counts are its wgmma (OWL-ViT's L = 577) and L = 50 (grid and crops)
+   launches. The
    library's entries run at the index's serving size: the bf16 and int8
    cosine entries over 2^20 rows with a valid mask, ``quantize_rows`` at
    an add-block (768 rows) and at growth (1,024,000 rows), the index's
@@ -118,7 +126,8 @@ and the script exits non-zero without printing a result:
    sparse table by a re-decode) and three warm ones. The cold rerank
    must launch the I420 patch embed, the fused ``cosine_window_topk``
    and the bf16 flash entry at both L = 50 (CLIP) and L = 577 (BLIP,
-   counted apart); no contract entry may run; warm calls run no BLIP
+   counted apart; every L = 577 launch on the wgmma kernel, in the
+   ``advanced`` call too); no contract entry may run; warm calls run no BLIP
    (no L = 577 launch). Results sorted and finite, reranked confidences
    ``0.7·clip + 0.3·caption`` within 1e-5, every anchor inside its
    segment, repeated queries identical; the card's bf16 BLIP vision
@@ -139,7 +148,8 @@ and the script exits non-zero without printing a result:
    16-frame batches (the synthetic source serves ``stream_batches``):
    one cold and one warm ``hybrid`` call, one each of ``owlvit``,
    ``clip`` and ``yolo_enhanced``. The bf16 flash entry must launch at
-   L = 577 (OWL-ViT) and in the CLIP grid (L = 50; the crops' L = 50
+   L = 577 (OWL-ViT, every launch on the wgmma kernel) and in the CLIP
+   grid (L = 50; the crops' L = 50
    launches are reported apart) and no other kernel at all; results
    finite, sorted by the composite score, boxes ordered and overlapping
    the frame, the two ``hybrid`` calls identical; the card's OWL-ViT
@@ -164,8 +174,8 @@ and the script exits non-zero without printing a result:
    its defaults and one at threshold -1 on the first 4 frames; cv2 is
    required (GrabCut, Farnebäck flow, contours) and its RNG is seeded
    before each call and each GrabCut. The bf16 flash entry must launch
-   at L = 50 in every call and at L = 577 in the ``owlvit`` call only,
-   no other kernel at all; results finite, sorted by confidence, sizes
+   at L = 50 in every call and at L = 577 in the ``owlvit`` call only
+   (each on the wgmma kernel), no other kernel at all; results finite, sorted by confidence, sizes
    in [16, 128], boxes overlapping the frame, the two default calls and
    the two ``clip`` calls at -1 identical, and the ``owlvit``, ``clip``
    and background calls that keep every candidate must return results
@@ -213,7 +223,8 @@ and the script exits non-zero without printing a result:
    bf16, random weights from seed 0) on phase 5's source: one cold call
    (fresh caches; the 30 candidates through the tower) and three warm
    ones (the text side only). The cold call must launch the bf16 flash
-   entry 39 times at L = 257 for each candidate batch, and at L = 50,
+   entry 39 times at L = 257 for each candidate batch (each on the wgmma
+   kernel), and at L = 50,
    the I420 patch embed and ``cosine_window_topk`` for the scan; warm
    calls no L = 257 launch; no contract entry. Results sorted and
    finite, ``0.7·clip + 0.3·itc_score`` within 1e-5, repeated calls
@@ -417,14 +428,19 @@ BLIP2_DEPTH = 39
 # sparse cold scan, 15 window middles in the 32-row bucket
 TINY_TOKENS = (32 // 8) ** 2 + 1
 TINY_BATCH = 32
-# the bf16 flash entry counts its launches by L only, read under these
-# keys: L = 577 is BLIP-base's vision tower on the rerank paths and
+# the bf16 flash entry counts its launches by L, read under these keys:
+# L = 577 is BLIP-base's vision tower on the rerank paths and
 # OWL-ViT's on the detection path (neither runs the other's model);
 # L = 50 is CLIP's (the mvp scan, the detection grid and crops)
 FLASH_L577 = f"flash_attention_blhd[L={BLIP_TOKENS}]"
 FLASH_L50 = f"flash_attention_blhd[L={CLIP_TOKENS}]"
 FLASH_L257 = f"flash_attention_blhd[L={BLIP2_TOKENS}]"
 FLASH_L17 = f"flash_attention_blhd[L={TINY_TOKENS}]"
+# ... and by kernel: the wgmma kernel (hd = 64 or 88 from the crossover
+# L up: BLIP's and OWL-ViT's L = 577, BLIP-2's L = 257) and the mma.sync
+# one (every other shape)
+FLASH_WGMMA = "flash_attention_blhd[wgmma]"
+FLASH_MMA = "flash_attention_blhd[mma]"
 # the patch embed counts its launches by kernel too: the wgmma kernel
 # (P = 32, D a multiple of 96) and the mma.sync one (any other P and D)
 MMA_PATCH = "fused_patch_embed_i420[mma]"
@@ -444,6 +460,14 @@ CROP_FLASH = "flash_attention_blhd[crop]"
 # image query's small buckets: a reference image alone, a frame's crops
 REF_FLASH = "flash_attention_blhd[ref]"
 CROPS16_FLASH = "flash_attention_blhd[crops16]"
+# the wgmma kernel at a small batch and an odd L: a 65-row last q tile and
+# a 65-key last K/V tile (row stride 3 x 5 x 88, B·H = 5)
+EDGE_FLASH = "flash_attention_blhd[edge]"
+EDGE_TOKENS = 193
+# phase 3's crossover sweep of the bf16 entry's two kernels: the lengths,
+# and (batch, heads, layout) at each head dim
+CROSSOVER_LENGTHS = (50, 65, 129, 257, 577)
+CROSSOVER_SHAPES = {64: (64, 12, "heads"), 88: (30, 16, "fused")}
 # the eval modes' tiny shapes: rows 1c (the patch embed's mma.sync kernel)
 # and 2j (flash at head dim 16)
 TINY_PATCH = "fused_patch_embed_i420[tiny]"
@@ -558,6 +582,7 @@ NOMASK_COSINE = "cosine_scores[nomask]"
 # the path whose launches a kernel's row reports (default: mvp), and
 # the launch key it reads there (default: the row's name)
 KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
+               EDGE_FLASH: "unlimited_detection",
                GRID_FLASH: "unlimited_detection",
                CROP_FLASH: "unlimited_detection",
                "cosine_topk_f32": "library_float32",
@@ -573,8 +598,8 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                TINY_PATCH: "eval", TINY_FLASH: "eval",
                DET_FLASH: "eval_detection",
                "flash_attention": "f32_flash", F32_FLASH_HD88: "f32_flash"}
-LAUNCH_KEY = {BLIP_FLASH: FLASH_L577, BLIP2_FLASH: FLASH_L257,
-              OWL_FLASH: FLASH_L577,
+LAUNCH_KEY = {BLIP_FLASH: FLASH_WGMMA, BLIP2_FLASH: FLASH_WGMMA,
+              OWL_FLASH: FLASH_WGMMA, EDGE_FLASH: FLASH_WGMMA,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
               REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50,
               TINY_PATCH: MMA_PATCH, TINY_FLASH: FLASH_L17,
@@ -943,6 +968,10 @@ def check_kernels(torch, np, video):
     rows.append(check_blip_flash(torch, F, dev, gen))
     rows.append(check_blip_flash(torch, F, dev, gen, BLIP2_FLASH,
                                  BLIP2_TOKENS, 16, 88))
+    rows.append(check_blip_flash(torch, F, dev, gen, EDGE_FLASH,
+                                 EDGE_TOKENS, 5, 88, bsz=1))
+    print(json.dumps({"flash_crossover": flash_crossover(torch, F, dev,
+                                                         gen)}), flush=True)
     # the detection path: OWL-ViT's batch, the CLIP grid's cells of a
     # 16-frame batch and the largest crop bucket
     rows.append(check_blhd_flash(torch, F, dev, gen, OWL_FLASH,
@@ -1180,38 +1209,38 @@ def check_tiny_kernels(torch, F, dev, gen, video):
     return rows
 
 
-def check_blip_flash(torch, F, dev, gen, name=BLIP_FLASH,
-                     length=BLIP_TOKENS, h=12, hd=64):
-    """Phase 3, rows 2c and 2i: the serving flash entry at a BLIP vision
-    tower's shape, 2 x TOP_K_RESULTS candidates, q, k and v the thirds of
-    one fused qkv projection read in place (row stride 3 x h x hd), as the
-    reranked path runs it: BLIP-base's [30, 577, 12, 64] (row stride
-    2304) and BLIP-2's ViT-g [30, 257, 16, 88] (row stride 4224; the
-    entry's hd = 88 instantiation). Same bar as the CLIP row."""
+def blhd_row(torch, F, name, q, kk, v, shape):
+    """A phase 3 row of the serving flash entry on q, k, v: held to its
+    plain f32 version within one bf16 ulp + 1e-5 on the kernel
+    ``blhd_kernel`` routes the shape to, timed beside the plain version
+    and SDPA on the bf16 [B, H, L, D] views; a row on the
+    wgmma kernel also times the mma.sync kernel on the same inputs
+    (``mma_ms``). The bound: q, k, v read once and the output written
+    once; q.k and p.v once each on the tensor cores (the kernels' second
+    p.v pass, for P's low bf16 term, is their design's overhead)."""
     from avede_tpu_torch.ops import attention
-    from avede_tpu_torch.utils.config import settings
 
-    bsz = 2 * settings.TOP_K_RESULTS
-    qkv = torch.randn(bsz, length, 3 * h * hd, device=dev, generator=gen
-                      ).to(torch.bfloat16)
-    q, kk, v = (t.unflatten(-1, (h, hd)) for t in qkv.chunk(3, dim=-1))
+    bsz, length, h, hd = q.shape
+    kernel = attention.blhd_kernel(length, hd)
+    counts = attention.flash_attention_blhd.launches_by_kernel
+    before = counts[kernel]
     got = attention.flash_attention_blhd(q, kk, v)
+    if counts[kernel] != before + 1:
+        fail(f"{name}: the {kernel} kernel did not launch")
     ref = attention.flash_attention_blhd_plain(q.float(), kk.float(),
                                                v.float())
     err, excess, unequal = bf16_err(torch, got, ref)
     del ref
+    if excess > 0:
+        fail(f"{name}: max err {err} over its bar by {excess}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
-    # q, k, v read once and the output written once; q.k and p.v once
-    # each on the tensor cores, as for the CLIP row
     b, f = bound_ms(2 * 4 * q.numel(), 4.0 * bsz * h * length * length * hd,
                     BF16_TENSOR_FLOP_PER_S)
+    source = attention._BLHD_KERNELS[kernel][0]
     row = dict(
-        name=name, route="cuda",
-        source="avede_tpu_torch/csrc/flash_attention.cu",
-        replaces="avede_tpu/ops/attention.py:85",
-        shape=f"q,k,v bf16 [{bsz},{length},{h},{hd}], thirds of a fused "
-              f"qkv [{bsz},{length},{3 * h * hd}] -> bf16 "
-              f"[{bsz},{length},{h * hd}]",
+        name=name, route="cuda", kernel=kernel,
+        source=f"avede_tpu_torch/csrc/{source}.cu",
+        replaces="avede_tpu/ops/attention.py:85", shape=shape,
         max_abs_err=err, tol="1 bf16 ulp + 1e-5", tol_excess=excess,
         not_bit_equal=unequal,
         ms=time_ms(torch, lambda: attention.flash_attention_blhd(q, kk, v)),
@@ -1225,53 +1254,89 @@ def check_blip_flash(torch, F, dev, gen, name=BLIP_FLASH,
             qt, kt, vt)),
         library="torch.nn.functional.scaled_dot_product_attention on the "
                 "bf16 [B, H, L, D] views")
-    if excess > 0:
-        fail(f"{name}: max err {err} over its bar by {excess}")
+    if kernel == "wgmma":
+        row["mma_ms"] = time_ms(torch, lambda: (
+            attention.flash_attention_blhd_on("mma", q, kk, v)))
     return row
+
+
+def fused_qkv(torch, dev, gen, bsz, length, h, hd):
+    """q, k, v: the thirds of one fused bf16 [bsz, length, 3·h·hd] qkv
+    projection viewed per head (row stride 3·h·hd), as BLIP's towers."""
+    qkv = torch.randn(bsz, length, 3 * h * hd, device=dev, generator=gen
+                      ).to(torch.bfloat16)
+    return [t.unflatten(-1, (h, hd)) for t in qkv.chunk(3, dim=-1)]
+
+
+def split_heads(torch, dev, gen, bsz, length, h, hd):
+    """q, k, v: three bf16 [bsz, length, h·hd] projections viewed per
+    head (contiguous heads, row stride h·hd), as CLIP's and OWL-ViT's."""
+    return [torch.randn(bsz, length, h * hd, device=dev, generator=gen
+                        ).to(torch.bfloat16).view(bsz, length, h, hd)
+            for _ in range(3)]
+
+
+def check_blip_flash(torch, F, dev, gen, name=BLIP_FLASH,
+                     length=BLIP_TOKENS, h=12, hd=64, bsz=None):
+    """Phase 3, rows 2c and 2i: the serving flash entry at a BLIP vision
+    tower's shape, 2 x TOP_K_RESULTS candidates, q, k and v the thirds of
+    one fused qkv projection read in place (row stride 3 x h x hd), as the
+    reranked path runs it: BLIP-base's [30, 577, 12, 64] (row stride
+    2304) and BLIP-2's ViT-g [30, 257, 16, 88] (row stride 4224); both
+    on the wgmma kernel. Also the edge row (``bsz``)."""
+    from avede_tpu_torch.utils.config import settings
+
+    bsz = bsz or 2 * settings.TOP_K_RESULTS
+    q, kk, v = fused_qkv(torch, dev, gen, bsz, length, h, hd)
+    return blhd_row(torch, F, name, q, kk, v,
+                    f"q,k,v bf16 [{bsz},{length},{h},{hd}], thirds of a "
+                    f"fused qkv [{bsz},{length},{3 * h * hd}] -> bf16 "
+                    f"[{bsz},{length},{h * hd}]")
 
 
 def check_blhd_flash(torch, F, dev, gen, name, bsz, length, h=12, hd=64):
     """Phase 3, a detection row of the serving flash entry: [bsz,
     length, h, hd], q, k and v each a projection's own [B, L, h·hd]
     output viewed per head (contiguous heads, row stride h·hd), as the
-    detection path runs it: 12 heads of 64 at width 768, or the
-    ``detection`` eval mode's OWL-ViT, 4 heads of 24 (row 2k, the entry's
-    hd = 24 instantiation). Same bar as the CLIP row."""
+    detection path runs it: 12 heads of 64 at width 768 (OWL-ViT's L =
+    577 on the wgmma kernel, CLIP's L = 50 on the mma.sync one), or the
+    ``detection`` eval mode's OWL-ViT, 4 heads of 24 (row 2k, the mma.sync
+    kernel's hd = 24 instantiation)."""
+    q, kk, v = split_heads(torch, dev, gen, bsz, length, h, hd)
+    return blhd_row(torch, F, name, q, kk, v,
+                    f"q,k,v bf16 [{bsz},{length},{h},{hd}] (row stride "
+                    f"{h * hd}) -> bf16 [{bsz},{length},{h * hd}]")
+
+
+def flash_crossover(torch, F, dev, gen):
+    """Phase 3: the bf16 entry's two kernels and SDPA at the lengths of
+    ``CROSSOVER_LENGTHS``, each head dim at its ``CROSSOVER_SHAPES``
+    batch and layout; the wgmma kernel held to the plain version at each
+    (the ms that set ``attention.WGMMA_MIN_LENGTH``)."""
     from avede_tpu_torch.ops import attention
 
-    q, kk, v = (torch.randn(bsz, length, h * hd, device=dev, generator=gen
-                            ).to(torch.bfloat16).view(bsz, length, h, hd)
-                for _ in range(3))
-    got = attention.flash_attention_blhd(q, kk, v)
-    ref = attention.flash_attention_blhd_plain(q.float(), kk.float(),
-                                               v.float())
-    err, excess, unequal = bf16_err(torch, got, ref)
-    del ref
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
-    b, f = bound_ms(2 * 4 * q.numel(), 4.0 * bsz * h * length * length * hd,
-                    BF16_TENSOR_FLOP_PER_S)
-    row = dict(
-        name=name, route="cuda",
-        source="avede_tpu_torch/csrc/flash_attention.cu",
-        replaces="avede_tpu/ops/attention.py:85",
-        shape=f"q,k,v bf16 [{bsz},{length},{h},{hd}] (row stride "
-              f"{h * hd}) -> bf16 [{bsz},{length},{h * hd}]",
-        max_abs_err=err, tol="1 bf16 ulp + 1e-5", tol_excess=excess,
-        not_bit_equal=unequal,
-        ms=time_ms(torch, lambda: attention.flash_attention_blhd(q, kk, v)),
-        call_ms=call_ms(torch, lambda: attention.flash_attention_blhd(
-            q, kk, v)),
-        plain_ms=time_ms(torch, lambda: attention.flash_attention_blhd_plain(
-            q, kk, v), iters=5),
-        bound_ms=b, bound_by=f, bound_peak="bf16 tensor cores 989 TFLOP/s",
-        bound_passes=1,
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt)),
-        library="torch.nn.functional.scaled_dot_product_attention on the "
-                "bf16 [B, H, L, D] views")
-    if excess > 0:
-        fail(f"{name}: max err {err} over its bar by {excess}")
-    return row
+    out = []
+    for hd, (bsz, h, layout) in CROSSOVER_SHAPES.items():
+        make = fused_qkv if layout == "fused" else split_heads
+        for length in CROSSOVER_LENGTHS:
+            q, kk, v = make(torch, dev, gen, bsz, length, h, hd)
+            got = attention.flash_attention_blhd_on("wgmma", q, kk, v)
+            err, excess, _ = bf16_err(torch, got, attention.
+                                      flash_attention_blhd_plain(
+                                          q.float(), kk.float(), v.float()))
+            if excess > 0:
+                fail(f"wgmma kernel at [{bsz},{length},{h},{hd}]: max err "
+                     f"{err} over its bar by {excess}")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+            out.append(dict(
+                shape=[bsz, length, h, hd], layout=layout, max_abs_err=err,
+                routed=attention.blhd_kernel(length, hd),
+                **{f"{k}_ms": time_ms(torch, lambda k=k: (
+                    attention.flash_attention_blhd_on(k, q, kk, v)))
+                   for k in ("mma", "wgmma")},
+                sdpa_ms=time_ms(torch, lambda: (
+                    F.scaled_dot_product_attention(qt, kt, vt)))))
+    return out
 
 
 def exact_pair(torch, what, got, ref) -> None:
@@ -1854,7 +1919,8 @@ def read_launches(fns) -> dict:
     """Each wrapper's count; the bf16 flash entry's, kept by L, is
     summed, and its L = 577, 50, 257, 17 and 65 launches are also given
     apart, as ``FLASH_L577``, ``FLASH_L50``, ``FLASH_L257``,
-    ``FLASH_L17`` and ``FLASH_L65``; a patch embed's are also given by
+    ``FLASH_L17`` and ``FLASH_L65``, and by kernel, as ``FLASH_WGMMA``
+    and ``FLASH_MMA``; a patch embed's are also given by
     kernel, as ``<name>[wgmma]`` and ``<name>[mma]``, and the f32 flash
     entry's by head dim, as ``<name>[D=64]`` and ``<name>[D=88]``."""
     out = {}
@@ -1871,6 +1937,8 @@ def read_launches(fns) -> dict:
                     out[f"{fn.__name__}[D={hd}]"] = fn.launches_by_dim[hd]
             continue
         out[fn.__name__] = by_len.total()
+        out[FLASH_WGMMA] = fn.launches_by_kernel["wgmma"]
+        out[FLASH_MMA] = fn.launches_by_kernel["mma"]
         out[FLASH_L577] = by_len[BLIP_TOKENS]
         out[FLASH_L50] = by_len[CLIP_TOKENS]
         out[FLASH_L257] = by_len[BLIP2_TOKENS]
@@ -1953,6 +2021,10 @@ def drive_rerank(torch, np, engine, video, cache_dir):
             fail(f"reranked: {name} never launched on the cold call: {rer}")
     if adv[FLASH_L577] <= 0 or adv["fused_patch_embed_i420"] <= 0:
         fail(f"advanced: no BLIP forward or no backfill embed: {adv}")
+    for key in ("reranked", "advanced"):
+        if launches[key][FLASH_WGMMA] != launches[key][FLASH_L577]:
+            fail(f"{key}: BLIP's L = {BLIP_TOKENS} launches did not all "
+                 f"take the wgmma kernel: {launches[key]}")
     for key, counts in launches.items():
         if any(counts[fn.__name__] for fn in contracts):
             fail(f"{key}: a contract entry ran: {counts}")
@@ -2197,6 +2269,9 @@ def drive_blip2(torch, np, engine, video, cache_dir):
         fail(f"BLIP-2 reranked: {cold_launches[FLASH_L257]} flash launches "
              f"at L = {BLIP2_TOKENS} for {n_batches} candidate batches "
              f"({cold_batches}), not {BLIP2_DEPTH} each")
+    if cold_launches[FLASH_WGMMA] != cold_launches[FLASH_L257]:
+        fail(f"BLIP-2 reranked: the ViT-g's L = {BLIP2_TOKENS} launches "
+             f"did not all take the wgmma kernel: {cold_launches}")
     if warm_launches[FLASH_L257] or any(
             c[fn.__name__] for c in (cold_launches, warm_launches)
             for fn in contracts):
@@ -2379,6 +2454,9 @@ def drive_detection(torch, np, engine, video):
     if launches[FLASH_L577] <= 0 or flash_l50["clip_grid"] <= 0:
         fail(f"detection: flash never launched at L = {OWL_TOKENS} "
              f"(OWL-ViT) or in the CLIP grid: {launches}, {flash_l50}")
+    if launches[FLASH_WGMMA] != launches[FLASH_L577]:
+        fail(f"detection: OWL-ViT's L = {OWL_TOKENS} launches did not all "
+             f"take the wgmma kernel: {launches}")
     if any(n for name, n in launches.items()
            if not name.startswith("flash_attention_blhd")):
         fail(f"detection: a kernel off this path ran: {launches}")
@@ -2696,6 +2774,10 @@ def drive_small_objects(torch, np, engine, det):
     if any(n for name, n in launches.items()
            if not name.startswith("flash_attention_blhd")):
         fail(f"small objects: a kernel off this path ran: {launches}")
+    if launches[FLASH_WGMMA] <= 0 \
+            or launches[FLASH_WGMMA] != launches[FLASH_L577]:
+        fail(f"small objects: OWL-ViT's L = {OWL_TOKENS} launches did not "
+             f"all take the wgmma kernel: {launches}")
     per_call = {}
     for name, out, rep in runs:
         if rep["flash_launches_l50"] <= 0 or (

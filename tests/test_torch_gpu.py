@@ -174,6 +174,75 @@ def test_flash_blhd_kernel_at_head_dim_88(cuda, bsz, L):
     assert torch.equal(again, got)
 
 
+def _blhd_inputs(cuda, bsz, length, heads, hd, fused, seed):
+    """bf16 q, k, v [bsz, length, heads, hd]: the thirds of one fused
+    qkv output (row stride 3·heads·hd) or three contiguous projections."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused:
+        qkv = torch.randn(bsz, length, 3 * heads * hd, device=cuda,
+                          generator=g).to(torch.bfloat16)
+        return [t.unflatten(-1, (heads, hd)) for t in qkv.chunk(3, dim=-1)]
+    return [torch.randn(bsz, length, heads * hd, device=cuda, generator=g
+                        ).to(torch.bfloat16).view(bsz, length, heads, hd)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["heads", "fused_qkv"])
+@pytest.mark.parametrize("hd", [64, 88])
+@pytest.mark.parametrize("L", [65, 128, 129, 257, 577, 1025])
+def test_flash_wgmma_kernel_matches_plain(cuda, L, hd, fused):
+    """The wgmma kernel at partial and whole 128-row tiles (L = 65: one
+    partial q and K/V tile; 128: one whole; 129 and 257: one row and key
+    past them; 577: 65 past four; 1025), both head dims, both layouts:
+    one bf16 ulp + 1e-5 of the f32 plain version, one wgmma launch."""
+    heads = 12 if hd == 64 else 16
+    q, k, v = _blhd_inputs(cuda, 2, L, heads, hd, fused, L * hd)
+    counts = tattn.flash_attention_blhd.launches_by_kernel
+    before = (counts["wgmma"], counts["mma"])
+    got = tattn.flash_attention_blhd_on("wgmma", q, k, v)
+    torch.cuda.synchronize()
+    assert (counts["wgmma"], counts["mma"]) == (before[0] + 1, before[1])
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("bsz,heads,L,hd", [
+    (1, 1, 577, 64),     # B·H = 1: 5 items on a grid of 5 blocks
+    (1, 1, 257, 88),
+    (7, 19, 257, 64),    # 133 pairs x 3 q tiles: not a multiple of 132
+    (5, 27, 193, 88),    # 135 pairs x 2 q tiles
+])
+def test_flash_wgmma_kernel_any_pair_count(cuda, bsz, heads, L, hd):
+    q, k, v = _blhd_inputs(cuda, bsz, L, heads, hd, False, bsz * heads)
+    got = tattn.flash_attention_blhd_on("wgmma", q, k, v)
+    torch.cuda.synchronize()
+    ref = tattn.flash_attention_blhd_plain(q.float(), k.float(), v.float())
+    _within_bf16_ulp(got, ref)
+
+
+@pytest.mark.parametrize("L,hd,kernel", [
+    (577, 64, "wgmma"), (257, 88, "wgmma"), (50, 64, "mma"),
+    (17, 16, "mma"), (577, 16, "mma")])
+def test_flash_blhd_routes_by_length_and_head_dim(cuda, L, hd, kernel):
+    """The entry counts each launch under the kernel ``blhd_kernel``
+    names, and that kernel's answer is the entry's."""
+    assert tattn.blhd_kernel(L, hd) == kernel
+    q, k, v = _blhd_inputs(cuda, 2, L, 4, hd, True, L + hd)
+    counts = tattn.flash_attention_blhd.launches_by_kernel
+    before = dict(counts)
+    got = tattn.flash_attention_blhd(q, k, v)
+    torch.cuda.synchronize()
+    assert counts[kernel] == before.get(kernel, 0) + 1
+    assert sum(counts.values()) == sum(before.values()) + 1
+    assert torch.equal(got, tattn.flash_attention_blhd_on(kernel, q, k, v))
+
+
+def test_flash_wgmma_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 577, 4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.flash_attention_blhd_on("wgmma", q, q, q)
+
+
 def test_flash_blhd_refuses_other_head_dims(cuda):
     q = torch.zeros(1, 4, 2, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
