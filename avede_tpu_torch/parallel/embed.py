@@ -65,6 +65,7 @@ from ..ops.similarity import make_query_window_topk, pad_table
 from ..utils.config import settings
 from ..utils.logging import get_logger
 from ..utils.platform import with_compute_dtype
+from ..utils.trace import span
 from .mesh import MeshContext, build_mesh, get_mesh
 
 logger = get_logger(__name__)
@@ -441,9 +442,11 @@ class ClipEngine:
                     self._text_cache.move_to_end(t)
         misses = list(dict.fromkeys(t for t in texts if t not in hits))
         if misses:
-            ids = torch.from_numpy(self.tokenizer(misses)).to(self.device)
-            with torch.inference_mode():
-                fresh = self.model.encode_text(ids).float().cpu().numpy()
+            with span("clip.encode_text"):
+                ids = torch.from_numpy(self.tokenizer(misses)).to(
+                    self.device)
+                with torch.inference_mode():
+                    fresh = self.model.encode_text(ids).float().cpu().numpy()
             for t, e in zip(misses, fresh):
                 hits[t] = e
                 self._remember_text(t, e)

@@ -34,6 +34,7 @@ from ..parallel.embed import ClipEngine
 from ..utils.config import settings
 from ..utils.logging import get_logger
 from ..utils.platform import resolve_device, with_compute_dtype
+from ..utils.trace import span
 
 logger = get_logger(__name__)
 
@@ -242,26 +243,32 @@ class Blip2RerankService:
     def frame_repr(self, frames: np.ndarray) -> List[np.ndarray]:
         """uint8 [N, H, W, 3] → per-frame unit Q-Former image
         embeddings, f32 [Q, D] each."""
-        if len(frames) == 0:
-            return []
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-        with torch.inference_mode():
-            px = blip_preprocess(x, size=self.cfg.image_size)
-            img = self.model.image_embeds(px).cpu().numpy()
-        return [row for row in img]
+        with span("blip2.frame_repr"):
+            if len(frames) == 0:
+                return []
+            with span("blip2.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(frames)).to(
+                    self.device)
+            with torch.inference_mode():
+                with span("blip2.vision"):     # the host's enqueue
+                    px = blip_preprocess(x, size=self.cfg.image_size)
+                    img = self.model.image_embeds(px)
+                img = img.cpu().numpy()
+            return [row for row in img]
 
     def scores_from_repr(self, reprs: List[np.ndarray], query: str
                          ) -> Tuple[np.ndarray, List[dict]]:
-        if not reprs:
-            return np.zeros((0,), np.float32), []
-        ids = torch.from_numpy(self.query_ids(query)).to(self.device)
-        with torch.inference_mode():
-            txt = self.model.text_embeds(
-                ids, torch.ones_like(ids, dtype=torch.bool))
-        txt = txt.cpu().numpy()[0]                             # [D]
-        img = np.stack([np.asarray(r, np.float32) for r in reprs])
-        scores = (img @ txt).max(axis=1).astype(np.float32)    # max over Q
-        return scores, [{"itc_score": float(v)} for v in scores]
+        with span("blip2.scores_from_repr"):
+            if not reprs:
+                return np.zeros((0,), np.float32), []
+            ids = torch.from_numpy(self.query_ids(query)).to(self.device)
+            with torch.inference_mode():
+                txt = self.model.text_embeds(
+                    ids, torch.ones_like(ids, dtype=torch.bool))
+            txt = txt.cpu().numpy()[0]                             # [D]
+            img = np.stack([np.asarray(r, np.float32) for r in reprs])
+            scores = (img @ txt).max(axis=1).astype(np.float32)  # max over Q
+            return scores, [{"itc_score": float(v)} for v in scores]
 
     def rerank_scores(self, frames: np.ndarray, query: str
                       ) -> Tuple[np.ndarray, List[dict]]:

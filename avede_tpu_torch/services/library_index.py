@@ -40,6 +40,7 @@ from ..ops import kernels, quant
 from ..parallel.mesh import MeshContext, build_mesh
 from ..utils.config import settings
 from ..utils.logging import get_logger
+from ..utils.trace import span
 
 logger = get_logger(__name__)
 
@@ -269,31 +270,32 @@ class DeviceLibraryIndex:
         """Top-``k`` rows across the whole library for a unit-norm
         query. Returns dicts with video_id/timestamp/confidence/
         frame_index, best first."""
-        q = torch.from_numpy(np.array(query_embedding, np.float32)
-                             ).to(self.device)
-        with self._lock:
-            if not self._shards or not self._spans:
-                return []
-            # k rounds up to a power of two, as in the JAX package (whose
-            # per-k programs this bounded; here it keeps k's a handful)
-            k_prog = min(1 << (max(k, 1) - 1).bit_length(), self._cap)
-            # ENQUEUE under the lock: every launch goes to the one current
-            # stream in order, so this search reads the table as it is
-            # now, whatever later adds or growth write or free. The copy
-            # to the host, which waits for the device, happens outside.
-            scores, idx = self._topk_locked(q, k_prog)
-            starts = list(self._starts)
-            spans = list(self._spans)
-        scores = scores[:k].cpu().numpy()
-        idx = idx[:k].cpu().numpy()
-        out: List[Dict] = []
-        for s, i in zip(scores, idx):
-            if not np.isfinite(s):
-                break
-            vid, ts, frame = self._locate(int(i), starts, spans)
-            out.append({"video_id": vid, "timestamp": float(ts),
-                        "confidence": float(s), "frame_index": frame})
-        return out
+        with span("index.search"):
+            q = torch.from_numpy(np.array(query_embedding, np.float32)
+                                 ).to(self.device)
+            with self._lock:
+                if not self._shards or not self._spans:
+                    return []
+                # k rounds up to a power of two, as in the JAX package (whose
+                # per-k programs this bounded; here it keeps k's a handful)
+                k_prog = min(1 << (max(k, 1) - 1).bit_length(), self._cap)
+                # ENQUEUE under the lock: every launch goes to the one current
+                # stream in order, so this search reads the table as it is
+                # now, whatever later adds or growth write or free. The copy
+                # to the host, which waits for the device, happens outside.
+                scores, idx = self._topk_locked(q, k_prog)
+                starts = list(self._starts)
+                spans = list(self._spans)
+            scores = scores[:k].cpu().numpy()
+            idx = idx[:k].cpu().numpy()
+            out: List[Dict] = []
+            for s, i in zip(scores, idx):
+                if not np.isfinite(s):
+                    break
+                vid, ts, frame = self._locate(int(i), starts, spans)
+                out.append({"video_id": vid, "timestamp": float(ts),
+                            "confidence": float(s), "frame_index": frame})
+            return out
 
     @staticmethod
     def _locate(row: int, starts: List[int], spans: List[_Span]

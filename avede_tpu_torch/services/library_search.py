@@ -24,6 +24,7 @@ import numpy as np
 from ..pipelines.phase1 import Phase1Scan
 from ..utils.config import settings
 from ..utils.logging import get_logger
+from ..utils.trace import span
 from .library_index import DeviceLibraryIndex
 
 logger = get_logger(__name__)
@@ -54,21 +55,22 @@ class LibrarySearch:
         implicitly; a server can also call it at startup
         (``settings.LIBRARY_PREWARM``) so the FIRST search doesn't pay
         the whole library's embed and index build. → videos indexed."""
-        index = self._index
-        n_videos = 0
-        listed = self.list_videos()
-        with self._populate_lock:
-            for vid in set(index.video_ids()) - set(listed):
-                index.remove(vid)   # deleted from VIDEO_DIR → evict
-            for vid in listed:
-                try:
-                    if not index.has(vid):
-                        path = self._resolve(vid)
-                        emb, ts = self.phase1.frame_embeddings(path, vid)
-                        index.add(vid, emb, ts)
-                    n_videos += 1
-                except Exception as exc:  # noqa: BLE001 — skip bad videos
-                    logger.warning("library: skipping %s (%s)", vid, exc)
+        with span("library.prewarm"):
+            index = self._index
+            n_videos = 0
+            listed = self.list_videos()
+            with self._populate_lock:
+                for vid in set(index.video_ids()) - set(listed):
+                    index.remove(vid)   # deleted from VIDEO_DIR → evict
+                for vid in listed:
+                    try:
+                        if not index.has(vid):
+                            path = self._resolve(vid)
+                            emb, ts = self.phase1.frame_embeddings(path, vid)
+                            index.add(vid, emb, ts)
+                        n_videos += 1
+                    except Exception as exc:  # noqa: BLE001 — skip it
+                        logger.warning("library: skipping %s (%s)", vid, exc)
         return n_videos
 
     def invalidate(self, video_id: str) -> None:
@@ -87,15 +89,23 @@ class LibrarySearch:
                threshold: Optional[float] = None,
                per_video_k: int = 3,
                video_ids: Optional[List[str]] = None) -> Dict:
-        t0 = time.time()
-        threshold = (settings.CONFIDENCE_THRESHOLD if threshold is None
-                     else threshold)
-        if video_ids is None and settings.LIBRARY_INDEX_ENABLED:
-            # whole-library search rides the device index; subset searches
-            # keep the per-table path (a global top-k filtered to a small
-            # subset could come back empty)
-            return self._search_indexed(query, top_k, threshold,
-                                        per_video_k, t0)
+        with span("library.search"):
+            t0 = time.time()
+            threshold = (settings.CONFIDENCE_THRESHOLD if threshold is None
+                         else threshold)
+            if video_ids is None and settings.LIBRARY_INDEX_ENABLED:
+                # whole-library search rides the device index; subset
+                # searches keep the per-table path (a global top-k
+                # filtered to a small subset could come back empty)
+                return self._search_indexed(query, top_k, threshold,
+                                            per_video_k, t0)
+            return self._search_tables(query, top_k, threshold,
+                                       per_video_k, video_ids, t0)
+
+    def _search_tables(self, query: str, top_k: int, threshold: float,
+                       per_video_k: int, video_ids: Optional[List[str]],
+                       t0: float) -> Dict:
+        """Search the listed (or given) videos' host tables with numpy."""
         ids = video_ids or self.list_videos()
         tables: List[np.ndarray] = []
         spans: List[tuple] = []   # (video_id, timestamps)
