@@ -14,6 +14,16 @@ Warm queries run ``query_window_topk``: text tower → one launch of the
 fused ``cosine_window_topk`` kernel (score the window middles, mask,
 top-k).
 
+``embed_texts`` runs the text tower on its text-LRU misses. On a card,
+up to 8 misses replay one captured CUDA graph of the whole tower (a
+graph for each bucket of ``TEXT_GRAPH_BUCKETS`` at the tokenizer's
+length, captured at the first such miss, the buckets sharing one memory
+pool): the misses' ids are padded with all-zero rows (each row is
+independent in the tower; the padded rows are dropped), copied into the
+graph's static input, replayed, and the real rows read back, under one
+lock from copy-in to read-back. More misses, and the CPU, run the tower
+eagerly. ``text_graph_replays`` and ``text_eager_runs`` count the two.
+
 On a mesh (``parallel/mesh.py``) of ``n_data`` data devices, the weights,
 the folded patch weights and their split bf16 operands are copied once
 to each distinct data device, each frame bucket is padded to a multiple
@@ -47,8 +57,8 @@ import math
 import queue
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
-    Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, \
+    Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,6 +81,7 @@ from .mesh import MeshContext, build_mesh, get_mesh
 logger = get_logger(__name__)
 
 BACKEND = "torch"      # model-tag marker: JAX-made tables never serve here
+TEXT_GRAPH_BUCKETS = (1, 2, 4, 8)    # text-tower batches replayed as graphs
 
 
 def pick_bucket(n: int, buckets: Optional[Sequence[int]] = None) -> int:
@@ -141,6 +152,15 @@ class _Replica:
     b2: torch.Tensor                   # folded bias [D]
     w_split: Optional[Tuple[torch.Tensor, torch.Tensor]]  # kernel operands
     copy_stream: Optional["torch.cuda.Stream"]
+
+
+class _TextGraph(NamedTuple):
+    """The text tower captured at one batch bucket: its graph, static
+    int32 ids ``[B, max_text_len]`` and static f32 output ``[B, D]``."""
+
+    graph: "torch.cuda.CUDAGraph"
+    ids: torch.Tensor
+    out: torch.Tensor
 
 
 class ClipEngine:
@@ -216,6 +236,10 @@ class ClipEngine:
         self._table_seq = 0
         self._query_topk_fn = make_query_window_topk(self.model)
         self._batcher = None
+        self._text_graphs: Optional[Dict[int, _TextGraph]] = None
+        self._text_graph_lock = threading.Lock()
+        self.text_graph_replays = 0
+        self.text_eager_runs = 0
 
     def _replica(self, model: torch.nn.Module, w2: torch.Tensor,
                  bias_delta: torch.Tensor, dev: torch.device) -> _Replica:
@@ -442,15 +466,67 @@ class ClipEngine:
                     self._text_cache.move_to_end(t)
         misses = list(dict.fromkeys(t for t in texts if t not in hits))
         if misses:
-            with span("clip.encode_text"):
-                ids = torch.from_numpy(self.tokenizer(misses)).to(
-                    self.device)
-                with torch.inference_mode():
-                    fresh = self.model.encode_text(ids).float().cpu().numpy()
+            bucket = self._text_bucket(len(misses))
+            with span("clip.encode_text", graph=bucket):
+                ids = self.tokenizer(misses)
+                fresh = (self._replay_text(ids, bucket) if bucket
+                         else self._encode_text_eager(ids))
             for t, e in zip(misses, fresh):
                 hits[t] = e
                 self._remember_text(t, e)
         return np.stack([hits[t] for t in texts])
+
+    def _text_bucket(self, n: int) -> int:
+        """The graph bucket that ``n`` text misses replay; 0 runs the
+        tower eagerly (the CPU, or more than the largest bucket)."""
+        if self.device.type != "cuda" or n > TEXT_GRAPH_BUCKETS[-1]:
+            return 0
+        return pick_bucket(n, TEXT_GRAPH_BUCKETS)
+
+    @torch.inference_mode()
+    def _encode_text_eager(self, ids: np.ndarray) -> np.ndarray:
+        with self._lock:
+            self.text_eager_runs += 1
+        return self.model.encode_text(torch.from_numpy(ids).to(
+            self.device)).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def _replay_text(self, ids: np.ndarray, bucket: int) -> np.ndarray:
+        """Token ids ``[Q, max_text_len]`` → the tower's f32 ``[Q, D]``
+        by a replay of ``bucket``'s graph (Q ≤ bucket)."""
+        padded = np.zeros((bucket, ids.shape[1]), ids.dtype)
+        padded[: len(ids)] = ids
+        with self._text_graph_lock, torch.cuda.device(self.device):
+            if self._text_graphs is None:
+                self._text_graphs = self._capture_text_graphs()
+            g = self._text_graphs[bucket]
+            g.ids.copy_(torch.from_numpy(padded))
+            g.graph.replay()
+            self.text_graph_replays += 1
+            return g.out[: len(ids)].float().cpu().numpy()
+
+    def _capture_text_graphs(self) -> Dict[int, _TextGraph]:
+        """The text tower captured once a bucket of
+        ``TEXT_GRAPH_BUCKETS``, in one memory pool; each bucket warmed up
+        on the capture stream first. Capture errors only for this
+        thread's calls, so other threads may go on launching on the
+        card."""
+        stream = torch.cuda.Stream(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        for b in TEXT_GRAPH_BUCKETS:
+            ids = torch.zeros((b, self.cfg.max_text_len), dtype=torch.int32,
+                              device=self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self.model.encode_text(ids)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = self.model.encode_text(ids)
+            graphs[b] = _TextGraph(graph, ids, out)
+        return graphs
 
     def resident_table(self, emb: np.ndarray, middle_idx: np.ndarray
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
