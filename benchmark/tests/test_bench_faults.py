@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 
 from benchmark import harness
+from benchmark.spec import Bench
+
+from conftest import KEPT
 
 SEED = 2 ** 31 + 777
+CELLS = [w["name"] for w in Bench().spec["workloads"]] + [KEPT["name"]]
 
 
 def _run(bench, cell, factory=None):
@@ -86,9 +90,7 @@ def test_search_half_the_library_left_out(tiny, monkeypatch, cell):
     assert not _run(tiny, cell)["correct"]
 
 
-@pytest.mark.parametrize("cell", ["blip2.rerank.cold30",
-                                  "clip.library.bf16_4m",
-                                  "clip.library.int8_4m"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_control_in_the_programs_place_fails(tiny, cell):
     entry_cls = tiny.entry(tiny.cell(cell).traffic["entry"]).Entry
 
