@@ -54,7 +54,7 @@
 #include <stdint.h>
 
 // ---------------------------------------------------------------------------
-// bf16 [B, L, H, hd] entry (hd = 16, 24, 64 or 88)
+// bf16 [B, L, H, hd] entry (hd = 16, 24, 64, 72 or 88)
 // ---------------------------------------------------------------------------
 //
 // One kernel, instantiated per head dim. hd = 64 (CLIP, BLIP-base,
@@ -71,7 +71,10 @@
 // is the same padding at a smaller size: 3 chunks of the head and a
 // zero-filled fourth, 32 columns (64-byte rows) in shared memory, two
 // k16 steps of Q.K^T, and P.V over 3 n8 tiles (its ldmatrix pair reads
-// the zero chunk beside the third and drops that half).
+// the zero chunk beside the third and drops that half). hd = 72 (Kimi-VL's
+// MoonViT: 1152 = 16 x 72) takes hd = 88's 96-column tiles: 9 chunks of
+// the head and three zero-filled, six k16 steps of Q.K^T (the last over
+// zeros), P.V over 9 n8 tiles (the odd last as at hd = 24).
 
 namespace {
 
@@ -84,8 +87,8 @@ struct Geo {
   static constexpr int CH = HP / 8;     // 16-byte chunks a tile row
   static constexpr int HC = HD / 8;     // chunks that hold the head
   static constexpr int TILE = TR * HP;  // bf16 elements of one tile
-  static_assert(HD % 8 == 0 && HP % 16 == 0 && HP >= HD && HP - HD < 16,
-                "head padded to the next multiple of 16");
+  static_assert(HD % 8 == 0 && HP % 16 == 0 && HP >= HD && HP - HD < 32,
+                "head padded to a multiple of 16 the swizzle takes");
   static_assert(CH == 2 || CH == 4 || CH == 8 || CH == 12,
                 "swizzle for 2, 4, 8 or 12 chunks a row");
   // Element offset of (row, chunk). ldmatrix reads one chunk column of 8
@@ -398,17 +401,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // q, k, v: bf16 [B, L, H, D] with token rows ldi elements apart (ldi >=
 // H*D, a multiple of 8, each pointer 16-byte aligned); o: contiguous
 // bf16 [B, L, H*D]. Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for D not in {16, 24, 64, 88} or a bad ldi.
+// for D not in {16, 24, 64, 72, 88} or a bad ldi.
 extern "C" int avede_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int L, int H, int D, int ldi,
                                           void* stream) {
-  if ((D != 16 && D != 24 && D != 64 && D != 88) || ldi < H * D ||
+  if ((D != 16 && D != 24 && D != 64 && D != 72 && D != 88) || ldi < H * D ||
       ldi % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (D == 16) return launch_bf16<16, 16>(q, k, v, o, B, L, H, ldi, stream);
   if (D == 24) return launch_bf16<24, 32>(q, k, v, o, B, L, H, ldi, stream);
   if (D == 64) return launch_bf16<64, 64>(q, k, v, o, B, L, H, ldi, stream);
+  if (D == 72) return launch_bf16<72, 96>(q, k, v, o, B, L, H, ldi, stream);
   return launch_bf16<88, 96>(q, k, v, o, B, L, H, ldi, stream);
 }
 

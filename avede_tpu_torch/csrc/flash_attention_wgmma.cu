@@ -3,9 +3,10 @@
 //
 // Replaces avede_tpu/ops/attention.py: flash_attention / _flash_kernel
 // (the pl.pallas_call at :85), as flash_attention.cu's bf16 entry does,
-// for the shapes ops/attention.py routes here: hd = 64 or 88 at L at or
-// above its crossover (BLIP-base's and OWL-ViT's L = 577, BLIP-2's
-// L = 257). The contract is that entry's: bf16 q, k, v [B, L, H, hd] with
+// for the shapes ops/attention.py routes here: hd = 64, 72 or 88 at L at
+// or above its crossover (BLIP-base's and OWL-ViT's L = 577, BLIP-2's
+// L = 257, Kimi-VL's MoonViT L = 2304 at hd = 72). The contract is that
+// entry's: bf16 q, k, v [B, L, H, hd] with
 // token rows ldi elements apart (H*hd for contiguous heads, 3*H*hd for the
 // thirds of a fused qkv, read in place), bf16 [B, L, H*hd] out, softmax
 // and accumulation in f32, P.V with P split into bf16 hi + lo terms.
@@ -34,8 +35,12 @@
 //   in a panel of 128-byte rows with the 128-byte swizzle; at hd = 88
 //   columns 64-95 land in a second panel of 64-byte rows with the 64-byte
 //   swizzle (the map's dim 0 is 88 wide, so columns 88-95 are zeros, not
-//   the next head). K/V tiles of 128 keys sit in a ring (4 stages at
-//   hd = 64, 3 at 88) with full and empty mbarriers; Q in two buffers.
+//   the next head). hd = 72 is the same 96-column layout: the map's dim 0
+//   is 72 wide, so columns 72-95 of the second panel are zeros; the
+//   products and the softmax are hd = 88's, only the scale, the map and
+//   the columns written (72) differ. K/V tiles of 128 keys sit in a ring
+//   (4 stages at hd = 64, 3 at 72 and 88) with full and empty mbarriers;
+//   Q in two buffers.
 // - S = Q.K^T: wgmma m64nNk16 with Q and K both K-major in shared
 //   memory, 4 k16 steps in the first panel (+2 in the second at hd = 88).
 // - O += P.V: wgmma with A = P from registers (the S accumulator's
@@ -773,14 +778,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 // q, k, v: bf16 [B, L, H, D] with token rows ldi elements apart (ldi >=
 // H*D, a multiple of 8, each pointer 16-byte aligned); o: contiguous
 // bf16 [B, L, H*D]. Returns 0 or an error code (see launch_wgmma), or
-// cudaErrorInvalidValue for D not in {64, 88} or a bad shape.
+// cudaErrorInvalidValue for D not in {64, 72, 88} or a bad shape.
 extern "C" int avede_flash_attention_wgmma_bf16(const void* q, const void* k,
                                                 const void* v, void* o, int B,
                                                 int L, int H, int D, int ldi,
                                                 void* stream) {
-  if ((D != 64 && D != 88) || B < 1 || L < 1 || H < 1 || ldi < H * D ||
-      ldi % 8 != 0)
+  if ((D != 64 && D != 72 && D != 88) || B < 1 || L < 1 || H < 1 ||
+      ldi < H * D || ldi % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (D == 64) return launch_wgmma<64, 64>(q, k, v, o, B, L, H, ldi, stream);
+  if (D == 72) return launch_wgmma<72, 96>(q, k, v, o, B, L, H, ldi, stream);
   return launch_wgmma<88, 96>(q, k, v, o, B, L, H, ldi, stream);
 }

@@ -5,7 +5,7 @@ Both entries replace ``flash_attention`` / ``_flash_kernel``
 attention with an online softmax over K/V tiles. Any L works: the
 kernels mask K rows past L themselves, so nothing is padded. The f32
 entry and the bf16 entry's short sequences launch ``csrc/flash_attention
-.cu`` (``mma.sync``); the bf16 entry at hd = 64 or 88 and L from
+.cu`` (``mma.sync``); the bf16 entry at hd = 64, 72 or 88 and L from
 ``WGMMA_MIN_LENGTH`` up launches ``csrc/flash_attention_wgmma.cu``
 (``wgmma``, TMA, an mbarrier ring; 128-row q and K/V tiles).
 
@@ -49,9 +49,9 @@ from . import _build
 from .kernels import _refuse_grad, _require_cuda
 
 _HEAD_DIMS = (16, 24, 32, 64, 88)    # the f32 entry's instantiations
-_BLHD_HEAD_DIMS = (16, 24, 64, 88)   # the bf16 mma.sync kernel's
-_WGMMA_HEAD_DIMS = (64, 88)          # the bf16 wgmma kernel's
-# The bf16 entry sends hd = 64 and 88 from this L up to the wgmma kernel,
+_BLHD_HEAD_DIMS = (16, 24, 64, 72, 88)   # the bf16 mma.sync kernel's
+_WGMMA_HEAD_DIMS = (64, 72, 88)          # the bf16 wgmma kernel's
+# The bf16 entry sends hd = 64, 72 and 88 from this L up to the wgmma kernel,
 # shorter L to the mma.sync one. chip_smoke.py phase 3's crossover sweep
 # (tools/flash_rows.py, NVIDIA H100 80GB HBM3, 700 W), device ms mma.sync
 # / wgmma: at L = 50, 0.0101 / 0.0135 ([64, 50, 12, 64]) and 0.0123 /
@@ -147,7 +147,7 @@ def _row_stride(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 def blhd_kernel(length: int, d: int) -> str:
     """The kernel ``flash_attention_blhd`` launches for sequence length
-    ``length`` and head dim ``d``: ``"wgmma"`` for hd 64 or 88 at L >=
+    ``length`` and head dim ``d``: ``"wgmma"`` for hd 64, 72 or 88 at L >=
     ``WGMMA_MIN_LENGTH``, else ``"mma"``."""
     if d in _WGMMA_HEAD_DIMS and length >= WGMMA_MIN_LENGTH:
         return "wgmma"
@@ -159,8 +159,8 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
     """q, k, v: ``[B, L, H, hd]`` (each projection's ``[B, L, H·hd]``
     viewed per head, or the thirds of a fused ``[B, L, 3·H·hd]`` qkv
     output, read in place at their row stride) → ``[B, L, H·hd]``
-    (non-causal, no mask). On the card: bf16 with hd = 16, 24, 64 or
-    88, on the kernel ``blhd_kernel(L, hd)`` names."""
+    (non-causal, no mask). On the card: bf16 with hd = 16, 24, 64, 72
+    or 88, on the kernel ``blhd_kernel(L, hd)`` names."""
     kernel = blhd_kernel(q.shape[1], q.shape[3]) if q.dim() == 4 else "mma"
     return flash_attention_blhd_on(kernel, q, k, v)   # which checks shapes
 
@@ -168,7 +168,7 @@ def flash_attention_blhd(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_blhd_on(kernel: str, q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """``flash_attention_blhd`` on the named kernel (``"mma"``: hd = 16,
-    24, 64 or 88; ``"wgmma"``: hd = 64 or 88) at any L, for tests and
+    24, 64, 72 or 88; ``"wgmma"``: hd = 64, 72 or 88) at any L, for tests and
     measurements that hold both kernels; counted as the entry's
     launches."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:

@@ -2,7 +2,9 @@
 
 Device side (torch, NHWC like the JAX package): central square crop,
 antialiased bicubic resize and CLIP normalisation (``clip_preprocess``),
-BLIP's straight resize + normalisation (``blip_preprocess``), the same
+BLIP's straight resize + normalisation (``blip_preprocess``) and the
+same resize to any aspect with SigLIP's normalisation
+(``siglip_preprocess``, Kimi-VL's MoonViT input), the same
 crop and resize with ImageNet's normalisation (``imagenet_preprocess``,
 EfficientNet's input), and the I420 unpack of the compact transfer
 codec (``clip_preprocess_i420``). ``fold_normalization`` folds the
@@ -54,10 +56,17 @@ def resize_frames(frames: torch.Tensor, size: int) -> torch.Tensor:
     """Float [N, H, W, C] → [N, size, size, C], bicubic with antialias —
     matches ``jax.image.resize(..., "bicubic")`` (without ``antialias``
     torch's downscale differs by up to 0.4)."""
-    if frames.shape[1:3] == (size, size):
+    return resize_frames_hw(frames, size, size)
+
+
+def resize_frames_hw(frames: torch.Tensor, height: int, width: int
+                     ) -> torch.Tensor:
+    """Float [N, H, W, C] → [N, height, width, C]: ``resize_frames`` to
+    any aspect."""
+    if frames.shape[1:3] == (height, width):
         return frames
     x = frames.permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=(size, size), mode="bicubic",
+    x = F.interpolate(x, size=(height, width), mode="bicubic",
                       antialias=True, align_corners=False)
     return x.permute(0, 2, 3, 1)
 
@@ -101,6 +110,15 @@ def blip_preprocess(frames: torch.Tensor, size: int = 384) -> torch.Tensor:
     /255, then the CLIP constants (HF ``BlipImageProcessor``)."""
     x = resize_frames(frames.float() / 255.0, size)
     return _normalize(x)
+
+
+def siglip_preprocess(frames: torch.Tensor, height: int, width: int
+                      ) -> torch.Tensor:
+    """uint8 [N, H, W, 3] → float32 [N, height, width, 3]: a straight
+    bicubic resize (no crop, aspect as given), /255, then SigLIP's mean
+    and std of 0.5 (MoonViT's input, Kimi-VL's image processor)."""
+    x = resize_frames_hw(frames.float() / 255.0, height, width)
+    return (x - 0.5) / 0.5
 
 
 def imagenet_preprocess(frames: torch.Tensor, size: int = 224

@@ -8,6 +8,10 @@ work into a query-independent half (``frame_repr``: the caption, cached
 per frame by ``io.embedding_cache.FrameReprCache``) and a cheap
 query-dependent half (``scores_from_repr``).
 
+``BLIP_MODEL`` values containing "kimi-vl" select
+``KimiVLCaptionService``: Kimi-VL-A3B-Instruct captions the frames (its
+MoonViT, latent attention and sparse experts on the card), and the
+captions are scored against the query as BLIP's are.
 ``BLIP_MODEL`` values containing "blip2" select ``Blip2RerankService``,
 the BLIP-2 Q-Former reranker: it scores candidate frames against the
 query directly by image-text contrastive similarity (ITC), no caption
@@ -26,10 +30,12 @@ import torch
 
 from ..models.blip import BlipConfig, blip_base, init_blip
 from ..models.convert import load_params
+from ..models.kimi_vl import (KimiVLConfig, generate, init_kimi_vl,
+                              state_dict_on)
 from ..models.qformer import QFormerConfig, init_blip2
 from ..models.tokenizer import (HashCaptionDecoder, HashTokenizer,
                                 WordPieceTokenizer)
-from ..ops.preprocess import blip_preprocess
+from ..ops.preprocess import blip_preprocess, siglip_preprocess
 from ..parallel.embed import ClipEngine
 from ..utils.config import settings
 from ..utils.logging import get_logger
@@ -42,16 +48,22 @@ logger = get_logger(__name__)
 def _params_identity(state_dict: Dict[str, torch.Tensor]) -> str:
     """Stable identity for explicitly-passed weights: different weights
     must never share repr-cache entries. Digests every tensor's shape
-    plus its first and last KB, so checkpoints sharing one frozen tensor
-    still get distinct tags."""
+    plus its first and last KB as f32 (its first and last 256 values),
+    so checkpoints sharing one frozen tensor still get distinct tags.
+    The values are sliced on the tensor's own device before they come to
+    the host: never a whole tensor."""
+    names = sorted(state_dict)
+    ends = []
+    for name in names:
+        flat = state_dict[name].detach().reshape(-1)
+        ends += [flat[:256].float().cpu().numpy(),
+                 flat[-256:].float().cpu().numpy()]
     h = hashlib.md5()
-    for name in sorted(state_dict):
-        a = np.ascontiguousarray(
-            state_dict[name].detach().float().cpu().numpy())
-        h.update(str(a.shape).encode())
-        b = a.tobytes()
-        h.update(b[:1024])
-        h.update(b[-1024:])
+    for k, name in enumerate(names):
+        shape = tuple(state_dict[name].shape) or (1,)   # 0-d: as numpy's
+        h.update(str(shape).encode())
+        h.update(ends[2 * k].tobytes())
+        h.update(ends[2 * k + 1].tobytes())
     return "explicit:" + h.hexdigest()[:8]
 
 
@@ -275,10 +287,137 @@ class Blip2RerankService:
         return self.scores_from_repr(self.frame_repr(frames), query)
 
 
+def kimi_prompt(cfg: KimiVLConfig) -> Tuple[List[int], List[int]]:
+    """The ids before and after a frame's image tokens: Kimi-VL's chat
+    turns (system, then the user's image and request, then the
+    assistant's turn opened), 12 ids each, words through the hash
+    tokenizer until Kimi's tiktoken vocabulary is in the repository."""
+    tok = HashTokenizer(cfg.vocab_size)
+    before = ([cfg.im_system_id] + tok.encode("system") + [cfg.im_middle_id]
+              + tok.encode("You are a helpful assistant")
+              + [cfg.im_end_id, cfg.im_user_id] + tok.encode("user")
+              + [cfg.im_middle_id])
+    after = (tok.encode("Describe this video frame in one sentence.")
+             + [cfg.im_end_id, cfg.im_assistant_id]
+             + tok.encode("assistant") + [cfg.im_middle_id])
+    return before, after
+
+
+IMAGE_ROWS = 16     # image tokens a frame that frame_repr's details keep
+
+
+class KimiVLCaptionService:
+    """Kimi-VL-A3B-Instruct captioner on ``device`` (the engine's unless
+    given): each candidate frame resized to the configuration's
+    896×504, MoonViT and the projector, a prompt of 12 + 576 + 12 ids,
+    greedy decoding of ``max_new_tokens`` ids through the latent cache;
+    the captions scored against the query in CLIP text space, as
+    ``CaptionService`` scores BLIP's.
+
+    Weights: ``state_dict`` (tensors on ``device`` in the config's dtype,
+    used as they are: the model is built on the meta device and takes
+    them), else random from seed 0 drawn on the device. A default
+    config is the published model in the device's compute dtype. Ids
+    decode through ``HashCaptionDecoder`` until Kimi's vocabulary is in
+    the repository."""
+
+    repr_kind = "kimicap"
+
+    def __init__(self, engine: ClipEngine,
+                 cfg: Optional[KimiVLConfig] = None,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 device=None) -> None:
+        self.engine = engine
+        self.device = (engine.device if device is None
+                       else resolve_device(device))
+        self.cfg = cfg or with_compute_dtype(KimiVLConfig(), self.device)
+        if state_dict is not None:
+            self._param_src = _params_identity(state_dict)
+            self.model = state_dict_on(self.cfg, state_dict, self.device)
+        else:
+            self._param_src = "rand0"
+            self.model = init_kimi_vl(self.cfg, 0, self.device)
+        self.decoder = HashCaptionDecoder()
+        before, after = kimi_prompt(self.cfg)
+        self.image_at = len(before)
+        t = self.cfg.image_tokens
+        n = min(IMAGE_ROWS, t)
+        self.image_rows = torch.arange(n, device=self.device) * t // n
+        self.prompt = torch.tensor(
+            before + [self.cfg.media_pad_id] * self.cfg.image_tokens + after,
+            device=self.device)
+
+    @property
+    def repr_tag(self) -> str:
+        c = self.cfg
+        return (f"kimicap|{c.image_width}x{c.image_height}"
+                f"|{c.vision_layers}x{c.vision_hidden_size}"
+                f"|{c.num_hidden_layers}x{c.hidden_size}"
+                f"|e{c.n_routed_experts}k{c.num_experts_per_tok}"
+                f"|n{c.max_new_tokens}|{type(self.decoder).__name__}"
+                f"|{self._param_src}|torch")
+
+    def caption(self, ids: np.ndarray) -> str:
+        """One frame's generated ids → its caption (up to its first eos)."""
+        toks = []
+        for t in ids.tolist():
+            if t == self.cfg.im_end_id:
+                break
+            toks.append(t)
+        return self.decoder.decode(toks) or "image content"
+
+    def frame_repr(self, frames: np.ndarray, return_details: bool = False):
+        """uint8 [N, H, W, 3] → one caption a frame (``np.str_``). With
+        ``return_details``: ``(captions, details)``, details holding the
+        chosen ``ids`` (int64 [N, n]) and each one's ``logits`` (f32
+        [N, n]) on the host; kept on the device, ``routes``, every MoE
+        layer's routed choices for the request (uint8 [n_moe, N, P + n -
+        1, k]), and ``image``, each frame's image tokens at
+        ``image_rows`` (``IMAGE_ROWS`` evenly spaced of the 576)."""
+        with span("kimi.frame_repr"):
+            if len(frames) == 0:
+                return ([], {}) if return_details else []
+            c = self.cfg
+            with span("kimi.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(frames)).to(
+                    self.device)
+            with torch.inference_mode():
+                with span("kimi.vision"):
+                    px = siglip_preprocess(x, c.image_height, c.image_width)
+                    img = self.model.image_embeds(px)
+                out = generate(self.model,
+                               self.prompt.expand(len(frames), -1), img,
+                               self.image_at, c.max_new_tokens, c.im_end_id,
+                               keep_routes=return_details)
+            ids = out["ids"].cpu().numpy()
+            reprs = [np.str_(self.caption(row)) for row in ids]
+            if not return_details:
+                return reprs
+            return reprs, {"ids": ids, "logits": out["logits"].cpu().numpy(),
+                           "routes": out["routes"],
+                           "image": img[:, self.image_rows]}
+
+    def scores_from_repr(self, reprs: List[np.ndarray], query: str
+                         ) -> Tuple[np.ndarray, List[dict]]:
+        with span("kimi.scores_from_repr"):
+            caps = [str(r) for r in reprs]
+            if not caps:
+                return np.zeros((0,), np.float32), []
+            embs = self.engine.embed_texts(caps + [query])
+            sims = (embs[:-1] @ embs[-1]).astype(np.float32)
+            return sims, [{"caption": cap} for cap in caps]
+
+    def rerank_scores(self, frames: np.ndarray, query: str
+                      ) -> Tuple[np.ndarray, List[dict]]:
+        return self.scores_from_repr(self.frame_repr(frames), query)
+
+
 def make_reranker(engine: ClipEngine):
-    """The phase-2 reranker by ``settings.BLIP_MODEL``: BLIP-2's ITC (a
-    value containing "blip2") on the engine's device, else BLIP
-    captions."""
+    """The phase-2 reranker by ``settings.BLIP_MODEL``: Kimi-VL captions
+    (a value containing "kimi-vl") or BLIP-2's ITC (one containing
+    "blip2") on the engine's device, else BLIP captions."""
+    if "kimi-vl" in settings.BLIP_MODEL.lower():
+        return KimiVLCaptionService(engine)
     if "blip2" in settings.BLIP_MODEL.lower():
         return Blip2RerankService(device=engine.device)
     return CaptionService(engine)

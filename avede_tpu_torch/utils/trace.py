@@ -140,6 +140,12 @@ def span(name: str, **attrs: Any):
     return _Span(name, attrs)
 
 
+def recording() -> bool:
+    """Whether ``span`` records now (a ``torch.profiler`` profile runs):
+    a caller reads counters it keeps on the device only then."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def spans_between(t0_ns: int, t1_ns: int) -> List[Span]:
     """The recorded spans that start at or after ``t0_ns`` and end at or
     before ``t1_ns`` (``perf_counter_ns``), oldest first."""

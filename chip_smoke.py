@@ -62,6 +62,18 @@ and the script exits non-zero without printing a result:
    ViT-g shape in f32 (row ``flash_attention[hd88]``: [30, 16, 257,
    88]), SDPA on the same f32 tensors its library call, and untimed at
    hd = 16, 24 and 32 (L = 17, 65, 70), all to the f32 bar.
+   Kimi-VL's kernels at its main path's shapes: the bf16 flash entry at
+   MoonViT's (row ``flash_attention_blhd[kimi]``: 30 candidates x 2304
+   patches, 16 heads of 72, the thirds of a fused qkv; the wgmma
+   kernel's hd = 72 instantiation) and the grouped expert layer
+   ``grouped_swiglu`` (``csrc/moe_grouped_gemm.cu``: gate and up with the
+   SiLU product, down, the combine) at a prefill's load (row
+   ``grouped_swiglu[prefill]``: 18,000 tokens, 30 prompts of 600) and a
+   decode step's (row ``grouped_swiglu[decode]``: 30 tokens), each routed
+   top-6 of 64 with the 2 shared experts at D 2048, F 1408; the layer is
+   held to an f32 layer on the same bf16 values within 1.25 times the
+   plain bf16 version's own distance from it + 1e-6, and no PyTorch call
+   computes it (``library_ms`` null).
    The entry counts launches by L and by kernel: the detection rows'
    counts are its wgmma (OWL-ViT's L = 577) and L = 50 (grid and crops)
    launches. The
@@ -350,6 +362,21 @@ and the script exits non-zero without printing a result:
    launches are path ``mesh`` (the one-shard and 1 x 1 runs beside them
    are not counted); the patch embed, bf16 flash, the window top-k, both
    fused index entries and the int8 add write must launch there.
+21. (run after phase 12, with BLIP-2 freed) the Kimi-VL reranker
+   (``BLIP_MODEL`` "kimi-vl-a3b-instruct" through ``make_reranker``:
+   ``KimiVLConfig()``, MoonViT 1152 x 27, the 2048-wide decoder of 27
+   layers, 26 of them 64-expert MoE; bf16, random weights from seed 0
+   drawn on the card) on 30 candidate frames of phase 5's source: one
+   ``frame_repr`` with the launch counts zeroed just before (path
+   ``reranked_kimi``): flash at L = 2304 once a MoonViT layer, all on the
+   wgmma kernel; the grouped kernel twice an MoE layer a forward (the
+   prefill's at 128-row tiles, each decode step's at 16-row ones) and
+   the combine once; no f32 flash. A second call with
+   ``return_details`` must give the same captions and routes of the
+   layers' shape (the first keeps none), and ``scores_from_repr`` one
+   finite score a caption. No CPU reference: 16 B parameters in f32 do
+   not fit beside the script; ``benchmark/`` holds the model to its f32
+   reference.
 
 Every kernel's row reports its launches on each path
 (``launches_by_path``, counts zeroed just before each path) and, as
@@ -368,7 +395,9 @@ two modes the ``eval`` path (rows 1c and 2j read its mma.sync-kernel
 and L = 17 launches), phase 17's 24 calls the ``eval_detection`` path
 (row 2k reads its L = 65 launches) and phase 18's tower the
 ``f32_flash`` path (row 2b reads its hd = 64 launches, the hd = 88 row
-its hd = 88 ones: none, as no model runs f32 at that width); phase 20's
+its hd = 88 ones: none, as no model runs f32 at that width), phase 21's
+call the ``reranked_kimi`` path (the ``[kimi]`` row reads its L = 2304
+launches, the grouped rows their tile shape's); phase 20's
 sharded runs are the ``mesh`` path, in every row's
 ``launches_by_path``.
 
@@ -436,6 +465,17 @@ FLASH_L577 = f"flash_attention_blhd[L={BLIP_TOKENS}]"
 FLASH_L50 = f"flash_attention_blhd[L={CLIP_TOKENS}]"
 FLASH_L257 = f"flash_attention_blhd[L={BLIP2_TOKENS}]"
 FLASH_L17 = f"flash_attention_blhd[L={TINY_TOKENS}]"
+# Kimi-VL's MoonViT: 896 x 504 px in 14 px patches, no CLS (16 heads of
+# 72), its depth, and the 30 candidates a reranked query captions
+KIMI_TOKENS = (896 // 14) * (504 // 14)
+KIMI_VISION_DEPTH = 27
+KIMI_CANDIDATES = 30
+FLASH_L2304 = f"flash_attention_blhd[L={KIMI_TOKENS}]"
+# the grouped expert layer's rows (and its launch keys, by tile shape):
+# Kimi-VL's widths, a prefill of 30 prompts of 600 ids, a decode step
+MOE_D, MOE_F, MOE_EXPERTS, MOE_TOP_K, MOE_SHARED = 2048, 1408, 64, 6, 2
+MOE_SCALE = 2.446
+MOE_ROWS = {"prefill": 18000, "decode": 30}
 # ... and by kernel: the wgmma kernel (hd = 64 or 88 from the crossover
 # L up: BLIP's and OWL-ViT's L = 577, BLIP-2's L = 257) and the mma.sync
 # one (every other shape)
@@ -460,6 +500,7 @@ CROP_FLASH = "flash_attention_blhd[crop]"
 # image query's small buckets: a reference image alone, a frame's crops
 REF_FLASH = "flash_attention_blhd[ref]"
 CROPS16_FLASH = "flash_attention_blhd[crops16]"
+KIMI_FLASH = "flash_attention_blhd[kimi]"
 # the wgmma kernel at a small batch and an odd L: a 65-row last q tile and
 # a 65-key last K/V tile (row stride 3 x 5 x 88, B·H = 5)
 EDGE_FLASH = "flash_attention_blhd[edge]"
@@ -594,11 +635,15 @@ KERNEL_PATH = {OWL_FLASH: "unlimited_detection",
                "quantize_rows_into": "library_int8",
                "quantize_per_channel": "library_int8",
                BLIP_FLASH: "reranked", BLIP2_FLASH: "reranked_blip2",
+               KIMI_FLASH: "reranked_kimi",
+               **{f"grouped_swiglu[{k}]": "reranked_kimi"
+                  for k in MOE_ROWS},
                REF_FLASH: "image_query", CROPS16_FLASH: "image_query",
                TINY_PATCH: "eval", TINY_FLASH: "eval",
                DET_FLASH: "eval_detection",
                "flash_attention": "f32_flash", F32_FLASH_HD88: "f32_flash"}
 LAUNCH_KEY = {BLIP_FLASH: FLASH_WGMMA, BLIP2_FLASH: FLASH_WGMMA,
+              KIMI_FLASH: FLASH_L2304,
               OWL_FLASH: FLASH_WGMMA, EDGE_FLASH: FLASH_WGMMA,
               GRID_FLASH: FLASH_L50, CROP_FLASH: FLASH_L50,
               REF_FLASH: FLASH_L50, CROPS16_FLASH: FLASH_L50,
@@ -970,6 +1015,7 @@ def check_kernels(torch, np, video):
                                  BLIP2_TOKENS, 16, 88))
     rows.append(check_blip_flash(torch, F, dev, gen, EDGE_FLASH,
                                  EDGE_TOKENS, 5, 88, bsz=1))
+    rows += check_kimi_kernels(torch, F, dev, gen)
     print(json.dumps({"flash_crossover": flash_crossover(torch, F, dev,
                                                          gen)}), flush=True)
     # the detection path: OWL-ViT's batch, the CLIP grid's cells of a
@@ -1306,6 +1352,102 @@ def check_blhd_flash(torch, F, dev, gen, name, bsz, length, h=12, hd=64):
     return blhd_row(torch, F, name, q, kk, v,
                     f"q,k,v bf16 [{bsz},{length},{h},{hd}] (row stride "
                     f"{h * hd}) -> bf16 [{bsz},{length},{h * hd}]")
+
+
+def moe_f32_layer(torch, x, r, wg, wu, wd):
+    """The grouped expert layer in f32 on the same bf16 values, one
+    expert at a time: each token's rows weighted and summed."""
+    from avede_tpu_torch.ops import moe
+
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for e in r.slots.unique().tolist():
+        tok, j = (r.slots == e).nonzero(as_tuple=True)
+        y = moe.expert_swiglu(xf[tok], wg[e].float(), wu[e].float(),
+                              wd[e].float())
+        out.index_add_(0, tok, y * r.weights[tok, j, None])
+    return out
+
+
+def moe_row(torch, dev, shape: str):
+    """Phase 3, a row of the grouped expert layer at ``MOE_ROWS[shape]``
+    tokens routed by a seeded router, Kimi-VL's widths: two grouped
+    launches at the tile shape named, held to ``moe_f32_layer`` within
+    1.25 times the plain bf16 version's own distance from it + 1e-6 (the
+    kernel rounds SiLU(gate)·up once from f32, the plain version at each
+    op). The bound: the rows' ``6·D·F`` operations at the bf16 tensor
+    peak, or the touched experts' weights read once."""
+    from avede_tpu_torch.ops import moe
+
+    d, f, e, s = MOE_D, MOE_F, MOE_EXPERTS, MOE_SHARED
+    tokens = MOE_ROWS[shape]
+    g = torch.Generator(device="cuda").manual_seed(tokens)
+    wg, wu = (torch.randn(e + s, f, d, device=dev, generator=g)
+              .mul_(d ** -0.5).to(torch.bfloat16) for _ in range(2))
+    wd = torch.randn(e + s, d, f, device=dev, generator=g).mul_(
+        f ** -0.5).to(torch.bfloat16)
+    gate = torch.randn(e, d, device=dev, generator=g) * d ** -0.5
+    bias = torch.randn(e, device=dev, generator=g) * 0.02
+    x = torch.randn(tokens, d, device=dev, generator=g).to(torch.bfloat16)
+    name = f"grouped_swiglu[{shape}]"
+    with torch.inference_mode():
+        r = moe.route(x, gate, bias, MOE_TOP_K, MOE_SCALE, s)
+        dsp = moe.dispatch(r.slots, e + s)
+        rows = int(dsp.counts.sum())
+        touched = int((dsp.counts > 0).sum())
+        if moe.tile_shape(rows, e + s) != shape:
+            fail(f"{name}: {rows} rows take the "
+                 f"{moe.tile_shape(rows, e + s)} tiles")
+        counts = moe.grouped_swiglu.launches_by_shape
+        before, total = counts[shape], moe.grouped_swiglu.launches
+        got = moe.grouped_swiglu(x, r, dsp, wg, wu, wd)
+        if counts[shape] != before + 2 \
+                or moe.grouped_swiglu.launches != total + 3:
+            fail(f"{name}: not two grouped launches and the combine")
+        ref = moe_f32_layer(torch, x, r, wg, wu, wd)
+        plain = moe.grouped_swiglu_plain(x, r, dsp, wg, wu, wd)
+        err = (got.float() - ref).abs().max().item()
+        bar = (plain.float() - ref).abs().max().item()
+        del ref, plain
+        tol = 1.25 * bar + 1e-6
+        if err > tol:
+            fail(f"{name}: max err {err} against the f32 layer over {tol}")
+        b, by = bound_ms(touched * 3 * d * f * 2.0, rows * 6.0 * d * f,
+                         BF16_TENSOR_FLOP_PER_S)
+        return dict(
+            name=name, route="cuda", kernel=shape,
+            source="avede_tpu_torch/csrc/moe_grouped_gemm.cu",
+            replaces="none: the JAX package has no sparse-expert layer",
+            shape=f"x bf16 [{tokens},{d}], top-{MOE_TOP_K} of {e} + {s} "
+                  f"shared, F {f}: {rows} rows, {touched} experts touched",
+            max_abs_err=err, tol="1.25 x the plain bf16 layer's error "
+                                 "against f32 + 1e-6", plain_err=bar,
+            ms=time_ms(torch, lambda: moe.grouped_swiglu(x, r, dsp, wg, wu,
+                                                         wd)),
+            call_ms=call_ms(torch, lambda: moe.grouped_swiglu(
+                x, r, dsp, wg, wu, wd), iters=20),
+            plain_ms=call_ms(torch, lambda: moe.grouped_swiglu_plain(
+                x, r, dsp, wg, wu, wd), iters=3),
+            bound_ms=b, bound_by=by,
+            bound_peak="bf16 tensor cores 989 TFLOP/s", bound_passes=1,
+            library_ms=None,
+            library="null: no single PyTorch call computes a grouped "
+                    "expert layer")
+
+
+def check_kimi_kernels(torch, F, dev, gen):
+    """Phase 3: Kimi-VL's kernels at its main path's shapes (the
+    ``[kimi]`` flash row, the grouped layer's prefill and decode rows)."""
+    from avede_tpu_torch.ops import attention
+
+    h, hd = 16, 72
+    if attention.blhd_kernel(KIMI_TOKENS, hd) != "wgmma":
+        fail(f"flash at L = {KIMI_TOKENS}, hd {hd} is not routed to wgmma")
+    rows = [check_blip_flash(torch, F, dev, gen, KIMI_FLASH, KIMI_TOKENS,
+                             h, hd, bsz=KIMI_CANDIDATES)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows + [moe_row(torch, dev, shape) for shape in MOE_ROWS]
 
 
 def flash_crossover(torch, F, dev, gen):
@@ -1904,13 +2046,15 @@ def drive_library(torch, np, engine, root):
 
 def reset_launches(fns) -> None:
     """Zero each wrapper's count (the bf16 flash entry's, kept by L; the
-    patch embed's by kernel and the f32 flash entry's by head dim too)."""
+    patch embed's by kernel, the f32 flash entry's by head dim and the
+    grouped expert layer's by tile shape too)."""
     for fn in fns:
         if hasattr(fn, "launches_by_length"):
             fn.launches_by_length.clear()
         else:
             fn.launches = 0
-        for by in ("launches_by_kernel", "launches_by_dim"):
+        for by in ("launches_by_kernel", "launches_by_dim",
+                   "launches_by_shape"):
             if hasattr(fn, by):
                 getattr(fn, by).clear()
 
@@ -1921,8 +2065,12 @@ def read_launches(fns) -> dict:
     apart, as ``FLASH_L577``, ``FLASH_L50``, ``FLASH_L257``,
     ``FLASH_L17`` and ``FLASH_L65``, and by kernel, as ``FLASH_WGMMA``
     and ``FLASH_MMA``; a patch embed's are also given by
-    kernel, as ``<name>[wgmma]`` and ``<name>[mma]``, and the f32 flash
-    entry's by head dim, as ``<name>[D=64]`` and ``<name>[D=88]``."""
+    kernel, as ``<name>[wgmma]`` and ``<name>[mma]``, the f32 flash
+    entry's by head dim, as ``<name>[D=64]`` and ``<name>[D=88]``, and
+    the grouped expert layer's (its kernel's and the combine's) also its
+    kernel's by tile shape, as ``<name>[prefill]`` and
+    ``<name>[decode]``; the bf16 flash entry's L = 2304 launches are
+    ``FLASH_L2304``."""
     out = {}
     for fn in fns:
         by_len = getattr(fn, "launches_by_length", None)
@@ -1935,6 +2083,10 @@ def read_launches(fns) -> dict:
             for hd in (64, 88):
                 if hasattr(fn, "launches_by_dim"):
                     out[f"{fn.__name__}[D={hd}]"] = fn.launches_by_dim[hd]
+            for shape in MOE_ROWS:
+                if hasattr(fn, "launches_by_shape"):
+                    out[f"{fn.__name__}[{shape}]"] = \
+                        fn.launches_by_shape[shape]
             continue
         out[fn.__name__] = by_len.total()
         out[FLASH_WGMMA] = fn.launches_by_kernel["wgmma"]
@@ -1944,6 +2096,7 @@ def read_launches(fns) -> dict:
         out[FLASH_L257] = by_len[BLIP2_TOKENS]
         out[FLASH_L17] = by_len[TINY_TOKENS]
         out[FLASH_L65] = by_len[DET_OWL_TOKENS]
+        out[FLASH_L2304] = by_len[KIMI_TOKENS]
     return out
 
 
@@ -2361,6 +2514,87 @@ def drive_blip2(torch, np, engine, video, cache_dir):
                 for r in cold[:5]], **checks}
     settings.BLIP_MODEL = blip_model
     del proc, svc, cand, px
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_kimi(torch, np, engine, video):
+    """Phase 21 (see the module docstring): the Kimi-VL reranker built
+    by ``make_reranker``, one counted ``frame_repr`` of 30 candidates,
+    a second with its details, the captions scored."""
+    from avede_tpu_torch.models.kimi_vl import KimiVLConfig
+    from avede_tpu_torch.ops import attention, moe
+    from avede_tpu_torch.services import captioner
+    from avede_tpu_torch.utils.config import settings
+
+    blip_model = settings.BLIP_MODEL
+    settings.BLIP_MODEL = "kimi-vl-a3b-instruct"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = captioner.make_reranker(engine)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = svc.cfg
+    if not isinstance(svc, captioner.KimiVLCaptionService) \
+            or cfg != KimiVLConfig():
+        fail(f"BLIP_MODEL={settings.BLIP_MODEL}: got {type(svc).__name__} "
+             f"with {cfg}")
+    # 30 candidates spread over the source's first 300 frames, RGB
+    frames = np.ascontiguousarray(
+        video._chunk(0, 10 * KIMI_CANDIDATES)[::10, :, :, ::-1])
+    counted = (attention.flash_attention_blhd, moe.grouped_swiglu,
+               attention.flash_attention)
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = svc.frame_repr(frames, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_launches(counted)
+    caps, cold_ms = timed()
+    launches = read_launches(counted)
+    (again, details), warm_ms = timed(return_details=True)
+    t0 = time.perf_counter()
+    scores, _ = svc.scores_from_repr(again, QUERIES[0])
+    scores_ms = (time.perf_counter() - t0) * 1e3
+
+    n_moe = cfg.n_moe_layers
+    ids = details["ids"]
+    forwards = ids.shape[1]              # the prefill and n - 1 steps
+    want = {FLASH_L2304: KIMI_VISION_DEPTH, FLASH_WGMMA: KIMI_VISION_DEPTH,
+            "grouped_swiglu": 3 * n_moe * forwards,
+            "grouped_swiglu[prefill]": 2 * n_moe,
+            "grouped_swiglu[decode]": 2 * n_moe * (forwards - 1),
+            "flash_attention": 0}
+    off = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if off:
+        fail(f"Kimi-VL reranked: launches (counted, expected) {off} for "
+             f"{forwards} forwards: {launches}")
+    routes = details["routes"]
+    prompt = svc.prompt.numel()
+    if list(caps) != list(again) or len(caps) != KIMI_CANDIDATES \
+            or ids.shape != (KIMI_CANDIDATES, forwards) \
+            or tuple(routes.shape) != (n_moe, KIMI_CANDIDATES,
+                                       prompt + forwards - 1,
+                                       cfg.num_experts_per_tok) \
+            or int(routes.max()) >= cfg.n_routed_experts \
+            or not np.isfinite(details["logits"]).all():
+        fail(f"Kimi-VL reranked: captions or details not of the contract "
+             f"or not repeated: ids {ids.shape}, routes "
+             f"{tuple(routes.shape)}")
+    if scores.shape != (KIMI_CANDIDATES,) or not np.isfinite(scores).all():
+        fail(f"Kimi-VL reranked: scores {scores}")
+    out = {"build_model_s": build_s, "frame_repr_cold_ms": cold_ms,
+           "frame_repr_details_ms": warm_ms,
+           "scores_from_repr_ms": scores_ms, "forwards": forwards,
+           "launches": launches,
+           "captions": [str(c) for c in caps[:3]],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    settings.BLIP_MODEL = blip_model
+    del svc, details, routes
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4838,6 +5072,8 @@ def main() -> None:
         blip2 = phase("blip2", drive_blip2, torch, np, engine, video,
                       Path(tmp) / "blip2")
         gc.collect()
+        # phase 21 after phase 12, with BLIP-2 freed
+        kimi = phase("kimi", drive_kimi, torch, np, engine, video)
         det, detection = drive_detection(torch, np, engine, video)
         print(json.dumps({"card": card, "detection": detection}),
               flush=True)
@@ -4891,6 +5127,7 @@ def main() -> None:
              "small_object": small["launches"],
              "image_query": image_query["launches"],
              "reranked_blip2": blip2["launches"]["cold"],
+             "reranked_kimi": kimi["launches"],
              "person_search": person["launches"],
              "train_serve": train["train_serve"]["launches"],
              "convert_serve": convert["launches"],
